@@ -1,0 +1,266 @@
+"""Command-line driver of the port: COLLECT -> CLUSTER -> COMBINE ->
+GENOTYPE -> output, on the device `utils.device.select_device` picks.
+
+Counterpart of svim_tpu/cli.py (svim/svim:25-217) for `alignment` mode on
+a coordinate-sorted BGZF BAM.  The stages are the port's; logging setup,
+argument parsing, writers and plots are svim_tpu's.  Inputs and options
+the port does not run yet raise NotImplementedError naming their ROADMAP
+item instead of taking another route.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import sys
+
+from time import localtime, strftime
+
+from svim_tpu import __version__
+from svim_tpu.config import parse_arguments
+from svim_tpu.output import (
+    write_candidates,
+    write_final_vcf,
+    write_signature_clusters_bed,
+    write_signature_clusters_vcf,
+)
+from svim_tpu.utils.timing import StageTimer
+from svim_tpu_torch.cluster.cluster import cluster_sv_signatures
+from svim_tpu_torch.combine.combine import combine_clusters
+from svim_tpu_torch.utils.device import describe, select_device
+
+
+def _setup_logging(options):
+    """Root logger to <working_dir>/SVIM_<time>.log and the console (the
+    reference's format, svim/svim:34-47)."""
+    log_formatter = logging.Formatter(
+        "%(asctime)s [%(levelname)-7.7s]  %(message)s")
+    root_logger = logging.getLogger()
+    root_logger.setLevel(logging.DEBUG if options.verbose else logging.INFO)
+    os.makedirs(options.working_dir, exist_ok=True)
+    file_handler = logging.FileHandler(
+        os.path.join(options.working_dir, "SVIM_{0}.log".format(
+            strftime("%y%m%d_%H%M%S", localtime()))), mode="w")
+    file_handler.setFormatter(log_formatter)
+    root_logger.addHandler(file_handler)
+    console_handler = logging.StreamHandler()
+    console_handler.setFormatter(log_formatter)
+    root_logger.addHandler(console_handler)
+
+
+def _plots(options, deletion_candidates, inversion_candidates,
+           int_duplication_candidates, tan_dup_candidates,
+           novel_insertion_candidates):
+    """The reference's SV-length and genotype plots; skipped with a warning
+    where matplotlib is not installed (they are not part of the calls)."""
+    try:
+        from svim_tpu.plots import plot_sv_alleles, plot_sv_lengths
+    except ModuleNotFoundError as error:
+        if error.name != "matplotlib":
+            raise
+        logging.warning("matplotlib is not installed: skipping the SV length "
+                        "and genotype plots.")
+        return
+    plot_sv_lengths(deletion_candidates, inversion_candidates,
+                    int_duplication_candidates, tan_dup_candidates,
+                    novel_insertion_candidates, options)
+    if not options.skip_genotyping:
+        plot_sv_alleles(deletion_candidates + inversion_candidates
+                        + int_duplication_candidates
+                        + novel_insertion_candidates, options)
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError("{0} is not ported to svim_tpu_torch yet "
+                               "(ROADMAP {1})".format(what, item))
+
+
+def check_supported(options):
+    """Raise NotImplementedError for options outside the ported slice."""
+    if options.sub != "alignment":
+        raise _not_ported("'reads' mode", "Queue 1 item 8")
+    if options.device_backend != "auto":
+        raise _not_ported("--device_backend {0} (the port runs on the device "
+                          "select_device() picks; SVIM_TORCH_DEVICE=cpu|cuda "
+                          "overrides)".format(options.device_backend),
+                          "Queue 1 item 11")
+    if options.distributed:
+        raise _not_ported("--distributed", "Queue 1 item 10")
+    if options.num_shards > 1:
+        raise _not_ported("--num_shards > 1", "Queue 1 item 10")
+
+
+def _collect(options, device):
+    """COLLECT for a coordinate-sorted BGZF BAM.  Returns (alignment index,
+    SignatureSoA, all_bnds twins)."""
+    from svim_tpu.io.bamstream import peek_bam_header
+    from svim_tpu.io.packed_fetch import PackedAlignmentIndex
+    from svim_tpu_torch.collect.packed import collect_soa_from_bam
+
+    logging.info("MODE: alignment")
+    logging.info("INPUT: {0}".format(os.path.abspath(options.bam_file)))
+    with open(options.bam_file, "rb") as probe:
+        is_bgzf = probe.read(2) == b"\x1f\x8b"
+    if not is_bgzf:
+        raise _not_ported("SAM text input", "Queue 1 item 8")
+    sort_order = peek_bam_header(options.bam_file).sort_order
+    if sort_order != "coordinate":
+        raise _not_ported("a BAM sorted by {0!r} (queryname-sorted and "
+                          "unsorted inputs)".format(sort_order),
+                          "Queue 1 item 8")
+    header, packed, sigs, trans = collect_soa_from_bam(options.bam_file,
+                                                       options, device)
+    logging.info("Using the packed array COLLECT path on {0}".format(
+        describe(device)))
+    return PackedAlignmentIndex(packed, header), sigs, trans
+
+
+def run_pipeline(options, device):
+    """The four-stage pipeline on `device`; returns the exit code."""
+    root_logger = logging.getLogger()
+    check_supported(options)
+    if getattr(options, "profile_trace", False):
+        logging.warning("--profile_trace captures jax traces in svim_tpu; the "
+                        "port logs --profile stage timings only.")
+    timer = StageTimer(enabled=options.profile or options.profile_trace)
+
+    logging.info("****************** STEP 1: COLLECT ******************")
+    with timer.stage("collect"):
+        aln_file, sv_signatures, translocation_signatures_all_bnds = _collect(
+            options, device)
+
+    type_names = {
+        "DEL": "deleted regions", "INS": "inserted regions",
+        "INV": "inverted regions", "DUP_TAN": "tandem duplicated regions",
+        "BND": "translocation breakpoints",
+        "DUP_INT": "inserted regions with detected region of origin"}
+    for sv_type in ("DEL", "INS", "INV", "DUP_TAN", "BND"):
+        logging.info("Found {0} signatures for {1}.".format(
+            sv_signatures.count(sv_type), type_names[sv_type]))
+    if options.all_bnds:
+        logging.info("Found {0} signatures for translocation breakpoints from "
+                     "other SV classes (DEL, INV, DUP).".format(
+                         len(translocation_signatures_all_bnds)))
+    logging.info("Found {0} signatures for {1}.".format(
+        sv_signatures.count("DUP_INT"), type_names["DUP_INT"]))
+
+    logging.info("****************** STEP 2: CLUSTER ******************")
+    with timer.stage("cluster"):
+        signature_clusters = cluster_sv_signatures(sv_signatures, options,
+                                                   device)
+        translocation_clusters_all_bnds = None
+        if options.all_bnds:
+            root_logger.setLevel(logging.WARNING)
+            translocation_clusters_all_bnds = cluster_sv_signatures(
+                translocation_signatures_all_bnds, options, device)
+            root_logger.setLevel(logging.DEBUG if options.verbose
+                                 else logging.INFO)
+
+    logging.info("Finished clustering. Writing signature clusters..")
+    written_clusters = signature_clusters
+    if options.all_bnds:
+        written_clusters = signature_clusters[:5] + (
+            signature_clusters[5] + translocation_clusters_all_bnds[5],)
+    write_signature_clusters_bed(options.working_dir, written_clusters)
+    write_signature_clusters_vcf(options.working_dir, written_clusters,
+                                 __version__)
+
+    logging.info("****************** STEP 3: COMBINE ******************")
+    with timer.stage("combine"):
+        (deletion_candidates, inversion_candidates, int_duplication_candidates,
+         tan_dup_candidates, novel_insertion_candidates,
+         breakend_candidates) = combine_clusters(signature_clusters, options,
+                                                 device)
+        breakend_candidates_all_bnds = []
+        if options.all_bnds:
+            root_logger.setLevel(logging.WARNING)
+            breakend_candidates_all_bnds = combine_clusters(
+                translocation_clusters_all_bnds, options, device)[5]
+            root_logger.setLevel(logging.DEBUG if options.verbose
+                                 else logging.INFO)
+
+    if not options.skip_genotyping:
+        logging.info("****************** STEP 4: GENOTYPE ******************")
+        from svim_tpu_torch.genotype import genotype_packed_multi
+
+        genotype_groups = (
+            (deletion_candidates, "DEL", "deletions"),
+            (inversion_candidates, "INV", "inversions"),
+            (novel_insertion_candidates, "INS", "novel insertions"),
+            (int_duplication_candidates, "DUP_INT",
+             "interspersed duplications"),
+        )
+        with timer.stage("genotype"):
+            genotype_packed_multi(genotype_groups, aln_file.packed,
+                                  aln_file.header, options, device)
+
+    logging.info("Write SV candidates..")
+    logging.info("Final deletion candidates: {0}".format(
+        len(deletion_candidates)))
+    logging.info("Final inversion candidates: {0}".format(
+        len(inversion_candidates)))
+    logging.info("Final interspersed duplication candidates: {0}".format(
+        len(int_duplication_candidates)))
+    logging.info("Final tandem duplication candidates: {0}".format(
+        len(tan_dup_candidates)))
+    logging.info("Final novel insertion candidates: {0}".format(
+        len(novel_insertion_candidates)))
+    logging.info("Final breakend candidates: {0}".format(
+        len(breakend_candidates)))
+    if options.all_bnds:
+        logging.info("Final breakend candidates from other SV classes (DEL, "
+                     "INV, DUP): {0}".format(len(breakend_candidates_all_bnds)))
+    all_breakends = breakend_candidates + breakend_candidates_all_bnds
+
+    with timer.stage("output"):
+        write_candidates(options.working_dir,
+                         (int_duplication_candidates, inversion_candidates,
+                          tan_dup_candidates, deletion_candidates,
+                          novel_insertion_candidates, all_breakends))
+        write_final_vcf(int_duplication_candidates, inversion_candidates,
+                        tan_dup_candidates, deletion_candidates,
+                        novel_insertion_candidates, all_breakends, __version__,
+                        aln_file.references, aln_file.lengths,
+                        options.types_to_output, options)
+
+    logging.info("Draw plots..")
+    root_logger.setLevel(logging.WARNING)
+    with timer.stage("plots"):
+        _plots(options, deletion_candidates, inversion_candidates,
+               int_duplication_candidates, tan_dup_candidates,
+               novel_insertion_candidates)
+    root_logger.setLevel(logging.DEBUG if options.verbose else logging.INFO)
+    timer.report()
+    if timer.enabled:
+        # unrounded, for scripts that read the log (chip_smoke.py)
+        logging.info("Stage seconds: %s", json.dumps(timer.durations))
+    logging.info("Done.")
+    return 0
+
+
+def main(arguments=None):
+    options = parse_arguments(program_version=__version__, arguments=arguments)
+    if not options.sub:
+        print("Please choose one of the two modes ('reads' or 'alignment'). "
+              "See --help for more information.")
+        return 1
+    device = select_device()
+    _setup_logging(options)
+    logging.info("****************** Start svim-tpu (PyTorch port), version "
+                 "{0} ******************".format(__version__))
+    logging.info("CMD: python3 {0}".format(" ".join(sys.argv)))
+    logging.info("WORKING DIR: {0}".format(os.path.abspath(options.working_dir)))
+    logging.info("DEVICE: {0}".format(describe(device)))
+    for field in sorted(vars(options)):
+        logging.info("PARAMETER: {0}, VALUE: {1}".format(
+            field, getattr(options, field)))
+    try:
+        return run_pipeline(options, device)
+    except Exception as error:  # noqa: BLE001 - top-level CLI guard
+        logging.error(error, exc_info=True)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,78 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into a
+shared library with a plain C interface and loaded through `ctypes` — the
+same pattern as svim_tpu/native (g++ + ctypes), and seconds to build where
+a source including PyTorch's headers takes minutes.  The build happens at
+first use, into `svim_tpu_torch/_build/` (git-ignored), keyed by a hash of
+the source and the flags, so a fresh checkout builds on its first kernel
+call and later processes reuse the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PACKAGE_DIR, "csrc")
+BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libraries = {}
+BUILD_SECONDS = {}   # source name -> seconds spent in nvcc by this process
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); the CUDA "
+                       "kernels of svim_tpu_torch build with the CUDA toolkit")
+
+
+def library_path(name: str) -> str:
+    """Path of the built library for `csrc/<name>.cu` (hash-keyed)."""
+    source = os.path.join(CSRC_DIR, name + ".cu")
+    with open(source, "rb") as handle:
+        digest = hashlib.sha256(handle.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, "{0}_{1}.so".format(
+        name, digest.hexdigest()[:16]))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Compile `csrc/<name>.cu` on first use and return the loaded library.
+    Raises when nvcc is missing or the compile fails."""
+    with _lock:
+        library = _libraries.get(name)
+        if library is not None:
+            return library
+        path = library_path(name)
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            # compile to a private name, then rename: concurrent builders
+            # never load a half-written library
+            partial = "{0}.{1}.tmp".format(path, os.getpid())
+            command = [_nvcc(), *NVCC_FLAGS, "-o", partial,
+                       os.path.join(CSRC_DIR, name + ".cu")]
+            started = time.perf_counter()
+            result = subprocess.run(command, capture_output=True, text=True)
+            if result.returncode != 0:
+                raise RuntimeError("nvcc failed for {0}.cu:\n{1}{2}".format(
+                    name, result.stdout, result.stderr))
+            os.replace(partial, path)
+            BUILD_SECONDS[name] = time.perf_counter() - started
+        library = ctypes.CDLL(path)
+        _libraries[name] = library
+        return library

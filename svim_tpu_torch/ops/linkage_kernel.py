@@ -1,0 +1,249 @@
+"""Batched average-linkage agglomeration over padded partitions (PyTorch).
+
+Counterpart of svim_tpu/ops/linkage_kernel.py (plain PyTorch; a hand kernel
+for the agglomeration loop is later work).  Each partition is a fixed
+(P, P) float32 distance matrix (P in {32, 128}); the batch dimension is
+written out where the JAX package used vmap, and the P-1 argmin+update
+steps run as a Python loop of `max(valid count) - 1` steps.
+
+Outputs match the JAX kernels: the merge sequence (slot pairs + heights)
+and the minimum relative tie gap, from which the host rebuilds scipy's Z
+and cuts it with fcluster (device_cluster.labels_from_merges).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+BIG = 3.0e38
+# merges with height >= CUTOFF are padding (no real pair left)
+MERGE_CUTOFF = 1.0e30
+# relative gap below which float32 cannot safely arbitrate a comparison that
+# scipy performs in float64 (same value as the JAX package)
+TIE_EPS = 3.0e-4
+WALL = 99999.0
+BND_NORM = 3000.0  # hardcoded in the reference (SVIM_clustering.py:91)
+BND_RECIPROCAL = float(np.float32(1.0) / np.float32(BND_NORM))
+
+# per-partition distance-formula codes for the fused route
+KIND_SPAN_POSITION = 0   # DEL / INV / DUP_TAN  (SVIM_clustering.py:48-63)
+KIND_DUP_INT = 1         # source center + destination start + span (:78-86)
+KIND_BND = 2             # (|pos1 delta| + |pos2 delta|) / 3000 (:87-94)
+
+
+def _scalar(value, like):
+    """A 0-d float32 tensor on `like`'s device: float32 arithmetic against a
+    device tensor, never a host scalar (CUDA turns division by a host
+    scalar into multiplication by its reciprocal)."""
+    return torch.tensor(value, dtype=torch.float32, device=like.device)
+
+
+def _fused_multiply_add(a, b, c):
+    """a*b + c rounded once to float32, as the reference computes the
+    size-weighted row average: XLA contracts s_lo*d_lo + s_hi*d_hi into
+    fma(s_lo, d_lo, s_hi*d_hi).  The float32 product is exact in float64,
+    so one float64 add and one rounding reproduce the fused result."""
+    return (a.to(torch.float64) * b.to(torch.float64)
+            + c.to(torch.float64)).to(torch.float32)
+
+
+def _agglomerate(d, steps: int):
+    """(B, P, P) float32 distances (BIG on the diagonal / invalid slots)
+    -> (merge_lo, merge_hi, heights: (B, P-1), min_rel_gap: (B,)).
+
+    Runs `steps` argmin+average-update steps per partition; steps whose
+    global minimum is >= MERGE_CUTOFF emit (-1, -1, BIG) padding rows.
+    min_rel_gap is the smallest (second_best - best) / max(best, 1) over
+    real merge steps — 0 for an exact tie."""
+    batch, p, _ = d.shape
+    device = d.device
+    rows = torch.arange(batch, device=device)
+    index = torch.arange(p, dtype=torch.int32, device=device)
+    eye = torch.eye(p, dtype=torch.bool, device=device)
+    big = _scalar(BIG, d)
+    one = _scalar(1.0, d)
+
+    valid = (d < MERGE_CUTOFF).any(dim=2) | (d < MERGE_CUTOFF).any(dim=1)
+    sizes = valid.to(torch.float32)
+    merges_lo = torch.full((batch, p - 1), -1, dtype=torch.int32, device=device)
+    merges_hi = torch.full((batch, p - 1), -1, dtype=torch.int32, device=device)
+    heights = torch.full((batch, p - 1), BIG, dtype=torch.float32,
+                         device=device)
+    min_gap = torch.full((batch,), BIG, dtype=torch.float32, device=device)
+    for step in range(steps):
+        # first minimum in row-major order, as jnp.argmin
+        flat = torch.argmin(d.reshape(batch, p * p), dim=1)
+        i = (flat // p).to(torch.int32)
+        j = (flat % p).to(torch.int32)
+        lo = torch.minimum(i, j)
+        hi = torch.maximum(i, j)
+        lo_l = lo.long()
+        hi_l = hi.long()
+        best = d[rows, lo_l, hi_l]
+        real = best < MERGE_CUTOFF
+
+        # runner-up over every other pair (the symmetric twin of (lo, hi) is
+        # masked out); an exact tie elsewhere gives gap 0
+        is_lo = index[None, :] == lo[:, None]
+        is_hi = index[None, :] == hi[:, None]
+        pair_mask = ((is_lo[:, :, None] & is_hi[:, None, :])
+                     | (is_hi[:, :, None] & is_lo[:, None, :]))
+        second = torch.where(pair_mask, big, d).amin(dim=(1, 2))
+        gap = (second - best) / torch.maximum(best, one)
+        min_gap = torch.where(real & (second < MERGE_CUTOFF),
+                              torch.minimum(min_gap, gap), min_gap)
+
+        size_lo = sizes[rows, lo_l]
+        size_hi = sizes[rows, hi_l]
+        row_lo = d[rows, lo_l, :]
+        row_hi = d[rows, hi_l, :]
+        merged_row = (_fused_multiply_add(size_lo[:, None], row_lo,
+                                          size_hi[:, None] * row_hi)
+                      / (size_lo + size_hi)[:, None])
+        keep_big = (row_lo >= MERGE_CUTOFF) | (row_hi >= MERGE_CUTOFF)
+        merged_row = torch.where(keep_big, big, merged_row)
+
+        real_col = real[:, None]
+        column_lo = d[rows, :, lo_l]
+        new_d = d.clone()
+        new_d[rows, lo_l, :] = torch.where(real_col, merged_row, row_lo)
+        new_d[rows, :, lo_l] = torch.where(real_col, merged_row, column_lo)
+        row_mask = is_hi[:, :, None] | is_hi[:, None, :] | eye[None]
+        d = torch.where(real[:, None, None] & row_mask, big, new_d)
+
+        new_sizes = sizes.clone()
+        new_sizes[rows, lo_l] = torch.where(real, size_lo + size_hi, size_lo)
+        new_sizes[rows, hi_l] = torch.where(real, torch.zeros_like(size_hi),
+                                            size_hi)
+        sizes = new_sizes
+        merges_lo[:, step] = torch.where(real, lo, -1)
+        merges_hi[:, step] = torch.where(real, hi, -1)
+        heights[:, step] = torch.where(real, best, big)
+    return merges_lo, merges_hi, heights, min_gap
+
+
+def _steps(valid) -> int:
+    if valid.numel() == 0:
+        return 0
+    return max(int(valid.sum(dim=1).max()) - 1, 0)
+
+
+def agglomerate_batched(distances, valid):
+    """(B, P, P) float32 distances + (B, P) bool valid -> per-partition merge
+    sequences (merge_lo, merge_hi, heights: (B, P-1)) and min relative tie
+    gap (B,).  Invalid slots never participate."""
+    p = distances.shape[1]
+    pair_valid = valid[:, :, None] & valid[:, None, :]
+    eye = torch.eye(p, dtype=torch.bool, device=distances.device)[None]
+    d = torch.where(pair_valid & ~eye, distances.to(torch.float32),
+                    _scalar(BIG, distances))
+    return _agglomerate(d, _steps(valid))
+
+
+def ins_matrices_from_pairs(starts, spans, pair_part, pair_i, pair_j,
+                            pair_ed, pos_norm, ed_norm):
+    """Device-resident INS distance matrices (SVIM_clustering.py:64-77).
+
+    starts/spans: (B, P) int32 partition columns.  pair_*: flat near-pair
+    lists (enumerated on host in the exact f64 order distance_matrix uses);
+    pair_ed comes straight from the wavefront kernel and never visits the
+    host.  Far pairs get position + span distance; near pairs get position +
+    ed/max_span/ed_norm.  Diagonal/invalid slots are left arbitrary —
+    agglomerate_batched masks them.  Padding pairs may point at (0, 0, 0)
+    (the masked diagonal)."""
+    pos_norm = _scalar(pos_norm, starts)
+    ed_norm = _scalar(ed_norm, starts)
+    one = _scalar(1.0, starts)
+    delta = (starts[:, :, None] - starts[:, None, :]).abs()  # int32: exact
+    pos = delta.to(torch.float32) / pos_norm
+    spans_f = spans.to(torch.float32)
+    max_span = torch.maximum(spans_f[:, :, None], spans_f[:, None, :])
+    span_d = ((spans_f[:, :, None] - spans_f[:, None, :]).abs()
+              / torch.maximum(max_span, one))
+    mat = pos + span_d
+    part = pair_part.long()
+    first = pair_i.long()
+    second = pair_j.long()
+    ed_term = (pos[part, first, second]
+               + pair_ed.to(torch.float32)
+               / torch.maximum(max_span[part, first, second], one)
+               / ed_norm)
+    mat[part, first, second] = ed_term
+    mat[part, second, first] = ed_term
+    return mat
+
+
+def _span_position_fused(starts, ends, dest, reads, valid, norm, threshold,
+                         wall_flag, kind):
+    """Batched device distance matrices + same-read dedup for the fused
+    route.  All inputs are (B, P) except wall_flag, kind: (B,).  Returns
+    (d, dropped, has_wall, dedup_ambiguous) with d ready to agglomerate."""
+    p = starts.shape[1]
+    device = starts.device
+    norm = _scalar(norm, starts)
+    threshold = _scalar(threshold, starts)
+    big = _scalar(BIG, starts)
+    one = _scalar(1.0, starts)
+    centers = torch.div(starts + ends, 2, rounding_mode="floor")
+    spans = ends - starts
+    delta_center = (centers[:, :, None] - centers[:, None, :]).abs()
+    delta_span = (spans[:, :, None] - spans[:, None, :]).abs()
+    max_span = torch.clamp(torch.maximum(spans[:, :, None], spans[:, None, :]),
+                           min=1)
+    span_position = (delta_center.to(torch.float32) / norm
+                     + delta_span.to(torch.float32)
+                     / max_span.to(torch.float32))
+    delta_dest = (dest[:, :, None] - dest[:, None, :]).abs().to(torch.float32)
+    dup_int = span_position + delta_dest / norm
+    delta_start = (starts[:, :, None] - starts[:, None, :]).abs().to(
+        torch.float32)
+    # the reference divides by the compile-time constant 3000, which XLA
+    # turns into a multiplication by its float32 reciprocal
+    bnd = (delta_start + delta_dest) * _scalar(BND_RECIPROCAL, starts)
+    kind = kind[:, None, None]
+    distance = torch.where(kind == KIND_BND, bnd,
+                           torch.where(kind == KIND_DUP_INT, dup_int,
+                                       span_position))
+
+    eye = torch.eye(p, dtype=torch.bool, device=device)[None]
+    pair_valid = valid[:, :, None] & valid[:, None, :] & ~eye
+    same_read = (reads[:, :, None] == reads[:, None, :]) & pair_valid
+
+    # reference dedup rule (SVIM_clustering.py:145-151): drop j when some
+    # i < j from the same read is within the cut threshold
+    slots = torch.arange(p, device=device)
+    row_lt = (slots[:, None] < slots[None, :])[None]
+    close = distance <= threshold
+    wall = wall_flag[:, None]
+    dropped = wall & (same_read & close & row_lt).any(dim=1)
+    # float32 cannot arbitrate a dedup comparison this close to the cut
+    near_cut = ((distance - threshold).abs()
+                < TIE_EPS * torch.maximum(distance, one))
+    dedup_ambiguous = wall_flag & (same_read & near_cut).flatten(1).any(dim=1)
+    alive = valid & ~dropped
+    pair_alive = alive[:, :, None] & alive[:, None, :] & ~eye
+    surviving_same_read = same_read & pair_alive & wall[:, :, None]
+    has_wall = surviving_same_read.flatten(1).any(dim=1)
+    d = torch.where(surviving_same_read, _scalar(WALL, starts), distance)
+    d = torch.where(pair_alive, d, big)
+    return d, dropped, has_wall, dedup_ambiguous
+
+
+def span_position_agglomerate_batched(starts, ends, reads, valid, norm,
+                                      threshold, wall_same_read, dest, kind):
+    """(B, P) int32 coordinate batch -> per-partition merge sequences plus
+    dedup/diagnostic outputs: (merges_lo, merges_hi, heights, min_gap,
+    dropped, has_wall, dedup_ambiguous).
+
+    `wall_same_read` is a (B,) bool tensor (True = apply the same-read
+    dedup rule + wall; False = INV semantics) and `kind` a (B,) int32
+    distance-formula code, so partitions of different types batch into one
+    call.  `dest` carries the second coordinate column (DUP_INT destination
+    start / BND pos2); ignored for kind 0."""
+    d, dropped, has_wall, dedup_ambiguous = _span_position_fused(
+        starts, ends, dest, reads, valid, norm, threshold, wall_same_read,
+        kind)
+    merges_lo, merges_hi, heights, min_gap = _agglomerate(d, _steps(valid))
+    return (merges_lo, merges_hi, heights, min_gap, dropped, has_wall,
+            dedup_ambiguous)
