@@ -6,8 +6,9 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. environment: a CUDA device is required; prints the card's name and
      power limit (nvidia-smi) and the torch / CUDA versions;
-  2. build: compiles csrc/wavefront.cu with nvcc into svim_tpu_torch/_build,
-     and svim_tpu's native host library (scan session, POA) with g++;
+  2. build: compiles csrc/wavefront.cu and csrc/span_distance.cu with nvcc
+     (both at once) into svim_tpu_torch/_build, and svim_tpu's native host
+     library (scan session, POA) with g++;
   3. kernel vs plain version on the card: banded_distance_cuda against
      banded_distance_torch on seeded inputs (half near-identical pairs, half
      random) at the main path's shapes and the two front layouts; outputs
@@ -27,7 +28,24 @@ Phases, each of which raises (non-zero exit) on failure:
   6. linkage ops on the card: every call the main path made to the plain
      PyTorch agglomeration ops in phases 4-5 is re-run on the CPU and must
      agree; on seeded tie-free partitions the labels built from the card's
-     merges must equal exact float64 host linkage.
+     merges must equal exact float64 host linkage;
+  7. distance kernel vs plain version on the card: span_position_matrix_cuda
+     against span_position_matrix_torch on seeded partitions at P in {32,
+     128} and B in {8, 1024, 8192}, with and without the same-read wall,
+     plus the case of tests/test_parallel.py; outputs must be bit-equal;
+     prints kernel and plain ms per shape (no entry point calls this
+     kernel, as in the JAX package);
+  8. streaming slice: the bench BAM rewritten as level-0 BGZF (over 96 MiB,
+     same records) through `alignment --edit_backend wavefront --profile`
+     must stream (io.bamstream.BATCHES), launch the wavefront kernel, match
+     BENCH_TELEMETRY["wavefront"] and hash to BENCH_VCF_SHA256; prints stage
+     seconds and reads/s through COLLECT+CLUSTER; the golden workload under
+     `--stream_input --batch_reads 64` must write the golden VCF (with
+     --edit_backend wavefront);
+  9. the other inputs: the golden workload as SAM text and as a
+     queryname-sorted BAM (SA entries as real supplementary records) with
+     --edit_backend wavefront must write VCFs hashing to svim_tpu's
+     (SAM_VCF_SHA256, QUERYNAME_VCF_SHA256) and launch the wavefront kernel.
 The script imports torch and the port, never jax or the JAX package: the
 inputs come from svim_tpu_torch.workloads.
 Then one JSON line describing the kernels, the card line, and the last
@@ -67,6 +85,16 @@ BENCH_TELEMETRY = {"wavefront": dict(_NO_TELEMETRY, pre_tie=96,
 # lines left out), from its CPU run with either edit backend
 BENCH_VCF_SHA256 = ("99228bd778ac48bd69bb95bc04b0ff5c"
                     "a8cb583bc7200f065cdc2898f1f5fa3e")
+# the same for the golden workload as SAM text (equal to the golden
+# fixture's) and as a queryname-sorted BAM (workloads.sam_text /
+# queryname_bam), from svim_tpu's CPU runs with --edit_backend wavefront
+# --incremental_cluster off; tests/test_torch_workloads.py checks both
+SAM_VCF_SHA256 = ("a59cd4b5438e42f0b4d728cfa4dff7b0"
+                  "3028aca61fd823004605ed1f25446da8")
+QUERYNAME_VCF_SHA256 = ("6296cf39aa2176464f1ac4072ac971cc"
+                        "6228edbc67482247d37b92dcca95e383")
+# (B, P) of the distance kernel's JSON timing: the largest listed shape
+DISTANCE_MAIN_SHAPE = (8192, 128)
 LINKAGE_OPS = ("span_position_agglomerate_batched", "agglomerate_batched",
                "ins_matrices_from_pairs")
 
@@ -93,13 +121,17 @@ def phase_environment():
 
 def phase_build():
     from svim_tpu_torch.native import host_library
-    from svim_tpu_torch.ops import _build, wavefront_kernel
+    from svim_tpu_torch.ops import _build, distance_kernel, wavefront_kernel
 
     started = time.perf_counter()
+    _build.build(("wavefront", "span_distance"))
     wavefront_kernel._kernel_library()
-    log("build", "wavefront.cu built and loaded in {0:.2f}s (nvcc {1:.2f}s)"
-        .format(time.perf_counter() - started,
-                _build.BUILD_SECONDS.get("wavefront", 0.0)))
+    distance_kernel._kernel_library()
+    log("build", "wavefront.cu and span_distance.cu built (in parallel) and "
+        "loaded in {0:.2f}s (nvcc {1})".format(
+            time.perf_counter() - started,
+            json.dumps({name: round(seconds, 2) for name, seconds
+                        in _build.BUILD_SECONDS.items()})))
     started = time.perf_counter()
     host_library()
     log("build", "native host library ready in {0:.2f}s".format(
@@ -348,20 +380,45 @@ def _telemetry():
     return {key: counts[key] for key in _NO_TELEMETRY}
 
 
+KERNEL_MODULES = {"wavefront_banded_distance": "wavefront_kernel",
+                  "span_distance_matrix": "distance_kernel"}
+# launch counts of every kernel, per path the smoke drives
+PATH_LAUNCHES = {}
+
+
+def _drive(path, arguments):
+    """One run of the port's CLI as a path of the smoke: every kernel's
+    launch count is set to 0 just before it and read just after (into
+    PATH_LAUNCHES[path]).  Returns the wavefront kernel's count."""
+    import importlib
+
+    modules = {name: importlib.import_module("svim_tpu_torch.ops." + module)
+               for name, module in KERNEL_MODULES.items()}
+    for module in modules.values():
+        module.LAUNCHES = 0
+    code = _run_port(arguments)
+    PATH_LAUNCHES[path] = {name: module.LAUNCHES
+                           for name, module in modules.items()}
+    if code != 0:
+        raise RuntimeError("{0} exited with {1}".format(path, code))
+    return PATH_LAUNCHES[path]["wavefront_banded_distance"]
+
+
+def _vcf_sha256(working_dir):
+    return hashlib.sha256("".join(_normalized_vcf(os.path.join(
+        working_dir, "variants.vcf"))).encode()).hexdigest()
+
+
 def phase_golden():
+    """Returns the golden workload's (bam, genome)."""
     from svim_tpu_torch import workloads
-    from svim_tpu_torch.ops import wavefront_kernel
 
     directory = os.path.join(SCRATCH, "golden")
     os.makedirs(directory, exist_ok=True)
     bam, genome = workloads.golden_workload(directory)
     working_dir = os.path.join(directory, "wd")
-    wavefront_kernel.LAUNCHES = 0
-    code = _run_port(["alignment", working_dir, bam, genome,
-                      "--edit_backend", "wavefront"])
-    launches = wavefront_kernel.LAUNCHES
-    if code != 0:
-        raise RuntimeError("golden slice exited with {0}".format(code))
+    launches = _drive("golden", ["alignment", working_dir, bam, genome,
+                                 "--edit_backend", "wavefront"])
     if _normalized_vcf(os.path.join(working_dir, "variants.vcf")) \
             != _normalized_vcf(GOLDEN):
         raise AssertionError("golden slice: variants.vcf differs from "
@@ -375,11 +432,12 @@ def phase_golden():
     log("golden", "variants.vcf byte-equal to the golden fixture; telemetry "
         "{0} equals svim_tpu's; wavefront kernel launches {1}".format(
             json.dumps(telemetry), launches))
+    return bam, genome
 
 
 def phase_bench(card, recorder):
+    """Returns the bench workload's (bam, genome)."""
     from svim_tpu_torch import workloads
-    from svim_tpu_torch.ops import wavefront_kernel
 
     directory = os.path.join(SCRATCH, "bench{0}".format(BENCH_READS))
     bam = os.path.join(directory, "bench.bam")
@@ -396,15 +454,11 @@ def phase_bench(card, recorder):
         working_dir = os.path.join(directory, "wd_" + backend)
         # the timed run goes through the ops themselves; the recorded
         # run that follows feeds phase 6
-        wavefront_kernel.LAUNCHES = 0
         started = time.perf_counter()
-        code = _run_port(["alignment", working_dir, bam, genome,
-                          "--edit_backend", backend, "--profile"])
+        launches = _drive("bench_" + backend,
+                          ["alignment", working_dir, bam, genome,
+                           "--edit_backend", backend, "--profile"])
         wall = time.perf_counter() - started
-        launches = wavefront_kernel.LAUNCHES
-        if code != 0:
-            raise RuntimeError("bench slice ({0}) exited with {1}".format(
-                backend, code))
         seconds = _stage_seconds(working_dir)
         rate = BENCH_READS / (seconds["collect"] + seconds["cluster"])
         telemetry = _telemetry()
@@ -427,8 +481,7 @@ def phase_bench(card, recorder):
                                             "variants.vcf")):
         raise AssertionError("bench slice: wavefront and auto variants.vcf "
                              "differ")
-    digest = hashlib.sha256("".join(_normalized_vcf(os.path.join(
-        results["wavefront"][0], "variants.vcf"))).encode()).hexdigest()
+    digest = _vcf_sha256(results["wavefront"][0])
     if digest != BENCH_VCF_SHA256:
         raise AssertionError("bench slice: variants.vcf (sha256 {0}) differs "
                              "from svim_tpu's".format(digest))
@@ -439,7 +492,7 @@ def phase_bench(card, recorder):
                           bam, genome, "--edit_backend", "wavefront"])
     if code != 0:
         raise RuntimeError("recorded bench slice exited with {0}".format(code))
-    return results["wavefront"][1]
+    return bam, genome
 
 
 def _same_linkage(got, want, where):
@@ -597,6 +650,168 @@ def phase_linkage(recorder):
             accepted_rows, max_error))
 
 
+def _distance_inputs(rng, batch, pad):
+    """Seeded (B, P) partitions: negative starts, zero and negative spans,
+    repeated read ids, a ragged number of valid slots per partition."""
+    import numpy as np
+
+    starts = rng.integers(-5_000, 2_000_000, size=(batch, pad)).astype(
+        np.int32)
+    ends = (starts + rng.integers(-50, 5_000, size=(batch, pad))).astype(
+        np.int32)
+    ends[:, ::7] = starts[:, ::7]
+    reads = rng.integers(0, max(2, pad // 3), size=(batch, pad)).astype(
+        np.int32)
+    counts = rng.integers(1, pad + 1, size=batch)
+    valid = np.arange(pad)[None, :] < counts[:, None]
+    return starts, ends, reads, valid
+
+
+def _parallel_case():
+    """The inputs of tests/test_parallel.py's Pallas check: read ids % 60,
+    the tail of partition 0 invalid."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    starts = rng.integers(1000, 2000, size=(3, 128)).astype(np.int32)
+    ends = starts + rng.integers(50, 500, size=(3, 128)).astype(np.int32)
+    reads = np.tile(np.arange(128, dtype=np.int32) % 60, (3, 1))
+    valid = np.ones((3, 128), bool)
+    valid[0, 100:] = False
+    return starts, ends, reads, valid
+
+
+def phase_distance():
+    """Phase 7: the distance kernel against its plain version, bit for bit.
+    Returns {(B, P, wall): (kernel ms, plain ms)} and the max abs error."""
+    import numpy as np
+    import torch
+
+    from svim_tpu_torch.ops import distance_kernel as dk
+
+    rng = np.random.default_rng(20261018)
+    cases = [((batch, pad), _distance_inputs(rng, batch, pad))
+             for pad in (32, 128) for batch in (8, 1024, 8192)]
+    cases.append(((3, 128), _parallel_case()))
+    timings = {}
+    max_abs_err = 0.0
+    for (batch, pad), arrays in cases:
+        tensors = [torch.from_numpy(x).cuda() for x in arrays]
+        for wall in (True, False):
+            plain_ms, plain = _time_ms(
+                lambda: dk.span_position_matrix_torch(*tensors, 900.0,
+                                                      wall_same_read=wall), 5)
+            kernel_ms, kernel = _time_ms(
+                lambda: dk.span_position_matrix_cuda(*tensors, 900.0,
+                                                     wall_same_read=wall), 20)
+            differ = int((plain.view(torch.int32)
+                          != kernel.view(torch.int32)).sum())
+            if differ:
+                raise AssertionError("distance kernel != plain at B={0} P={1}"
+                                     " wall={2}: {3} entries differ".format(
+                                         batch, pad, wall, differ))
+            max_abs_err = max(max_abs_err,
+                              float((plain - kernel).abs().max()))
+            timings[(batch, pad, wall)] = (kernel_ms, plain_ms)
+            log("distance", "B={0} P={1} wall={2}: bit-equal ({3} entries "
+                "below BIG); kernel {4:.4f} ms, plain {5:.4f} ms".format(
+                    batch, pad, wall, int((kernel < dk.BIG).sum()), kernel_ms,
+                    plain_ms))
+    return timings, max_abs_err
+
+
+def phase_streaming(card, bench_bam, genome, golden_bam, golden_genome):
+    """Phase 8: the level-0 bench BAM through streaming COLLECT, and the
+    golden workload under --stream_input."""
+    from svim_tpu_torch import workloads
+    from svim_tpu_torch.collect.packed import STREAMING_THRESHOLD_BYTES
+    from svim_tpu_torch.io import bamstream
+
+    directory = os.path.dirname(bench_bam)
+    stored = os.path.join(directory, "bench_stored.bam")
+    started = time.perf_counter()
+    workloads.reblock_stored(bench_bam, stored)
+    size = os.path.getsize(stored)
+    log("stream", "rewrote the bench BAM as level-0 BGZF in {0:.1f}s ({1} "
+        "bytes)".format(time.perf_counter() - started, size))
+    if size <= STREAMING_THRESHOLD_BYTES:
+        raise AssertionError("the level-0 bench BAM is not over the "
+                             "streaming threshold")
+    working_dir = os.path.join(directory, "wd_stream")
+    bamstream.BATCHES = 0
+    started = time.perf_counter()
+    launches = _drive("stream_bench", ["alignment", working_dir, stored,
+                                       genome, "--edit_backend", "wavefront",
+                                       "--profile"])
+    wall = time.perf_counter() - started
+    batches = bamstream.BATCHES
+    seconds = _stage_seconds(working_dir)
+    telemetry = _telemetry()
+    log("stream", "level-0 bench BAM: {0} streamed batches; wall {1:.2f}s; "
+        "stages {2}; telemetry {3}; wavefront launches {4}; {5:.1f} reads/s "
+        "through COLLECT+CLUSTER on {6}".format(
+            batches, wall, json.dumps(seconds), json.dumps(telemetry),
+            launches, BENCH_READS / (seconds["collect"] + seconds["cluster"]),
+            card))
+    if batches <= 0:
+        raise AssertionError("the level-0 bench BAM did not stream")
+    if launches <= 0:
+        raise AssertionError("the streaming slice launched no wavefront "
+                             "kernel")
+    if telemetry != BENCH_TELEMETRY["wavefront"]:
+        raise AssertionError("streaming slice telemetry {0} != svim_tpu's "
+                             "{1}".format(telemetry,
+                                          BENCH_TELEMETRY["wavefront"]))
+    digest = _vcf_sha256(working_dir)
+    if digest != BENCH_VCF_SHA256:
+        raise AssertionError("streaming slice: variants.vcf (sha256 {0}) "
+                             "differs from svim_tpu's".format(digest))
+
+    working_dir = os.path.join(os.path.dirname(golden_bam), "wd_stream")
+    bamstream.BATCHES = 0
+    launches = _drive("stream_golden", ["alignment", working_dir, golden_bam,
+                                        golden_genome, "--stream_input",
+                                        "--batch_reads", "64",
+                                        "--edit_backend", "wavefront"])
+    if bamstream.BATCHES <= 1 or launches <= 0:
+        raise AssertionError("golden --stream_input: {0} batches, {1} "
+                             "wavefront launches".format(bamstream.BATCHES,
+                                                         launches))
+    if _normalized_vcf(os.path.join(working_dir, "variants.vcf")) \
+            != _normalized_vcf(GOLDEN):
+        raise AssertionError("golden --stream_input: variants.vcf differs "
+                             "from tests/golden/variants.golden.vcf")
+    log("stream", "VCF hashes to svim_tpu's; golden --stream_input "
+        "(--batch_reads 64, {0} batches) writes the golden VCF".format(
+            bamstream.BATCHES))
+
+
+def phase_inputs(golden_bam, golden_genome):
+    """Phase 9: the golden workload as SAM text and as a queryname-sorted
+    BAM."""
+    from svim_tpu_torch import workloads
+
+    directory = os.path.dirname(golden_bam)
+    for path, writer, name, expected in (
+            ("sam_text", workloads.sam_text, "reads.sam", SAM_VCF_SHA256),
+            ("queryname", workloads.queryname_bam, "reads.qname.bam",
+             QUERYNAME_VCF_SHA256)):
+        source = writer(golden_bam, os.path.join(directory, name))
+        working_dir = os.path.join(directory, "wd_" + path)
+        launches = _drive(path, ["alignment", working_dir, source,
+                                 golden_genome, "--edit_backend",
+                                 "wavefront"])
+        digest = _vcf_sha256(working_dir)
+        if digest != expected:
+            raise AssertionError("{0}: variants.vcf (sha256 {1}) differs from "
+                                 "svim_tpu's".format(path, digest))
+        if launches <= 0:
+            raise AssertionError("{0} launched no wavefront kernel".format(
+                path))
+        log("inputs", "{0}: variants.vcf hashes to svim_tpu's; wavefront "
+            "launches {1}".format(path, launches))
+
+
 def main():
     sys.path.insert(0, ROOT)
     card = phase_environment()
@@ -604,22 +819,43 @@ def main():
     timings, max_abs_err = phase_kernels(kernel_shapes())
     recorder = LinkageRecorder()
     with recorder:
-        phase_golden()
-    launches = phase_bench(card, recorder)
+        golden_bam, golden_genome = phase_golden()
+    bench_bam, bench_genome = phase_bench(card, recorder)
     phase_linkage(recorder)
+    distance_timings, distance_err = phase_distance()
+    phase_streaming(card, bench_bam, bench_genome, golden_bam, golden_genome)
+    phase_inputs(golden_bam, golden_genome)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+    log("paths", "kernel launches per path: {0}".format(
+        json.dumps(PATH_LAUNCHES)))
 
     import torch
 
+    def by_path(name):
+        return {path: counts[name] for path, counts in PATH_LAUNCHES.items()}
+
     kernel_ms, plain_ms = timings[MAIN_SHAPE]
+    distance_ms, distance_plain_ms = distance_timings[
+        DISTANCE_MAIN_SHAPE + (True,)]
     print(json.dumps({"kernels": [{
         "name": "wavefront_banded_distance", "route": "cuda",
         "source": "svim_tpu_torch/csrc/wavefront.cu",
         "replaces": "svim_tpu/ops/wavefront_kernel.py:123",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": kernel_ms, "plain_ms": plain_ms,
-        "shape": "B={0},L={1},W={2}".format(*MAIN_SHAPE)}]}))
+        "launches": PATH_LAUNCHES["bench_wavefront"][
+            "wavefront_banded_distance"],
+        "launches_by_path": by_path("wavefront_banded_distance"),
+        "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "shape": "B={0},L={1},W={2}".format(*MAIN_SHAPE)}, {
+        "name": "span_distance_matrix", "route": "cuda",
+        "source": "svim_tpu_torch/csrc/span_distance.cu",
+        "replaces": "svim_tpu/ops/distance_kernel.py:52",
+        "launches": PATH_LAUNCHES["bench_wavefront"]["span_distance_matrix"],
+        "launches_by_path": by_path("span_distance_matrix"),
+        "on_main_path": False,
+        "max_abs_err": distance_err, "ms": distance_ms,
+        "plain_ms": distance_plain_ms,
+        "shape": "B={0},P={1},wall".format(*DISTANCE_MAIN_SHAPE)}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

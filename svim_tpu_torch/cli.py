@@ -1,11 +1,13 @@
 """Command-line driver of the port: COLLECT -> CLUSTER -> COMBINE ->
 GENOTYPE -> output, on the device `utils.device.select_device` picks.
 
-Counterpart of svim_tpu/cli.py (svim/svim:25-217) for `alignment` mode on
-a coordinate-sorted BGZF BAM.  The stages are the port's; logging setup,
-argument parsing, writers and plots are svim_tpu's.  Inputs and options
-the port does not run yet raise NotImplementedError naming their ROADMAP
-item instead of taking another route.
+Counterpart of svim_tpu/cli.py (svim/svim:25-217) for `alignment` mode:
+a coordinate-sorted BGZF BAM (one-shot or streaming COLLECT), SAM text,
+or a queryname-sorted file.  The stages are the port's; logging setup,
+argument parsing, writers, plots and the host genotyping of parsed
+records are svim_tpu's.  Options the port does not run yet raise
+NotImplementedError naming their ROADMAP item instead of taking another
+route.
 """
 
 from __future__ import annotations
@@ -92,28 +94,57 @@ def check_supported(options):
 
 
 def _collect(options, device):
-    """COLLECT for a coordinate-sorted BGZF BAM.  Returns (alignment index,
-    SignatureSoA, all_bnds twins)."""
+    """COLLECT for an `alignment`-mode input (svim_tpu/cli.py:132-194).
+
+    A coordinate-sorted BGZF BAM goes through the packed scanners; SAM text
+    and queryname-sorted input are parsed into records first.  Returns
+    (alignment index or AlignmentFile, signatures, all_bnds twins,
+    options), or None for an unsorted input (logged as the reference
+    does)."""
     from svim_tpu.io.bamstream import peek_bam_header
     from svim_tpu.io.packed_fetch import PackedAlignmentIndex
-    from svim_tpu_torch.collect.packed import collect_soa_from_bam
+    from svim_tpu.io.sam import AlignmentFile
+    from svim_tpu_torch.collect import packed as collect_packed
 
     logging.info("MODE: alignment")
     logging.info("INPUT: {0}".format(os.path.abspath(options.bam_file)))
     with open(options.bam_file, "rb") as probe:
         is_bgzf = probe.read(2) == b"\x1f\x8b"
-    if not is_bgzf:
-        raise _not_ported("SAM text input", "Queue 1 item 8")
-    sort_order = peek_bam_header(options.bam_file).sort_order
-    if sort_order != "coordinate":
-        raise _not_ported("a BAM sorted by {0!r} (queryname-sorted and "
-                          "unsorted inputs)".format(sort_order),
-                          "Queue 1 item 8")
-    header, packed, sigs, trans = collect_soa_from_bam(options.bam_file,
-                                                       options, device)
-    logging.info("Using the packed array COLLECT path on {0}".format(
-        describe(device)))
-    return PackedAlignmentIndex(packed, header), sigs, trans
+    if is_bgzf:
+        try:
+            peeked_order = peek_bam_header(options.bam_file).sort_order
+        except (ValueError, OSError):
+            peeked_order = None
+        if peeked_order == "coordinate":
+            header, table, sigs, trans = collect_packed.collect_soa_from_bam(
+                options.bam_file, options, device)
+            logging.info("Using the packed array COLLECT path on {0}".format(
+                describe(device)))
+            return PackedAlignmentIndex(table, header), sigs, trans, options
+
+    aln_file = AlignmentFile(options.bam_file)
+    try:
+        sort_order = aln_file.header["HD"]["SO"]
+    except KeyError:
+        logging.error("Is the given input BAM file sorted? It does not "
+                      "contain a sorting order in its header line.")
+        return None
+    if sort_order == "coordinate":
+        sigs, trans = collect_packed.collect_signatures_packed(
+            aln_file, options, device)
+    elif sort_order == "queryname":
+        sigs, trans = collect_packed.collect_signatures_packed_querysorted(
+            aln_file, options, device)
+        logging.warning("Skipping genotyping because it requires a "
+                        "coordinate-sorted input BAM file. The given file is "
+                        "queryname-sorted according to its header line.")
+        options = options.replace(skip_genotyping=True)
+    else:
+        logging.error("Input BAM file needs to be coordinate-sorted or "
+                      "queryname-sorted. The given file, however, is unsorted "
+                      "according to its header line.")
+        return None
+    return aln_file, sigs, trans, options
 
 
 def run_pipeline(options, device):
@@ -127,23 +158,33 @@ def run_pipeline(options, device):
 
     logging.info("****************** STEP 1: COLLECT ******************")
     with timer.stage("collect"):
-        aln_file, sv_signatures, translocation_signatures_all_bnds = _collect(
-            options, device)
+        result = _collect(options, device)
+    if result is None:
+        return 1
+    (aln_file, sv_signatures, translocation_signatures_all_bnds,
+     options) = result
 
     type_names = {
         "DEL": "deleted regions", "INS": "inserted regions",
         "INV": "inverted regions", "DUP_TAN": "tandem duplicated regions",
         "BND": "translocation breakpoints",
         "DUP_INT": "inserted regions with detected region of origin"}
+    from svim_tpu.sigtable import SignatureSoA
+
+    if isinstance(sv_signatures, SignatureSoA):
+        count_of = sv_signatures.count
+    else:
+        def count_of(sv_type):
+            return sum(1 for sig in sv_signatures if sig.type == sv_type)
     for sv_type in ("DEL", "INS", "INV", "DUP_TAN", "BND"):
         logging.info("Found {0} signatures for {1}.".format(
-            sv_signatures.count(sv_type), type_names[sv_type]))
+            count_of(sv_type), type_names[sv_type]))
     if options.all_bnds:
         logging.info("Found {0} signatures for translocation breakpoints from "
                      "other SV classes (DEL, INV, DUP).".format(
                          len(translocation_signatures_all_bnds)))
     logging.info("Found {0} signatures for {1}.".format(
-        sv_signatures.count("DUP_INT"), type_names["DUP_INT"]))
+        count_of("DUP_INT"), type_names["DUP_INT"]))
 
     logging.info("****************** STEP 2: CLUSTER ******************")
     with timer.stage("cluster"):
@@ -182,6 +223,8 @@ def run_pipeline(options, device):
 
     if not options.skip_genotyping:
         logging.info("****************** STEP 4: GENOTYPE ******************")
+        from svim_tpu.genotype import genotype
+        from svim_tpu.io.packed_fetch import PackedAlignmentIndex
         from svim_tpu_torch.genotype import genotype_packed_multi
 
         genotype_groups = (
@@ -192,8 +235,16 @@ def run_pipeline(options, device):
              "interspersed duplications"),
         )
         with timer.stage("genotype"):
-            genotype_packed_multi(genotype_groups, aln_file.packed,
-                                  aln_file.header, options, device)
+            if isinstance(aln_file, PackedAlignmentIndex):
+                # the packed table of a BAM scan (one-shot or streaming):
+                # one batched interval join on the device
+                genotype_packed_multi(genotype_groups, aln_file.packed,
+                                      aln_file.header, options, device)
+            else:
+                # parsed records (SAM text): svim_tpu's host region queries
+                for candidates, type_name, label in genotype_groups:
+                    logging.info("Genotyping {0}..".format(label))
+                    genotype(candidates, aln_file, type_name, options)
 
     logging.info("Write SV candidates..")
     logging.info("Final deletion candidates: {0}".format(

@@ -1,12 +1,20 @@
 """Array-path COLLECT on the port's device: packed batches -> kernels ->
 signature tables.
 
-Counterpart of the one-shot pipelined path of svim_tpu/collect/packed.py
-(collect_soa_from_bam -> collect_soa_pipelined): the native scan session
-inflates and walks the BAM in background threads while this thread packs
-each delivered row range and runs its COLLECT + split-read classify passes
-on `device`.  The emitters that turn fetched events into SoA tables are
-svim_tpu's (imported), so row order and table contents are identical.
+Counterpart of svim_tpu/collect/packed.py for every input the `alignment`
+mode takes:
+  * a coordinate-sorted BGZF BAM up to STREAMING_THRESHOLD_BYTES: the
+    one-shot pipelined path (collect_soa_from_bam -> collect_soa_pipelined),
+    where the native scan session inflates and walks the BAM in background
+    threads while this thread packs each delivered row range and runs its
+    COLLECT + split-read classify passes on `device`;
+  * a larger BAM, or --stream_input: the streaming scanner
+    (io.bamstream.collect_streaming), batch by batch into one SoAState;
+  * SAM text (collect_signatures_packed) and queryname-sorted input
+    (collect_signatures_packed_querysorted): parsed records packed into one
+    batch, Signature objects out.
+The emitters that turn fetched events into signatures are svim_tpu's
+(imported), so row order and contents are identical.
 """
 
 from __future__ import annotations
@@ -18,15 +26,20 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from svim_tpu.collect.collect import bam_iterator, retrieve_other_alignments
+from svim_tpu.collect.inter import analyze_read_segments
 from svim_tpu.collect.packed import (
     MAX_SEGMENTS,
     STREAMING_THRESHOLD_BYTES,
     SoAState,
     _emit_classified,
+    _emit_indel_events,
     _emit_indel_events_soa,
     _parse_sa_segments,
 )
-from svim_tpu.io.packing import FSUPPLEMENTARY
+from svim_tpu.io.bamstream import GenotypeTable
+from svim_tpu.io.packing import FSECONDARY, FSUPPLEMENTARY, FUNMAP
+from svim_tpu_torch.io.packing import pack_alignments
 from svim_tpu_torch.state import packed_to_torch, to_host
 
 
@@ -34,17 +47,16 @@ def collect_soa_from_bam(bam_path: str, options, device):
     """COLLECT straight from a BGZF BAM into struct-of-arrays tables.
 
     Returns (header, GenotypeTable, SignatureSoA, twins).  Inputs above
-    STREAMING_THRESHOLD_BYTES, or --stream_input, need the streaming
-    scanner, which the port does not have yet."""
-    if (getattr(options, "stream_input", False)
-            or os.path.getsize(bam_path) > STREAMING_THRESHOLD_BYTES):
-        raise NotImplementedError(
-            "streaming COLLECT (inputs over {0} MiB or --stream_input) is not "
-            "ported yet: ROADMAP Queue 1 item 7".format(
-                STREAMING_THRESHOLD_BYTES >> 20))
+    STREAMING_THRESHOLD_BYTES, or --stream_input, stream with bounded
+    memory; smaller ones take the one-shot pipelined path."""
     from svim_tpu_torch.native import host_library
 
-    host_library()   # the scan session is native; raises when it cannot build
+    host_library()   # both scanners are native; raises when it cannot build
+    if (getattr(options, "stream_input", False)
+            or os.path.getsize(bam_path) > STREAMING_THRESHOLD_BYTES):
+        from svim_tpu_torch.io.bamstream import collect_streaming
+
+        return collect_streaming(bam_path, options, device)
     return collect_soa_pipelined(bam_path, options, device)
 
 
@@ -62,10 +74,9 @@ def _collect_soa_pipelined_stream(compressed: bytes, options, device):
     the JAX CLUSTER path, and its output is byte-equal with the feature off
     (tests/test_incremental_cluster.py)."""
     from svim_tpu import native
-    from svim_tpu.io.bamscan import LazySequences, LazyStrings
-    from svim_tpu.io.bamstream import GenotypeTable, _parse_header, _row_bucket
+    from svim_tpu.io.bamstream import _parse_header
     from svim_tpu.io.packing import bucket_size
-    from svim_tpu_torch.io.bamscan import build_packed
+    from svim_tpu_torch.io.bamstream import _batch_from_columns
 
     if getattr(options, "incremental_cluster", "auto") != "off":
         logging.info("Mid-scan incremental clustering is off in the PyTorch "
@@ -92,33 +103,12 @@ def _collect_soa_pipelined_stream(compressed: bytes, options, device):
                 # the walker parsed the header before delivering any rows
                 header, _offset = _parse_header(session.data)
             if n:
-                k = bucket_size(max(1, max_ops))
-                (cigar_words, ref_id, pos, mapq, flag, name_off, name_len,
-                 seq_off, seq_len, sa_off, sa_len) = session.fill(
-                    row_start, n, k)
-                n_pad = _row_bucket(n)
-
-                def pad(values, dtype, fill=0):
-                    out = np.full(n_pad, fill, dtype=dtype)
-                    out[:n] = values
-                    return out
-
-                padded_words = np.zeros((n_pad, k), dtype=np.int32)
-                padded_words[:n] = cigar_words
-                packed = build_packed(
-                    pad(ref_id, np.int32, -1), pad(pos, np.int32),
-                    pad(mapq, np.int32), pad(flag, np.int32), padded_words,
-                    LazyStrings(session.data, pad(name_off, np.int64, -1),
-                                pad(name_len, np.int64)),
-                    LazySequences(session.data, pad(seq_off, np.int64),
-                                  pad(seq_len, np.int64)),
-                    device)
-                sa_tags = LazyStrings(session.data,
-                                      pad(sa_off, np.int64, -1),
-                                      pad(sa_len, np.int64),
-                                      none_when_negative=True)
-                stage = stage_signatures_soa(packed, sa_tags, header, options,
-                                             device)
+                batch = _batch_from_columns(
+                    session.data,
+                    *session.fill(row_start, n, bucket_size(max(1, max_ops))),
+                    row_offset=row_start)
+                stage = stage_signatures_soa(batch.packed, batch.sa_tags,
+                                             header, options, device)
                 if stage is not None:
                     staged.append((stage, row_start, n))
             # consume every stage but the newest while the walker threads
@@ -141,25 +131,146 @@ def _collect_soa_pipelined_stream(compressed: bytes, options, device):
                                options, state, row_tag_offset=row_start)
     soa, twins = state.finalize()
 
-    ref_id_parts, ref_start_parts, ref_end_parts, mapq_parts = [], [], [], []
-    names_all: List[str] = []
+    columns = GenotypeColumns()
     for stage, _row_start, n_real in staged:
-        packed = stage.packed
-        ref_id_parts.append(np.asarray(packed.ref_id[:n_real]))
-        ref_start_parts.append(np.asarray(packed.ref_start[:n_real]))
-        ref_end_parts.append(np.asarray(packed.ref_end[:n_real]))
-        mapq_parts.append(np.asarray(packed.mapq[:n_real]))
-        names_all.extend(packed.names.take(np.arange(n_real)))
-    if ref_id_parts:
-        table = GenotypeTable(np.concatenate(ref_id_parts),
-                              np.concatenate(ref_start_parts),
-                              np.concatenate(ref_end_parts),
-                              np.concatenate(mapq_parts), names_all)
-    else:
-        table = GenotypeTable(np.zeros(0, np.int32), np.zeros(0, np.int64),
-                              np.zeros(0, np.int64), np.zeros(0, np.int32), [])
+        columns.add(stage.packed, n_real)
+    table = columns.table()
     session.close()
     return header, table, soa, twins
+
+
+class GenotypeColumns:
+    """The per-record columns GENOTYPE reads (ref_id, ref_start, ref_end,
+    mapq, names), gathered from the real rows of packed batches after their
+    COLLECT pass; `table()` joins them into one GenotypeTable."""
+
+    _KEYS = ("ref_id", "ref_start", "ref_end", "mapq")
+
+    def __init__(self):
+        self.parts = {key: [] for key in self._KEYS}
+        self.names: List[str] = []
+
+    def add(self, packed, n_real):
+        for key in self._KEYS:
+            self.parts[key].append(np.asarray(getattr(packed, key)[:n_real]))
+        take = getattr(packed.names, "take", None)
+        self.names.extend(take(np.arange(n_real)) if take is not None
+                          else packed.names[:n_real])
+
+    def table(self):
+        if not self.parts["ref_id"]:
+            return GenotypeTable(np.zeros(0, np.int32), np.zeros(0, np.int64),
+                                 np.zeros(0, np.int64), np.zeros(0, np.int32),
+                                 [])
+        return GenotypeTable(*(np.concatenate(self.parts[key])
+                               for key in self._KEYS), self.names)
+
+
+def collect_signatures_packed(bam, options, device):
+    """COLLECT over an opened AlignmentFile (SAM text) with the device
+    passes.  Returns (sv_signatures, translocation_signatures_all_bnds),
+    Signature objects in the order of analyze_alignment_file_coordsorted."""
+    keep = [record for record in bam.fetch(until_eof=True)
+            if not (record.flag & (FUNMAP | FSECONDARY))
+            and record.mapping_quality >= options.min_mapq]
+    if not keep:
+        return [], []
+    packed = pack_alignments(keep, min_sv_size=options.min_sv_size)
+    sa_tags = [record.get_tag("SA") if record.has_tag("SA") else None
+               for record in keep]
+    return signatures_from_packed(packed, sa_tags, bam, options, device)
+
+
+def collect_signatures_packed_querysorted(bam, options, device):
+    """COLLECT over a queryname-sorted file with the device passes.
+
+    Groups records per read (reference: SVIM_COLLECT.py:96-129): exactly one
+    mapped primary above min_mapq, real supplementary records (SA tags are
+    ignored on this path), secondaries dropped.  Segment geometry comes from
+    the COLLECT pass, so no per-record CIGAR walking happens on the host."""
+    keep_records = []
+    group_sizes = []   # rows per kept read group (primary first)
+    for primary_aln, suppl_aln, _sec in bam_iterator(bam):
+        if (len(primary_aln) != 1 or primary_aln[0].is_unmapped
+                or primary_aln[0].mapping_quality < options.min_mapq):
+            continue
+        good_suppl = [aln for aln in suppl_aln
+                      if not aln.is_unmapped
+                      and aln.mapping_quality >= options.min_mapq]
+        keep_records.append(primary_aln[0])
+        keep_records.extend(good_suppl)
+        group_sizes.append(1 + len(good_suppl))
+    if not keep_records:
+        return [], []
+    packed = pack_alignments(keep_records, min_sv_size=options.min_sv_size)
+    return _signatures_from_grouped_packed(packed, group_sizes, bam, options,
+                                           device)
+
+
+def _getrname(name_table):
+    return (name_table.getrname if hasattr(name_table, "getrname")
+            else name_table.get_reference_name)
+
+
+def _in_row_order(per_row_sigs, per_row_twins):
+    """Flatten per-row signature lists in row order (events are sparse:
+    only rows that produced signatures are visited)."""
+    sv_signatures = []
+    twins = []
+    for row in sorted(set(per_row_sigs) | set(per_row_twins)):
+        sv_signatures.extend(per_row_sigs.get(row, ()))
+        twins.extend(per_row_twins.get(row, ()))
+    return sv_signatures, twins
+
+
+def _signatures_from_grouped_packed(packed, group_sizes, name_table, options,
+                                    device):
+    """COLLECT over per-read row groups (row 0 of each group is the
+    primary); every slot of a split-read group is a packed row."""
+    getrname = _getrname(name_table)
+    per_row_sigs: Dict[int, List] = {}
+    per_row_twins: Dict[int, List] = {}
+
+    collect_outputs = dispatch_collect_scan(packed, options, device)
+    group_rows: List[int] = []
+    slot_rows: List[List[int]] = []
+    row_base = 0
+    for size in group_sizes:
+        if size >= 2:
+            group_rows.append(row_base)  # split sigs attach to the primary
+            slot_rows.append(list(range(row_base, row_base + size)))
+        row_base += size
+
+    classify_outputs = None
+    if group_rows:
+        classify_outputs = _dispatch_classify_fused(
+            packed, group_rows, [], collect_outputs, options, device,
+            slot_rows=slot_rows)
+    fetched_collect, fetched_classify = to_host((collect_outputs,
+                                                 classify_outputs))
+    events = _consume_collect(packed, fetched_collect)
+    _emit_indel_events(packed, events, getrname, options, per_row_sigs,
+                       per_row_twins)
+
+    if fetched_classify is not None:
+        split_sigs: Dict[int, List] = {}
+        split_twins: Dict[int, List] = {}
+        group_n = [min(len(slot_list), MAX_SEGMENTS) for slot_list in slot_rows]
+        _emit_classified(group_rows, group_n, fetched_classify, packed,
+                         getrname, options, split_sigs, split_twins)
+        # reference order within a read: primary indels, supplementary
+        # indels, split signatures — so they go after the group's last row
+        group_end = {}
+        row_base = 0
+        for size in group_sizes:
+            group_end[row_base] = row_base + size - 1
+            row_base += size
+        for primary_row, sigs in split_sigs.items():
+            per_row_sigs.setdefault(group_end[primary_row], []).extend(sigs)
+        for primary_row, twin_sigs in split_twins.items():
+            per_row_twins.setdefault(group_end[primary_row], []).extend(
+                twin_sigs)
+    return _in_row_order(per_row_sigs, per_row_twins)
 
 
 def dispatch_collect_scan(packed, options, device):
@@ -173,7 +284,8 @@ def dispatch_collect_scan(packed, options, device):
 
 
 def _device_columns(packed, device):
-    """The batch's packed_to_torch columns (built once per batch)."""
+    """The batch's packed_to_torch columns, uploaded by the first pass that
+    needs them (on the thread that runs the kernels)."""
     if packed.device_cigars is None:
         packed.device_cigars = packed_to_torch(packed, device)
     return packed.device_cigars
@@ -200,15 +312,16 @@ class StagedCollectSoA:
     has moved on)."""
 
     __slots__ = ("packed", "dispatched", "classify_outputs", "group_rows",
-                 "group_sa_segments")
+                 "group_sa_segments", "fallback_rows")
 
     def __init__(self, packed, dispatched, classify_outputs, group_rows,
-                 group_sa_segments):
+                 group_sa_segments, fallback_rows):
         self.packed = packed
         self.dispatched = dispatched
         self.classify_outputs = classify_outputs
         self.group_rows = group_rows
         self.group_sa_segments = group_sa_segments
+        self.fallback_rows = fallback_rows
 
     def device_tree(self):
         """(collect outputs, classify outputs or None) — fetch with one
@@ -216,10 +329,12 @@ class StagedCollectSoA:
         return (self.dispatched, self.classify_outputs)
 
 
-def stage_signatures_soa(packed, sa_tags, name_table, options, device):
+def stage_signatures_soa(packed, sa_tags, name_table, options, device,
+                         dispatched=None):
     """Run the COLLECT + classify passes for one packed batch on `device`
-    and return the StagedCollectSoA to consume later.  Returns None for an
-    empty batch (after installing empty geometry columns)."""
+    (`dispatched`: a COLLECT pass already run) and return the
+    StagedCollectSoA to consume later.  Returns None for an empty batch
+    (after installing empty geometry columns)."""
     get_tid = name_table.get_tid
 
     if packed.n == 0:
@@ -232,7 +347,8 @@ def stage_signatures_soa(packed, sa_tags, name_table, options, device):
             packed.has_hard_clip = np.zeros(0, dtype=bool)
         return None
 
-    dispatched = dispatch_collect_scan(packed, options, device)
+    if dispatched is None:
+        dispatched = dispatch_collect_scan(packed, options, device)
 
     supplementary = (packed.flag & FSUPPLEMENTARY) != 0
     sa_parsed: Dict[int, List] = {}
@@ -249,12 +365,17 @@ def stage_signatures_soa(packed, sa_tags, name_table, options, device):
 
     group_rows: List[int] = []
     group_sa_segments: List[List] = []
+    fallback_rows: List[int] = []
     for row, segments_supplementary in sa_parsed.items():
         size = 1 + len(segments_supplementary)
         if size > MAX_SEGMENTS:
-            # packed batches from the scan session carry no records for the
-            # sequential host analyzer: the device sorts all segments and
-            # keeps the first MAX_SEGMENTS (as svim_tpu does here)
+            if packed.records is not None:
+                # pathological chimeras of parsed records: the sequential
+                # host analyzer runs later, after the indel events
+                fallback_rows.append(row)
+                continue
+            # batches from a BAM scanner carry no records: the device sorts
+            # all segments and keeps the first MAX_SEGMENTS
             logging.warning("read %s has %d alignment segments; truncating "
                             "to %d", packed.names[row], size, MAX_SEGMENTS)
         group_rows.append(row)
@@ -266,7 +387,30 @@ def stage_signatures_soa(packed, sa_tags, name_table, options, device):
             packed, group_rows, group_sa_segments, dispatched, options,
             device)
     return StagedCollectSoA(packed, dispatched, classify_outputs, group_rows,
-                            group_sa_segments)
+                            group_sa_segments, fallback_rows)
+
+
+def _split_read_signatures(staged, fetched_classify, name_table, options):
+    """Split-read signatures of one staged batch, per packed row: the host
+    analyzer's for the fallback rows, then the classify pass's."""
+    split_sigs: Dict[int, List] = {}
+    split_twins: Dict[int, List] = {}
+    for row in staged.fallback_rows:
+        record = staged.packed.records[row]
+        supplementary_records = [
+            aln for aln in retrieve_other_alignments(record, name_table)
+            if not aln.is_unmapped and aln.mapping_quality >= options.min_mapq]
+        sigs, twin_sigs = analyze_read_segments(record, supplementary_records,
+                                                name_table, options)
+        split_sigs.setdefault(row, []).extend(sigs)
+        split_twins.setdefault(row, []).extend(twin_sigs)
+    if fetched_classify is not None:
+        group_sizes = [min(1 + len(segs), MAX_SEGMENTS)
+                       for segs in staged.group_sa_segments]
+        _emit_classified(staged.group_rows, group_sizes, fetched_classify,
+                         staged.packed, _getrname(name_table), options,
+                         split_sigs, split_twins)
+    return split_sigs, split_twins
 
 
 def consume_signatures_soa(staged, fetched, name_table, options, state,
@@ -276,24 +420,17 @@ def consume_signatures_soa(staged, fetched, name_table, options, state,
     `fetched` is to_host(staged.device_tree()):
     (collect outputs, classify outputs or None)."""
     packed = staged.packed
-    getrname = (name_table.getrname if hasattr(name_table, "getrname")
-                else name_table.get_reference_name)
-
     fetched_collect, fetched_classify = fetched
     events = _consume_collect(packed, fetched_collect)
-    _emit_indel_events_soa(packed, events, getrname, options, state.builders,
-                           state.contigs_pool, state.reads_pool,
-                           state.twin_rows, tag_offset=row_tag_offset)
+    _emit_indel_events_soa(packed, events, _getrname(name_table), options,
+                           state.builders, state.contigs_pool,
+                           state.reads_pool, state.twin_rows,
+                           tag_offset=row_tag_offset)
 
     # split-read signatures stay on the object emitters (sparse); they join
     # the tables with row tags so ordering matches the object path
-    split_sigs: Dict[int, List] = {}
-    split_twins: Dict[int, List] = {}
-    if fetched_classify is not None:
-        group_sizes = [min(1 + len(segs), MAX_SEGMENTS)
-                       for segs in staged.group_sa_segments]
-        _emit_classified(staged.group_rows, group_sizes, fetched_classify,
-                         packed, getrname, options, split_sigs, split_twins)
+    split_sigs, split_twins = _split_read_signatures(
+        staged, fetched_classify, name_table, options)
     if split_sigs:
         per_type: Dict[str, List] = {}
         for row, sigs in split_sigs.items():
@@ -308,6 +445,51 @@ def consume_signatures_soa(staged, fetched, name_table, options, state,
             state.twin_rows.append((row + row_tag_offset, twin))
 
 
+def signatures_from_packed_soa(packed, sa_tags, name_table, options, device,
+                               dispatched=None, state=None,
+                               row_tag_offset=0):
+    """One packed batch into struct-of-arrays tables.
+
+    Returns (SignatureSoA, twins); with a shared `state` (the streaming
+    scanner: batches under globally increasing row tags) the caller
+    finalizes once and this returns (None, None)."""
+    shared = state is not None
+    if state is None:
+        state = SoAState()
+    staged = stage_signatures_soa(packed, sa_tags, name_table, options,
+                                  device, dispatched=dispatched)
+    if staged is not None:
+        consume_signatures_soa(staged, to_host(staged.device_tree()),
+                               name_table, options, state,
+                               row_tag_offset=row_tag_offset)
+    return (None, None) if shared else state.finalize()
+
+
+def signatures_from_packed(packed, sa_tags, name_table, options, device):
+    """One packed batch into Signature objects (the SAM-text path).
+
+    name_table provides get_tid and the reference-name lookup (an
+    AlignmentFile or an AlignmentHeader).  Returns (signatures, twins) in
+    the order of the sequential host path."""
+    staged = stage_signatures_soa(packed, sa_tags, name_table, options,
+                                  device)
+    if staged is None:
+        return [], []
+    fetched_collect, fetched_classify = to_host(staged.device_tree())
+    per_row_sigs: Dict[int, List] = {}
+    per_row_twins: Dict[int, List] = {}
+    events = _consume_collect(packed, fetched_collect)
+    _emit_indel_events(packed, events, _getrname(name_table), options,
+                       per_row_sigs, per_row_twins)
+    split_sigs, split_twins = _split_read_signatures(
+        staged, fetched_classify, name_table, options)
+    for row, sigs in split_sigs.items():
+        per_row_sigs.setdefault(row, []).extend(sigs)
+    for row, twin_sigs in split_twins.items():
+        per_row_twins.setdefault(row, []).extend(twin_sigs)
+    return _in_row_order(per_row_sigs, per_row_twins)
+
+
 def _pow2(value: int, floor: int) -> int:
     result = floor
     while result < value:
@@ -316,33 +498,46 @@ def _pow2(value: int, floor: int) -> int:
 
 
 def _dispatch_classify_fused(packed, group_rows, group_sa_segments,
-                             collect_outputs, options, device):
+                             collect_outputs, options, device,
+                             slot_rows=None):
     """Run the sort+classify pass on `device`.
 
     Slot 0 of each group is the primary row (geometry gathered from the
     COLLECT outputs still on the device); the remaining slots carry
-    host-parsed SA-tag segment geometry.  Oversized groups are sorted fully,
-    then truncated to the first MAX_SEGMENTS."""
+    host-parsed SA-tag segment geometry.  `slot_rows` replaces that layout
+    with real packed rows per slot (queryname-sorted input): then
+    group_sa_segments is empty and no hard-clip gate applies.  Oversized
+    groups are sorted fully, then truncated to the first MAX_SEGMENTS."""
     from svim_tpu_torch.ops.segments_kernel import classify_groups_fused
 
     # pow2 buckets, as the JAX package (padded groups carry valid=False)
     n_groups = _pow2(len(group_rows), 8)
-    s_pad = _pow2(max(2, max(1 + len(segs) for segs in group_sa_segments)), 2)
+    if slot_rows is not None:
+        s_pad = _pow2(max(2, max(len(slots) for slots in slot_rows)), 2)
+    else:
+        s_pad = _pow2(max(2, max(1 + len(segs)
+                                 for segs in group_sa_segments)), 2)
 
     slot_row = np.full((n_groups, s_pad), -1, dtype=np.int32)
     geometry = np.zeros((5, n_groups, s_pad), dtype=np.int32)
     is_reverse = np.zeros((n_groups, s_pad), dtype=bool)
     valid = np.zeros((n_groups, s_pad), dtype=bool)
     hard_gate = np.full(n_groups, -1, dtype=np.int32)
-    hard_gate[:len(group_rows)] = group_rows
-    for g, (row, segments) in enumerate(zip(group_rows, group_sa_segments)):
-        slot_row[g, 0] = row
-        valid[g, 0] = True
-        for s, seg in enumerate(segments, start=1):
-            geometry[:, g, s] = (seg.q_start, seg.q_end, seg.ref_id,
-                                 seg.ref_start, seg.ref_end)
-            is_reverse[g, s] = seg.is_reverse
-            valid[g, s] = True
+    if slot_rows is not None:
+        for g, slots in enumerate(slot_rows):
+            slot_row[g, :len(slots)] = slots
+            valid[g, :len(slots)] = True
+    else:
+        hard_gate[:len(group_rows)] = group_rows
+        for g, (row, segments) in enumerate(zip(group_rows,
+                                                group_sa_segments)):
+            slot_row[g, 0] = row
+            valid[g, 0] = True
+            for s, seg in enumerate(segments, start=1):
+                geometry[:, g, s] = (seg.q_start, seg.q_end, seg.ref_id,
+                                     seg.ref_start, seg.ref_end)
+                is_reverse[g, s] = seg.is_reverse
+                valid[g, s] = True
 
     def put(values):
         return torch.from_numpy(values).to(device)

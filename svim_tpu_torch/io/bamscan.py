@@ -1,26 +1,24 @@
-"""Packed batches on the port's device.
+"""Packed batches for the port's device passes.
 
 Counterpart of svim_tpu/io/bamscan.py::build_packed: the same
-PackedAlignments batch, with its device columns (int32 CIGAR words in BAM
-encoding, alignment starts, contig ids, strands) placed on `device` once.
+PackedAlignments batch, but nothing is copied to a device here.  The
+device columns (int32 CIGAR words in BAM encoding, alignment starts,
+contig ids, strands) are uploaded by the first pass that needs them
+(collect.packed._device_columns), on the thread that runs the kernels: the
+streaming scanner builds batches on a prefetch thread.
 """
 
 from __future__ import annotations
 
 from svim_tpu.io.packing import PackedAlignments
-from svim_tpu_torch.state import packed_to_torch
 
 
 def build_packed(ref_id, ref_start, mapq, flag, cigar_words, names,
-                 sequences, device) -> PackedAlignments:
-    """Assemble a PackedAlignments batch and copy its device columns to
-    `device`; they ride in `device_cigars` as the packed_to_torch dict.
-    Geometry columns (ref_end, qa bounds, ...) are filled by the fused
-    COLLECT pass on first use."""
-    packed = PackedAlignments(
+                 sequences) -> PackedAlignments:
+    """Assemble a PackedAlignments batch.  Geometry columns (ref_end, qa
+    bounds, ...) are filled by the fused COLLECT pass on first use."""
+    return PackedAlignments(
         n=len(names), ref_id=ref_id, ref_start=ref_start, ref_end=None,
         mapq=mapq, flag=flag, qa_start=None, qa_end=None,
         read_len=None, cigar_words=cigar_words,
         names=names, sequences=sequences, records=None)
-    packed.device_cigars = packed_to_torch(packed, device)
-    return packed

@@ -51,28 +51,49 @@ def library_path(name: str) -> str:
         name, digest.hexdigest()[:16]))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Compile `csrc/<name>.cu` on first use and return the loaded library.
-    Raises when nvcc is missing or the compile fails."""
+def build(names) -> None:
+    """Compile every `csrc/<name>.cu` of `names` that is not built yet, one
+    nvcc process per source, all started together.  Raises when nvcc is
+    missing or any compile fails."""
     with _lock:
-        library = _libraries.get(name)
-        if library is not None:
-            return library
-        path = library_path(name)
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
+        missing = [name for name in names
+                   if not os.path.exists(library_path(name))]
+        if not missing:
+            return
+        nvcc = _nvcc()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        jobs = []
+        for name in missing:
+            path = library_path(name)
             # compile to a private name, then rename: concurrent builders
             # never load a half-written library
             partial = "{0}.{1}.tmp".format(path, os.getpid())
-            command = [_nvcc(), *NVCC_FLAGS, "-o", partial,
+            command = [nvcc, *NVCC_FLAGS, "-o", partial,
                        os.path.join(CSRC_DIR, name + ".cu")]
-            started = time.perf_counter()
-            result = subprocess.run(command, capture_output=True, text=True)
-            if result.returncode != 0:
-                raise RuntimeError("nvcc failed for {0}.cu:\n{1}{2}".format(
-                    name, result.stdout, result.stderr))
+            jobs.append((name, path, partial, time.perf_counter(),
+                         subprocess.Popen(command, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True)))
+        failures = []
+        for name, path, partial, started, process in jobs:
+            output, _ = process.communicate()
+            if process.returncode != 0:
+                failures.append("nvcc failed for {0}.cu:\n{1}".format(
+                    name, output))
+                continue
             os.replace(partial, path)
             BUILD_SECONDS[name] = time.perf_counter() - started
-        library = ctypes.CDLL(path)
-        _libraries[name] = library
+        if failures:
+            raise RuntimeError("\n".join(failures))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Compile `csrc/<name>.cu` on first use and return the loaded library.
+    Raises when nvcc is missing or the compile fails."""
+    build([name])
+    with _lock:
+        library = _libraries.get(name)
+        if library is None:
+            library = ctypes.CDLL(library_path(name))
+            _libraries[name] = library
         return library

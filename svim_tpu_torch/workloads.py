@@ -9,18 +9,29 @@
   `bench.make_workload` with SVIM_BENCH_READS set to that count.
 
 Both write a coordinate-sorted BGZF BAM and a FASTA genome and return
-(bam_path, genome_path).
+(bam_path, genome_path).  Three rewrites of a BAM serve the port's other
+input paths:
+
+- `reblock_stored`: the same BAM as level-0 (stored) BGZF, so its size on
+  disk is its inflated size and a 25 MB BAM crosses the 96 MiB streaming
+  threshold with the same records;
+- `sam_text`: the records as a SAM text file;
+- `queryname_bam`: the records grouped by read name (SO:queryname), with
+  each SA-tag entry of a primary written as a real supplementary record.
 """
 
 from __future__ import annotations
 
 import os
 import random
+import zlib
 
 import numpy as np
 
+from svim_tpu.collect.collect import retrieve_other_alignments
 from svim_tpu.io import bam as bamio
-from svim_tpu.io.sam import AlignmentHeader, parse_sam_line
+from svim_tpu.io.bamstream import scan_bgzf_blocks
+from svim_tpu.io.sam import AlignmentFile, AlignmentHeader, parse_sam_line
 
 # the SimConfig of tests/test_golden_vcf.py
 GOLDEN_SIM = dict(seed=42, genome_length=900_000, second_contig_length=250_000,
@@ -140,3 +151,82 @@ def bench_workload(directory, reads):
             handle.write(row.tobytes() + b"\n")
         handle.write(b">chr2\n" + b"ACGT" * 2500 + b"\n")
     return bam_path, genome_path
+
+
+def reblock_stored(bam, out):
+    """Rewrite a BGZF BAM as level-0 BGZF (stored deflate blocks): the same
+    records and the same inflated stream.  Returns `out`.
+
+    Inflates member by member: gzip.decompress copies the rest of the
+    stream after each member, quadratic over a BAM's thousands of blocks."""
+    with open(bam, "rb") as handle:
+        data = handle.read()
+    view = memoryview(data)
+    inflated = b"".join(
+        zlib.decompress(view[offset:offset + size], 31)
+        for offset, size, _isize in scan_bgzf_blocks(data))
+    with open(out, "wb") as handle:
+        handle.write(bamio.bgzf_compress(inflated, level=0))
+    return out
+
+
+def _header_text(header, sort_order):
+    return "".join(["@HD\tVN:1.6\tSO:{0}\n".format(sort_order)] + [
+        "@SQ\tSN:{0}\tLN:{1}\n".format(name, length)
+        for name, length in zip(header.references, header.lengths)])
+
+
+def _sam_tag(name, value, value_type):
+    if value_type is None:
+        value_type = ("i" if isinstance(value, int)
+                      else "Z" if isinstance(value, str) else "f")
+    if value_type in "cCsSI":   # BAM's integer widths are SAM's `i`
+        value_type = "i"
+    return "{0}:{1}:{2}".format(name, value_type, value)
+
+
+def _sam_line(record, header):
+    def contig(tid):
+        return header.get_reference_name(tid) if tid >= 0 else "*"
+
+    qualities = ("*" if record.query_qualities is None
+                 else "".join(chr(q + 33) for q in record.query_qualities))
+    fields = [record.query_name, str(record.flag),
+              contig(record.reference_id), str(record.reference_start + 1),
+              str(record.mapping_quality),
+              record.cigarstring if record.cigartuples else "*",
+              contig(record.next_reference_id),
+              str(record.next_reference_start + 1),
+              str(record.template_length), record.query_sequence or "*",
+              qualities]
+    fields += [_sam_tag(name, value, value_type)
+               for name, (value, value_type) in record.tags.items()]
+    return "\t".join(fields) + "\n"
+
+
+def sam_text(bam, out):
+    """Write the records of `bam` as SAM text, coordinate-sorted as they
+    come.  Returns `out`."""
+    alignments = AlignmentFile(bam)
+    with open(out, "w") as handle:
+        handle.write(_header_text(alignments.header, "coordinate"))
+        for record in alignments.fetch(until_eof=True):
+            handle.write(_sam_line(record, alignments.header))
+    return out
+
+
+def queryname_bam(bam, out):
+    """Write the records of `bam` grouped by read name (a stable sort by
+    name, SO:queryname), each primary followed by a real supplementary
+    record for every entry of its SA tag.  Returns `out`."""
+    alignments = AlignmentFile(bam)
+    records = []
+    for record in alignments.fetch(until_eof=True):
+        records.append(record)
+        if not (record.is_supplementary or record.is_secondary):
+            records.extend(retrieve_other_alignments(record, alignments))
+    records.sort(key=lambda record: record.query_name)
+    header = AlignmentHeader.from_text(_header_text(alignments.header,
+                                                    "queryname"))
+    bamio.write_bam(out, header, records)
+    return out

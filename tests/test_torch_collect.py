@@ -202,7 +202,14 @@ def test_host_library_builds_svim_tpu_native_sources(tmp_path, monkeypatch):
 
 
 def test_streaming_sizes_are_not_ported(tmp_path):
+    """--stream_input routes collect_soa_from_bam through the port's
+    streaming scanner (as it routes svim_tpu's), with equal tables."""
+    from svim_tpu_torch.io import bamstream
+
     bam, genome = _classes_bam(tmp_path)
-    options = _options(tmp_path, bam, genome, "--stream_input")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        torch_packed.collect_soa_from_bam(bam, options, CPU)
+    options = _options(tmp_path, bam, genome, "--stream_input", "--all_bnds",
+                       "--batch_reads", "7")
+    before = bamstream.BATCHES
+    got = torch_packed.collect_soa_from_bam(bam, options, CPU)
+    assert bamstream.BATCHES > before + 1
+    _assert_same_collect(got, jax_packed.collect_soa_from_bam(bam, options))

@@ -1,8 +1,9 @@
 """svim_tpu_torch never imports jax, directly or through the svim_tpu host
 modules it reuses.  Checked in a fresh interpreter (this test process
-already imported jax through tests/conftest.py) after a whole golden slice
-with --edit_backend wavefront (its input written by the port's workload
-generator), so lazy imports on the run's path count."""
+already imported jax through tests/conftest.py) after two whole golden
+slices (its input written by the port's workload generator): one-shot with
+--edit_backend wavefront, and streaming (--stream_input), so lazy imports
+on both paths count."""
 
 import json
 import os
@@ -24,7 +25,13 @@ bam, genome = golden_workload({work!r})
 wd = os.path.join({work!r}, "wd")
 code = main(["alignment", wd, bam, genome, "--edit_backend", "wavefront"])
 same = _normalize(os.path.join(wd, "variants.vcf")) == _normalize(GOLDEN)
-print(json.dumps({{"code": code, "golden": same, "jax": sorted(
+streamed = os.path.join({work!r}, "wd_stream")
+code_stream = main(["alignment", streamed, bam, genome, "--stream_input",
+                    "--batch_reads", "64"])
+same_stream = (_normalize(os.path.join(streamed, "variants.vcf"))
+               == _normalize(GOLDEN))
+print(json.dumps({{"code": [code, code_stream], "golden": [same, same_stream],
+                  "jax": sorted(
     name for name in sys.modules if name == "jax" or name.startswith("jax."))}}))
 """
 
@@ -37,4 +44,4 @@ def test_port_pipeline_imports_no_jax(tmp_path):
         capture_output=True, text=True, timeout=600, env=env, cwd=tmp_path)
     assert result.returncode == 0, result.stderr[-4000:]
     report = json.loads(result.stdout.strip().splitlines()[-1])
-    assert report == {"code": 0, "golden": True, "jax": []}
+    assert report == {"code": [0, 0], "golden": [True, True], "jax": []}

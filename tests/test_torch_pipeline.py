@@ -184,8 +184,13 @@ def test_inputs_outside_the_slice_raise(tmp_path):
         with pytest.raises(NotImplementedError, match=item):
             torch_cli.check_supported(bad)
     torch_cli.check_supported(options("--edit_backend", "wavefront"))
+    # an unsorted input is refused as svim_tpu refuses it: logged, exit 1
     sam = tmp_path / "x.sam"
-    sam.write_text("@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chr1\tLN:1000\n")
-    with pytest.raises(NotImplementedError, match="SAM text"):
-        torch_cli._collect(parse_arguments(arguments=[
-            "alignment", str(tmp_path), str(sam), "g.fa"]), CPU)
+    sam.write_text("@HD\tVN:1.6\tSO:unsorted\n@SQ\tSN:chr1\tLN:1000\n")
+    genome = tmp_path / "g.fa"
+    genome.write_text(">chr1\n" + "ACGT" * 250 + "\n")
+    for main in (torch_cli.main, jax_main):
+        assert main(["alignment", str(tmp_path / main.__module__), str(sam),
+                     str(genome)]) == 1
+    assert torch_cli._collect(parse_arguments(arguments=[
+        "alignment", str(tmp_path), str(sam), str(genome)]), CPU) is None
