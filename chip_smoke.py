@@ -7,13 +7,17 @@ Phases, each of which raises (non-zero exit) on failure:
   1. environment: a CUDA device is required; prints the card's name and
      power limit (nvidia-smi) and the torch / CUDA versions;
   2. build: compiles csrc/wavefront.cu and csrc/span_distance.cu with nvcc
-     (both at once) into svim_tpu_torch/_build, and svim_tpu's native host
-     library (scan session, POA) with g++;
+     (both at once) and, beside them, the port's native host library
+     (svim_tpu_torch/native: scan session, POA) with g++, all into
+     svim_tpu_torch/_build;
   3. kernel vs plain version on the card: banded_distance_cuda against
      banded_distance_torch on seeded inputs (half near-identical pairs, half
-     random) at the main path's shapes and the two front layouts; outputs
-     must be exactly equal, and 64 resolved entries must equal the O(nm)
-     dynamic program below;
+     random) at the main path's shapes and at one case per code path of the
+     kernel (warp kernel with a ragged last CTA, CTA kernel with staged and
+     unstaged strings, fronts in global scratch, narrow passes that resolve
+     and that run on to W, empty and one-character strings); outputs must be
+     exactly equal, above the band too, and 64 resolved entries must equal
+     the O(nm) dynamic program below;
   4. golden slice: `alignment --edit_backend wavefront` on the simulated
      workload of tests/test_golden_vcf.py must write a variants.vcf
      byte-equal to tests/golden/variants.golden.vcf (##fileDate aside) and
@@ -120,22 +124,45 @@ def phase_environment():
 
 
 def phase_build():
-    from svim_tpu_torch.native import host_library
+    import threading
+
+    from svim_tpu_torch import native
     from svim_tpu_torch.ops import _build, distance_kernel, wavefront_kernel
 
     started = time.perf_counter()
-    _build.build(("wavefront", "span_distance"))
-    wavefront_kernel._kernel_library()
-    distance_kernel._kernel_library()
-    log("build", "wavefront.cu and span_distance.cu built (in parallel) and "
-        "loaded in {0:.2f}s (nvcc {1})".format(
-            time.perf_counter() - started,
-            json.dumps({name: round(seconds, 2) for name, seconds
-                        in _build.BUILD_SECONDS.items()})))
-    started = time.perf_counter()
-    host_library()
-    log("build", "native host library ready in {0:.2f}s".format(
-        time.perf_counter() - started))
+    host = {}
+
+    def build_host():
+        try:
+            native.get_library()
+        except BaseException as error:  # re-raised on the main thread below
+            host["error"] = error
+        host["seconds"] = time.perf_counter() - started
+
+    # g++ compiles the host library while the two nvcc processes run
+    thread = threading.Thread(target=build_host)
+    thread.start()
+    try:
+        _build.build(("wavefront", "span_distance"))
+        wavefront_kernel._kernel_library()
+        distance_kernel._kernel_library()
+        log("build", "wavefront.cu and span_distance.cu built (in parallel) "
+            "and loaded in {0:.2f}s (nvcc {1}); DPX add-min: {2}".format(
+                time.perf_counter() - started,
+                json.dumps({name: round(seconds, 2) for name, seconds
+                            in _build.BUILD_SECONDS.items()}),
+                wavefront_kernel.uses_dpx()))
+    finally:
+        thread.join()
+    if "error" in host:
+        raise host["error"]
+    for directory in (os.path.dirname(native.library_path()),
+                      _build.BUILD_DIR):
+        if os.path.dirname(directory) != os.path.join(ROOT, "svim_tpu_torch"):
+            raise AssertionError("built outside svim_tpu_torch/_build: "
+                                 + directory)
+    log("build", "native host library (svim_tpu_torch/native, g++) ready "
+        "after {0:.2f}s".format(host["seconds"]))
 
 
 def _pairs(rng, batch, length):
@@ -201,13 +228,67 @@ def _time_ms(function, repeats, warm_up=True):
 
 
 def kernel_shapes():
-    """(B, L, W): the main path's lengths and pow4 bands at a small and a
-    full batch, the full launches of the 8192-read workload, W=4096 (98 KB
-    of shared-memory fronts) and W=16384 (fronts in global scratch)."""
-    shapes = [(batch, length, band) for length in (512, 1024)
+    """(B, L, W, variant): the main path's lengths and pow4 bands at a small
+    and a full batch, the full launches of the 8192-read workload, and
+    W=4096 and W=16384 (one CTA per pair, fronts in shared memory), each on
+    the code path the wrapper picks (variant None); then one case per code
+    path of the kernel: the warp kernel with a ragged last CTA (B not a
+    multiple of the 4 pairs a CTA) at a narrow and at the widest band, and
+    the CTA kernel forced to each of its three layouts at two shapes."""
+    shapes = [(batch, length, band, None) for length in (512, 1024)
               for band in (64, 128, 256, 1024) for batch in (8, 1024)]
-    return shapes + [(8192, 512, 64), (8192, 512, 256), MAIN_SHAPE,
-                     (8, 8192, 4096), (8, 16384, 16384)]
+    shapes += [(8192, 512, 64, None), (8192, 512, 256, None),
+               MAIN_SHAPE + (None,), (8, 8192, 4096, None),
+               (8, 16384, 16384, None), (2051, 512, 64, None),
+               (2051, 1024, 1024, None), (67, 300, 100, None)]
+    shapes += [(batch, length, band, variant)
+               for variant in ("cta", "cta_unstaged", "global")
+               for batch, length, band in ((64, 512, 256), (16, 1024, 1024))]
+    return shapes
+
+
+# int32 operations of one DP cell (a compare, an add, two min, an add-min)
+# and the card's int32 rate: 132 SMs x 64 int32 lanes x 1.98 GHz, half the
+# 67 TFLOP/s float32 rate counted as one operation a lane and clock
+OPS_PER_CELL = 5
+INT32_OPS_PER_SECOND = 132 * 64 * 1.98e9
+HBM_BYTES_PER_SECOND = 3.35e12
+FLOAT32_FLOPS_PER_SECOND = 67e12
+
+
+def _band_cells(a_lens, b_lens, widths):
+    """Cells 1 <= i <= m, 1 <= j <= n with |i - j| <= w, per pair."""
+    import numpy as np
+
+    m = a_lens.astype(np.int64)[:, None]
+    n = b_lens.astype(np.int64)[:, None]
+    w = widths.astype(np.int64)[:, None]
+    i = np.arange(1, int(a_lens.max()) + 1, dtype=np.int64)[None, :]
+    per_row = np.minimum(n, i + w) - np.maximum(1, i - w) + 1
+    return np.where(i <= m, np.maximum(per_row, 0), 0).sum(axis=1)
+
+
+def wavefront_bound_ms(a_lens, b_lens, values, length, band):
+    """The least time the card could take for one launch on these inputs:
+    bytes (both code matrices and length vectors read once, the result
+    written once) over the memory rate, or the DP cells this data needs
+    times OPS_PER_CELL over the int32 rate.  A pair whose distance k is
+    within the band needs the cells |i - j| <= k; any other pair within
+    reach of the band needs the whole band; a pair with |m - n| > W none.
+    Returns (ms, "bytes" or "operations", cells)."""
+    import numpy as np
+
+    widths = np.where(values <= band, values,
+                      np.minimum(band, np.maximum(a_lens, b_lens)))
+    widths = np.where(np.abs(a_lens.astype(np.int64) - b_lens) > band, -1,
+                      widths)
+    cells = int(_band_cells(a_lens, b_lens, widths).sum())
+    batch = len(a_lens)
+    bytes_ms = (2 * batch * length + 12 * batch) / HBM_BYTES_PER_SECOND * 1e3
+    ops_ms = cells * OPS_PER_CELL / INT32_OPS_PER_SECOND * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", cells
+    return bytes_ms, "bytes", cells
 
 
 def phase_kernels(shapes, dp_samples=64):
@@ -220,8 +301,12 @@ def phase_kernels(shapes, dp_samples=64):
     timings = {}
     max_abs_err = 0
     dp_checked = 0
-    for batch, length, band in shapes:
+    for batch, length, band, variant in shapes:
         a_codes, a_lens, b_codes, b_lens = _pairs(rng, batch, length)
+        if variant is None and batch == 67:
+            # empty, one-character and far-apart strings beside the rest
+            a_lens[:6] = (0, 0, 1, 1, 2, length)
+            b_lens[:6] = (0, 1, 0, 1, 1, 3)
         args = [torch.from_numpy(x).cuda() for x in (a_codes, a_lens,
                                                      b_codes, b_lens)]
         tensors = (args[0], args[1], args[2], args[3], band)
@@ -229,17 +314,18 @@ def phase_kernels(shapes, dp_samples=64):
         # launches, seconds at the widest shapes
         plain_ms, plain = _time_ms(lambda: wk.banded_distance_torch(*tensors),
                                    1, warm_up=False)
-        kernel_ms, kernel = _time_ms(lambda: wk.banded_distance_cuda(*tensors),
-                                     5)
+        kernel_ms, kernel = _time_ms(
+            lambda: wk.banded_distance_cuda(*tensors, variant=variant), 5)
         plain = plain.cpu().numpy()
         kernel = kernel.cpu().numpy()
         max_abs_err = max(max_abs_err, int(np.abs(
             plain.astype(np.int64) - kernel.astype(np.int64)).max()))
         mismatches = int((plain != kernel).sum())
         if mismatches:
-            raise AssertionError("kernel != plain at B={0} L={1} W={2}: {3} "
-                                 "entries differ".format(batch, length, band,
-                                                         mismatches))
+            raise AssertionError("kernel != plain at B={0} L={1} W={2} "
+                                 "variant={3}: {4} entries differ".format(
+                                     batch, length, band, variant,
+                                     mismatches))
         resolved = np.flatnonzero(kernel <= band)
         # 64 resolved entries against the O(nm) reference DP, spread over
         # the L=512 shapes (the DP is pure Python)
@@ -254,12 +340,23 @@ def phase_kernels(shapes, dp_samples=64):
                                              kernel[row], expected, batch,
                                              length, band, row))
                 dp_checked += 1
-        layout = "shared" if wk.uses_shared_fronts(band) else "global"
-        timings[(batch, length, band)] = (kernel_ms, plain_ms)
-        log("kernel", "B={0} L={1} W={2} fronts={3}: equal ({4} resolved); "
-            "kernel {5:.3f} ms, plain {6:.3f} ms".format(
-                batch, length, band, layout, len(resolved), kernel_ms,
-                plain_ms))
+        bound_ms, bound_by, cells = wavefront_bound_ms(a_lens, b_lens, kernel,
+                                                       length, band)
+        path = variant or wk.kernel_variant(length, band)
+        # how the in-kernel narrow passes fared: resolved at band 63 or 255
+        # (tried where they are below half the pair's band), or run to W
+        reach = np.minimum(band, np.maximum(a_lens, b_lens))
+        early = int(((kernel <= 63) & (reach > 126)).sum()
+                    + ((kernel > 63) & (kernel <= 255) & (reach > 510)).sum())
+        if variant is None:
+            timings[(batch, length, band)] = (kernel_ms, plain_ms, bound_ms,
+                                              bound_by)
+        log("kernel", "B={0} L={1} W={2} path={3}{4}: equal ({5} resolved, "
+            "{6} by a narrow pass, {7} run to W); kernel {8:.3f} ms, plain "
+            "{9:.3f} ms, bound {10:.4f} ms by {11} ({12} cells)".format(
+                batch, length, band, path, " (forced)" if variant else "",
+                len(resolved), early, batch - early, kernel_ms, plain_ms,
+                bound_ms, bound_by, cells))
     if dp_checked < dp_samples:
         raise AssertionError("only {0} resolved entries checked against the "
                              "DP".format(dp_checked))
@@ -681,6 +778,25 @@ def _parallel_case():
     return starts, ends, reads, valid
 
 
+# float32 operations of one distance cell: two differences, two absolute
+# values, a maximum, a clamp, two divisions, a sum, a comparison, two selects
+DISTANCE_OPS_PER_CELL = 12
+
+
+def distance_bound_ms_of(batch, pad):
+    """The least time the card could take for one (B, P) call: bytes (three
+    int32 and one bool (B, P) inputs read once, the (B, P, P) float32 result
+    written once) over the memory rate, or DISTANCE_OPS_PER_CELL operations
+    a cell over the float32 rate.  Returns (ms, "bytes" or "operations")."""
+    bytes_ms = (13 * batch * pad + 4 * batch * pad * pad) \
+        / HBM_BYTES_PER_SECOND * 1e3
+    ops_ms = DISTANCE_OPS_PER_CELL * batch * pad * pad \
+        / FLOAT32_FLOPS_PER_SECOND * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
 def phase_distance():
     """Phase 7: the distance kernel against its plain version, bit for bit.
     Returns {(B, P, wall): (kernel ms, plain ms)} and the max abs error."""
@@ -835,9 +951,15 @@ def main():
     def by_path(name):
         return {path: counts[name] for path, counts in PATH_LAUNCHES.items()}
 
-    kernel_ms, plain_ms = timings[MAIN_SHAPE]
+    kernel_ms, plain_ms, bound_ms, bound_by = timings[MAIN_SHAPE]
     distance_ms, distance_plain_ms = distance_timings[
         DISTANCE_MAIN_SHAPE + (True,)]
+    distance_bound_ms, distance_bound_by = distance_bound_ms_of(
+        *DISTANCE_MAIN_SHAPE)
+    # library_ms is null for both: PyTorch has no call that computes a
+    # banded Levenshtein distance, nor one for this pairwise distance with
+    # its same-read wall (torch.cdist has neither the two quotients nor the
+    # wall)
     print(json.dumps({"kernels": [{
         "name": "wavefront_banded_distance", "route": "cuda",
         "source": "svim_tpu_torch/csrc/wavefront.cu",
@@ -846,6 +968,7 @@ def main():
             "wavefront_banded_distance"],
         "launches_by_path": by_path("wavefront_banded_distance"),
         "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "shape": "B={0},L={1},W={2}".format(*MAIN_SHAPE)}, {
         "name": "span_distance_matrix", "route": "cuda",
         "source": "svim_tpu_torch/csrc/span_distance.cu",
@@ -854,7 +977,8 @@ def main():
         "launches_by_path": by_path("span_distance_matrix"),
         "on_main_path": False,
         "max_abs_err": distance_err, "ms": distance_ms,
-        "plain_ms": distance_plain_ms,
+        "plain_ms": distance_plain_ms, "bound_ms": distance_bound_ms,
+        "bound_by": distance_bound_by, "library_ms": None,
         "shape": "B={0},P={1},wall".format(*DISTANCE_MAIN_SHAPE)}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

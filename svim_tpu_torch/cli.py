@@ -19,15 +19,15 @@ import sys
 
 from time import localtime, strftime
 
-from svim_tpu import __version__
-from svim_tpu.config import parse_arguments
-from svim_tpu.output import (
+from svim_tpu_torch import __version__
+from svim_tpu_torch.config import parse_arguments
+from svim_tpu_torch.output import (
     write_candidates,
     write_final_vcf,
     write_signature_clusters_bed,
     write_signature_clusters_vcf,
 )
-from svim_tpu.utils.timing import StageTimer
+from svim_tpu_torch.utils.timing import StageTimer
 from svim_tpu_torch.cluster.cluster import cluster_sv_signatures
 from svim_tpu_torch.combine.combine import combine_clusters
 from svim_tpu_torch.utils.device import describe, select_device
@@ -57,7 +57,7 @@ def _plots(options, deletion_candidates, inversion_candidates,
     """The reference's SV-length and genotype plots; skipped with a warning
     where matplotlib is not installed (they are not part of the calls)."""
     try:
-        from svim_tpu.plots import plot_sv_alleles, plot_sv_lengths
+        from svim_tpu_torch.plots import plot_sv_alleles, plot_sv_lengths
     except ModuleNotFoundError as error:
         if error.name != "matplotlib":
             raise
@@ -101,9 +101,9 @@ def _collect(options, device):
     (alignment index or AlignmentFile, signatures, all_bnds twins,
     options), or None for an unsorted input (logged as the reference
     does)."""
-    from svim_tpu.io.bamstream import peek_bam_header
-    from svim_tpu.io.packed_fetch import PackedAlignmentIndex
-    from svim_tpu.io.sam import AlignmentFile
+    from svim_tpu_torch.io.bamstream import peek_bam_header
+    from svim_tpu_torch.io.packed_fetch import PackedAlignmentIndex
+    from svim_tpu_torch.io.sam import AlignmentFile
     from svim_tpu_torch.collect import packed as collect_packed
 
     logging.info("MODE: alignment")
@@ -169,7 +169,7 @@ def run_pipeline(options, device):
         "INV": "inverted regions", "DUP_TAN": "tandem duplicated regions",
         "BND": "translocation breakpoints",
         "DUP_INT": "inserted regions with detected region of origin"}
-    from svim_tpu.sigtable import SignatureSoA
+    from svim_tpu_torch.sigtable import SignatureSoA
 
     if isinstance(sv_signatures, SignatureSoA):
         count_of = sv_signatures.count
@@ -223,8 +223,8 @@ def run_pipeline(options, device):
 
     if not options.skip_genotyping:
         logging.info("****************** STEP 4: GENOTYPE ******************")
-        from svim_tpu.genotype import genotype
-        from svim_tpu.io.packed_fetch import PackedAlignmentIndex
+        from svim_tpu_torch.genotype import genotype
+        from svim_tpu_torch.io.packed_fetch import PackedAlignmentIndex
         from svim_tpu_torch.genotype import genotype_packed_multi
 
         genotype_groups = (

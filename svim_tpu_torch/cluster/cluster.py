@@ -4,8 +4,8 @@ Counterpart of the device-touching half of svim_tpu/cluster/cluster.py
 (SVIM_clustering.py:122-386): per-partition subsampling to 100 with
 random.seed(1524), same-read duplicate removal, average-linkage clustering
 cut at cluster_max_distance.  Consolidation, scoring and the exact host
-linkage are svim_tpu's (imported); the dispatch/finish halves and the stage
-driver are copied here because svim_tpu's reach its JAX device route.
+linkage are svim_tpu's host code, copied; the dispatch/finish halves and
+the stage driver differ where svim_tpu's reach its JAX device route.
 """
 
 from __future__ import annotations
@@ -16,23 +16,64 @@ from statistics import mean
 
 import numpy as np
 
-from svim_tpu.candidates import CandidateDuplicationInterspersed
-from svim_tpu.cluster import accel
-from svim_tpu.cluster.cluster import (
-    MAX_PARTITION_SIZE,
-    RANDOM_SEED,
-    _ClusterWork,
-    _consolidate_typed,
-    _group_by_labels,
-    _partition_type,
-)
-from svim_tpu.cluster.distance import span_position_distance
-from svim_tpu.cluster.partition import form_partitions, form_partitions_table
-from svim_tpu.cluster.scipy_fast import average_linkage, fcluster_distance
-from svim_tpu.io.fasta import FastaFile
-from svim_tpu_torch.cluster import device_cluster
+from svim_tpu_torch.candidates import CandidateDuplicationInterspersed
+from svim_tpu_torch.cluster import accel, device_cluster
 from svim_tpu_torch.cluster.accel import precompute_ins_edit_distances
+from svim_tpu_torch.cluster.distance import span_position_distance
+from svim_tpu_torch.cluster.partition import (
+    form_partitions,
+    form_partitions_table,
+)
+from svim_tpu_torch.cluster.scipy_fast import (
+    average_linkage,
+    fcluster_distance,
+)
+from svim_tpu_torch.io.fasta import FastaFile
+from svim_tpu_torch.signatures import (
+    SignatureClusterBiLocal,
+    SignatureClusterUniLocal,
+)
 from svim_tpu_torch.state import to_host
+from svim_tpu_torch.utils.exactstats import stdev_half_ints, stdev_ints
+
+RANDOM_SEED = 1524       # fixed for reproducible subsampling (SVIM_clustering.py:129)
+MAX_PARTITION_SIZE = 100  # larger partitions are subsampled (SVIM_clustering.py:132)
+SUPPORT_CAP = 80          # score support saturates here (SVIM_clustering.py:208-210)
+
+
+def _group_by_labels(elements, labels):
+    if getattr(elements, "table", None) is not None:
+        label_array = np.asarray(labels)
+        return [elements.take(np.flatnonzero(label_array == label))
+                for label in range(1, int(label_array.max()) + 1)]
+    groups = [[] for _ in range(max(labels))]
+    for element, label in zip(elements, labels):
+        groups[label - 1].append(element)
+    return groups
+
+
+def _partition_type(partition) -> str:
+    """Signature type of a partition without materializing members."""
+    sig_type = getattr(partition, "type", None)
+    return sig_type if sig_type is not None else partition[0].type
+
+
+class _ClusterWork:
+    """State between the dispatch and consume halves of per-type clustering
+    (device kernels in flight across types)."""
+
+    __slots__ = ("partitions", "samples", "large_partitions", "ed_cache",
+                 "pending", "eligible", "memo_hits")
+
+    def __init__(self):
+        self.partitions = []
+        self.samples = []
+        self.large_partitions = 0
+        self.ed_cache = None
+        self.pending = None
+        self.eligible = []
+        self.memo_hits = {}   # partition index -> stored cluster index arrays
+
 
 _TYPE_LABELS = {
     "DEL": "deleted regions",
@@ -296,7 +337,7 @@ def cluster_sv_signatures(sv_signatures, options, device):
 
     Returns (deletion, insertion, inversion, tandem_duplication,
     insertion_from, translocation) cluster lists."""
-    from svim_tpu.sigtable import SignatureSoA
+    from svim_tpu_torch.sigtable import SignatureSoA
 
     soa = sv_signatures if isinstance(sv_signatures, SignatureSoA) else None
     by_type = {key: [] for key in _TYPE_LABELS}
@@ -335,3 +376,203 @@ def cluster_sv_signatures(sv_signatures, options, device):
     return (consolidated["DEL"], consolidated["INS"], consolidated["INV"],
             consolidated["DUP_TAN"], consolidated["DUP_INT"],
             consolidated["BND"])
+
+
+def calculate_score(cluster, std_span, std_pos, span, type):
+    """Support score with span/position deviation bonuses; INV requires both
+    flank directions (reference: SVIM_clustering.py:183-211)."""
+    if std_span is None or std_pos is None:
+        span_deviation_score = 0
+        pos_deviation_score = 0
+    else:
+        span_deviation_score = 1 - min(1, std_span / span)
+        pos_deviation_score = 1 - min(1, std_pos / span)
+
+    if type == "INV":
+        table = getattr(cluster, "table", None)
+        if table is not None:
+            # direction codes follow sigtable.INV_DIRECTIONS: left_fwd=0,
+            # left_rev=1, right_fwd=2, right_rev=3, all=4
+            codes = table.direction[cluster.indices]
+            left = int((codes <= 1).sum())
+            right = int(((codes == 2) | (codes == 3)).sum())
+            both = int((codes == 4).sum())
+        else:
+            left = sum(1 for sig in cluster if sig.direction in ("left_fwd", "left_rev"))
+            right = sum(1 for sig in cluster if sig.direction in ("right_fwd", "right_rev"))
+            both = sum(1 for sig in cluster if sig.direction == "all")
+        valid_signatures = min(left, right) + both
+        num_signatures = min(SUPPORT_CAP, valid_signatures)
+    else:
+        num_signatures = min(SUPPORT_CAP, len(cluster))
+    return (num_signatures
+            + span_deviation_score * (num_signatures / 8)
+            + pos_deviation_score * (num_signatures / 8))
+
+
+def _location_stats_arrays(starts, ends):
+    """_location_stats over parallel start/end sequences (columns or lists).
+    Sums and stdevs go through exact integer arithmetic either way, so the
+    floats equal the object path's bit-for-bit."""
+    n = len(starts)
+    if isinstance(starts, np.ndarray):
+        total_start = int(starts.sum())
+        total_end = int(ends.sum())
+    else:
+        total_start = sum(starts)
+        total_end = sum(ends)
+    average_start = total_start / n
+    average_end = total_end / n
+    if n > 1:
+        # bit-identical statistics.stdev over the integer spans / half-integer
+        # centers, via exact integer arithmetic (utils/exactstats.py)
+        spans = np.asarray(ends, dtype=np.int64) - np.asarray(starts, dtype=np.int64)
+        doubled_centers = (np.asarray(starts, dtype=np.int64)
+                           + np.asarray(ends, dtype=np.int64))
+        std_span = stdev_ints(spans.tolist())
+        std_pos = stdev_half_ints(doubled_centers.tolist())
+    else:
+        std_span = None
+        std_pos = None
+    return average_start, average_end, std_span, std_pos
+
+
+def _cluster_source_columns(cluster):
+    """(starts, ends) of every member's source locus — column slices for
+    table views, get_source loops otherwise."""
+    table = getattr(cluster, "table", None)
+    if table is not None:
+        indices = cluster.indices
+        return table.start[indices], table.end[indices]
+    return ([member.get_source()[1] for member in cluster],
+            [member.get_source()[2] for member in cluster])
+
+
+def _cluster_contig(cluster):
+    table = getattr(cluster, "table", None)
+    if table is not None:
+        return table.contigs.names[int(table.contig_code[cluster.indices[0]])]
+    return cluster[0].get_source()[0]
+
+
+def _cluster_dest_contig(cluster):
+    table = getattr(cluster, "table", None)
+    if table is not None:
+        return table.contigs.names[int(table.contig2_code[cluster.indices[0]])]
+    return cluster[0].get_destination()[0]
+
+
+def consolidate_clusters_unilocal(clusters):
+    """Mean/stdev consolidation for single-locus clusters
+    (reference: SVIM_clustering.py:214-228)."""
+    consolidated_clusters = []
+    for cluster in clusters:
+        starts, ends = _cluster_source_columns(cluster)
+        average_start, average_end, std_span, std_pos = _location_stats_arrays(
+            starts, ends)
+        cluster_type = _partition_type(cluster)
+        score = calculate_score(cluster, std_span, std_pos,
+                                average_end - average_start, cluster_type)
+        consolidated_clusters.append(SignatureClusterUniLocal(
+            _cluster_contig(cluster), int(round(average_start)), int(round(average_end)),
+            score, len(cluster), cluster, cluster_type, std_span, std_pos))
+    return consolidated_clusters
+
+
+def consolidate_clusters_bilocal(clusters):
+    """Consolidation for two-locus clusters: DUP_TAN / DUP_INT / BND
+    (reference: SVIM_clustering.py:231-303)."""
+    consolidated_clusters = []
+    for cluster in clusters:
+        cluster_type = _partition_type(cluster)
+        starts, ends = _cluster_source_columns(cluster)
+        source_start, source_end, source_std_span, source_std_pos = \
+            _location_stats_arrays(starts, ends)
+        table = getattr(cluster, "table", None)
+
+        if cluster_type == "DUP_TAN":
+            if table is not None:
+                max_copies = int(table.copies[cluster.indices].max())
+            else:
+                max_copies = max(member.copies for member in cluster)
+            score = calculate_score(cluster, source_std_span, source_std_pos,
+                                    source_end - source_start, cluster_type)
+            rounded_start = int(round(source_start))
+            rounded_end = int(round(source_end))
+            source_contig = _cluster_contig(cluster)
+            consolidated_clusters.append(SignatureClusterBiLocal(
+                source_contig, rounded_start, rounded_end,
+                source_contig, rounded_end,
+                rounded_end + max_copies * (rounded_end - rounded_start),
+                score, len(cluster), cluster, cluster_type,
+                source_std_span, source_std_pos))
+        elif cluster_type == "DUP_INT":
+            if table is not None:
+                # get_destination() = (contig2, pos, pos + source span)
+                indices = cluster.indices
+                dest_starts = table.pos2[indices]
+                dest_ends = dest_starts + (ends - starts)
+            else:
+                dest_starts = [member.get_destination()[1] for member in cluster]
+                dest_ends = [member.get_destination()[2] for member in cluster]
+            dest_start, dest_end, dest_std_span, dest_std_pos = \
+                _location_stats_arrays(dest_starts, dest_ends)
+            if None in (source_std_span, source_std_pos, dest_std_span, dest_std_pos):
+                combined_std_span, combined_std_pos = None, None
+            else:
+                combined_std_span = mean([source_std_span, dest_std_span])
+                combined_std_pos = mean([source_std_pos, dest_std_pos])
+            score = calculate_score(
+                cluster, combined_std_span, combined_std_pos,
+                mean([source_end - source_start, dest_end - dest_start]), cluster_type)
+            consolidated_clusters.append(SignatureClusterBiLocal(
+                _cluster_contig(cluster), int(round(source_start)), int(round(source_end)),
+                _cluster_dest_contig(cluster), int(round(dest_start)), int(round(dest_end)),
+                score, len(cluster), cluster, cluster_type,
+                combined_std_span, combined_std_pos))
+        elif cluster_type == "BND":
+            if table is not None:
+                # get_destination() = (contig2, pos2, pos2 + 1)
+                indices = cluster.indices
+                dest_starts = table.pos2[indices]
+                dest_ends = dest_starts + 1
+                directions1 = set("rev" if rev else "fwd"
+                                  for rev in np.unique(table.dir1[indices]))
+                directions2 = set("rev" if rev else "fwd"
+                                  for rev in np.unique(table.dir2[indices]))
+            else:
+                dest_starts = [member.get_destination()[1] for member in cluster]
+                dest_ends = [member.get_destination()[2] for member in cluster]
+                directions1 = set(member.direction1 for member in cluster)
+                directions2 = set(member.direction2 for member in cluster)
+            dest_start, dest_end, _dest_std_span, dest_std_pos = \
+                _location_stats_arrays(dest_starts, dest_ends)
+            assert len(directions1) == 1 and len(directions2) == 1
+            if source_std_pos is None or dest_std_pos is None:
+                std_first, std_second = None, None
+            else:
+                std_first, std_second = source_std_pos, dest_std_pos
+            # BND scores use a constant 500 bp span (SVIM_clustering.py:293,297)
+            score = calculate_score(cluster, std_first, std_second, 500, cluster_type)
+            new_cluster = SignatureClusterBiLocal(
+                _cluster_contig(cluster), int(round(source_start)), int(round(source_end)),
+                _cluster_dest_contig(cluster), int(round(dest_start)), int(round(dest_end)),
+                score, len(cluster), cluster, cluster_type, std_first, std_second)
+            new_cluster.direction1 = directions1.pop()
+            new_cluster.direction2 = directions2.pop()
+            consolidated_clusters.append(new_cluster)
+    return consolidated_clusters
+
+
+def _consolidate_typed(clusters, partitions, type):
+    logging.info("Clustered {0}: {1} partitions and {2} clusters".format(
+        type, len(partitions), len(clusters)))
+    if type in ("deleted regions", "inserted regions", "inverted regions"):
+        return sorted(consolidate_clusters_unilocal(clusters),
+                      key=lambda cluster: (cluster.contig, (cluster.end + cluster.start) / 2))
+    if type in ("tandem duplicated regions",
+                "inserted regions with detected region of origin",
+                "translocation breakpoints"):
+        return consolidate_clusters_bilocal(clusters)
+    logging.error("Unknown parameter type={0} to function partition_and_cluster.".format(type))
+    return None

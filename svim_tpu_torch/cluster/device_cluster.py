@@ -1,8 +1,7 @@
 """Device clustering: batched agglomeration on the port's device with exact
 host parity.
 
-Counterpart of svim_tpu/cluster/device_cluster.py (which cannot be
-imported: it binds the JAX kernels at import).  Partitions of 3..128
+Counterpart of svim_tpu/cluster/device_cluster.py.  Partitions of 3..128
 signatures are batched into padded tensors and agglomerated on `device`
 (ops.linkage_kernel); the host rebuilds a scipy-format Z from each merge
 sequence and cuts it with scipy's fcluster, which reproduces the
@@ -34,9 +33,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from svim_tpu.cluster import accel
-from svim_tpu.cluster.distance import SAME_READ_WALL
-from svim_tpu.cluster.scipy_fast import average_linkage, fcluster_distance
+from svim_tpu_torch.cluster import accel
+from svim_tpu_torch.cluster.distance import SAME_READ_WALL
+from svim_tpu_torch.cluster.scipy_fast import (
+    average_linkage,
+    fcluster_distance,
+)
 from svim_tpu_torch.cluster.accel import precompute_ins_edit_distances
 from svim_tpu_torch.ops.linkage_kernel import (
     KIND_BND,

@@ -13,8 +13,9 @@ mode takes:
   * SAM text (collect_signatures_packed) and queryname-sorted input
     (collect_signatures_packed_querysorted): parsed records packed into one
     batch, Signature objects out.
-The emitters that turn fetched events into signatures are svim_tpu's
-(imported), so row order and contents are identical.
+The emitters that turn fetched events into signatures (_emit_*, SoAState,
+_parse_sa_segments) are svim_tpu's, copied, so row order and contents are
+identical.
 """
 
 from __future__ import annotations
@@ -26,21 +27,309 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from svim_tpu.collect.collect import bam_iterator, retrieve_other_alignments
-from svim_tpu.collect.inter import analyze_read_segments
-from svim_tpu.collect.packed import (
-    MAX_SEGMENTS,
-    STREAMING_THRESHOLD_BYTES,
-    SoAState,
-    _emit_classified,
-    _emit_indel_events,
-    _emit_indel_events_soa,
-    _parse_sa_segments,
+from svim_tpu_torch.collect.collect import bam_iterator, retrieve_other_alignments
+from svim_tpu_torch.collect.inter import (
+    _Emitter,
+    _merge_tandem_runs,
+    _pair_translocations,
+    analyze_read_segments,
 )
-from svim_tpu.io.bamstream import GenotypeTable
-from svim_tpu.io.packing import FSECONDARY, FSUPPLEMENTARY, FUNMAP
-from svim_tpu_torch.io.packing import pack_alignments
+from svim_tpu_torch.io import cigar as cigar_utils
+from svim_tpu_torch.io.bamstream import GenotypeTable
+from svim_tpu_torch.io.packing import (
+    FSECONDARY,
+    FSUPPLEMENTARY,
+    FUNMAP,
+    pack_alignments,
+)
+from svim_tpu_torch.signatures import (
+    SignatureDeletion,
+    SignatureInsertion,
+    SignatureInversion,
+    SignatureTranslocation,
+)
 from svim_tpu_torch.state import packed_to_torch, to_host
+
+_INV_DIRECTIONS = ("left_fwd", "left_rev", "right_fwd", "right_rev")
+MAX_SEGMENTS = 64  # reads with more alignments fall back to the host analyzer
+
+
+class _SATagSegment:
+    """A supplementary alignment reconstructed from one SA-tag entry,
+    carrying just the geometry the pair classifier needs."""
+
+    __slots__ = ("ref_id", "ref_start", "ref_end", "mapq", "is_reverse",
+                 "q_start", "q_end")
+
+    def __init__(self, ref_id, ref_start, cigar_string, mapq, is_reverse):
+        tuples = cigar_utils.parse_cigar(cigar_string)
+        (_bases, _ops, ref_len, _q_len, read_length,
+         qa_start, qa_end) = cigar_utils.derived_stats(tuples)
+        self.ref_id = ref_id
+        self.ref_start = ref_start
+        self.ref_end = ref_start + ref_len
+        self.mapq = mapq
+        self.is_reverse = is_reverse
+        if is_reverse:
+            self.q_start = read_length - qa_end
+            self.q_end = read_length - qa_start
+        else:
+            self.q_start = qa_start
+            self.q_end = qa_end
+
+
+def _parse_sa_segments(sa_tag: str, header_get_tid, mapq_min: int):
+    segments = []
+    for element in sa_tag.split(";"):
+        if element == "":
+            continue
+        fields = element.split(",")
+        if len(fields) != 6:
+            continue
+        mapq = int(fields[4])
+        if not (0 <= mapq <= 255):
+            mapq = 0
+        if mapq < mapq_min:
+            continue
+        segments.append(_SATagSegment(header_get_tid(fields[0]), int(fields[1]) - 1,
+                                      fields[3], mapq, fields[2] == "-"))
+    return segments
+
+
+# streaming exists for bounded memory: the one-shot scanner holds the whole
+# uncompressed stream (~12x the compressed size for long-read BAMs).  After
+# the round-4 window-buffer pool + prefetch pipeline, streaming BEATS the
+# one-shot above ~100 MB compressed (measured: 199 MB BAM 1.1 s streaming vs
+# 1.4-5.2 s one-shot — the multi-GB resident buffer pays this kernel's page
+# churn; 99 MB is a tie; 25 MB one-shot wins 0.165 vs 0.19), so the
+# threshold sits at the crossover and --stream_input forces streaming below
+# it.
+STREAMING_THRESHOLD_BYTES = 96 * 1024 * 1024
+
+
+def _slice_sequence(sequences, row, start, end):
+    """Window of a row's sequence; lazy containers decode only the window."""
+    slicer = getattr(sequences, "slice", None)
+    if slicer is not None:
+        return slicer(row, start, end)
+    sequence = sequences[row]
+    return sequence[start:end] if sequence is not None else ""
+
+
+def _slice_sequences_batch(sequences, rows, starts, ends):
+    """Many windows at once; vectorized for lazy containers."""
+    batch = getattr(sequences, "slice_batch", None)
+    if batch is not None:
+        return batch(rows, starts, ends)
+    return [_slice_sequence(sequences, int(row), int(start), int(end))
+            for row, start, end in zip(rows, starts, ends)]
+
+
+def _take_names(names, rows):
+    """Many read names at once; vectorized for lazy containers."""
+    take = getattr(names, "take", None)
+    if take is not None:
+        return take(rows)
+    return [names[int(row)] for row in rows]
+
+
+def _emit_indel_events(packed, events, getrname, options,
+                       per_row_sigs, per_row_twins):
+    """Materialize CIGAR indel events (the dense COLLECT output) into
+    Signature objects, batching every per-event decode: insertion windows and
+    read names come from single vectorized passes instead of per-event numpy
+    calls.  Emission order is event order, identical to the host scan."""
+    rows, pos_ref, pos_read, lengths, is_ins = events
+    rows = np.asarray(rows)
+    if rows.size == 0:
+        return
+    pos_ref = np.asarray(pos_ref, dtype=np.int64)
+    lengths_arr = np.asarray(lengths, dtype=np.int64)
+    ins_mask = np.asarray(is_ins, dtype=bool)
+    seqs = iter(())
+    if ins_mask.any():
+        ins_read_pos = np.asarray(pos_read, dtype=np.int64)[ins_mask]
+        seqs = iter(_slice_sequences_batch(
+            packed.sequences, rows[ins_mask], ins_read_pos,
+            ins_read_pos + lengths_arr[ins_mask]))
+    names = _take_names(packed.names, rows)
+    contig_of = {}
+    row_tids = np.asarray(packed.ref_id)[rows].tolist()
+    event_starts = (np.asarray(packed.ref_start, dtype=np.int64)[rows]
+                    + pos_ref).tolist()
+    for row, tid, start, length, ins, name in zip(
+            rows.tolist(), row_tids, event_starts, lengths_arr.tolist(),
+            ins_mask.tolist(), names):
+        contig = contig_of.get(tid)
+        if contig is None:
+            contig = contig_of.setdefault(tid, getrname(tid))
+        sigs = per_row_sigs.setdefault(row, [])
+        if ins:
+            sigs.append(SignatureInsertion(contig, start, start + length,
+                                           "cigar", name, next(seqs)))
+        else:
+            sigs.append(SignatureDeletion(contig, start, start + length,
+                                          "cigar", name))
+            if options.all_bnds:
+                per_row_twins.setdefault(row, []).append(SignatureTranslocation(
+                    contig, start, "fwd", contig, start + length, "fwd",
+                    "cigar", name))
+
+
+def _emit_indel_events_soa(packed, events, getrname, options, builders,
+                           contigs_pool, reads_pool, twin_rows,
+                           tag_offset=0):
+    """SoA materialization of CIGAR indel events: the whole batch becomes
+    table columns in a few vectorized passes — no Signature objects, no
+    per-event Python loop for DEL/INS (all_bnds twins stay objects: rare and
+    clustered separately).  Row order parity with _emit_indel_events comes
+    from the row tags (TableBuilder.finalize stable-sorts by packed row)."""
+    rows, pos_ref, pos_read, lengths, is_ins = events
+    rows = np.asarray(rows, dtype=np.int64)
+    if rows.size == 0:
+        return
+    lengths_arr = np.asarray(lengths, dtype=np.int64)
+    ins_mask = np.asarray(is_ins, dtype=bool)
+    tids = np.asarray(packed.ref_id)[rows]
+    starts = np.asarray(packed.ref_start, dtype=np.int64)[rows] + np.asarray(
+        pos_ref, dtype=np.int64)
+    names = _take_names(packed.names, rows)
+    read_codes = reads_pool.encode_all(names)
+    # tid -> contig pool code via a tiny lookup table
+    unique_tids = np.unique(tids)
+    lut = np.zeros(int(unique_tids.max()) + 1 if unique_tids.size else 1,
+                   dtype=np.int32)
+    for tid in unique_tids.tolist():
+        lut[tid] = contigs_pool.code(getrname(tid))
+    contig_codes = lut[tids]
+
+    del_mask = ~ins_mask
+    if del_mask.any():
+        builders["DEL"].add_chunk(rows[del_mask] + tag_offset, {
+            "contig_code": contig_codes[del_mask],
+            "start": starts[del_mask],
+            "end": starts[del_mask] + lengths_arr[del_mask],
+            "read_code": read_codes[del_mask],
+            "source_code": np.zeros(int(del_mask.sum()), dtype=np.int8),
+        })
+        if options.all_bnds:
+            del_rows = rows[del_mask].tolist()
+            del_starts = starts[del_mask].tolist()
+            del_ends = (starts[del_mask] + lengths_arr[del_mask]).tolist()
+            contig_names = [contigs_pool.names[code]
+                            for code in contig_codes[del_mask].tolist()]
+            del_names = [name for name, ins in zip(names, ins_mask.tolist())
+                         if not ins]
+            for row, contig, start, end, name in zip(
+                    del_rows, contig_names, del_starts, del_ends, del_names):
+                twin_rows.append((row + tag_offset, SignatureTranslocation(
+                    contig, start, "fwd", contig, end, "fwd", "cigar", name)))
+    if ins_mask.any():
+        ins_read_pos = np.asarray(pos_read, dtype=np.int64)[ins_mask]
+        seqs = _slice_sequences_batch(
+            packed.sequences, rows[ins_mask], ins_read_pos,
+            ins_read_pos + lengths_arr[ins_mask])
+        blob = "".join(seqs).encode()
+        seq_lens = np.fromiter(map(len, seqs), dtype=np.int64, count=len(seqs))
+        seq_off = np.zeros(len(seqs), dtype=np.int64)
+        if len(seqs) > 1:
+            np.cumsum(seq_lens[:-1], out=seq_off[1:])
+        builders["INS"].add_chunk(rows[ins_mask] + tag_offset, {
+            "contig_code": contig_codes[ins_mask],
+            "start": starts[ins_mask],
+            "end": starts[ins_mask] + lengths_arr[ins_mask],
+            "read_code": read_codes[ins_mask],
+            "source_code": np.zeros(int(ins_mask.sum()), dtype=np.int8),
+            "seq_blob": blob,
+            "seq_off": seq_off,
+            "seq_len": seq_lens,
+        })
+
+
+class SoAState:
+    """Shared accumulation state for multi-batch SoA COLLECT (streaming):
+    every batch appends to the same builders/pools with globally increasing
+    row tags; finalize() restores the sequential emission order once."""
+
+    __slots__ = ("builders", "contigs_pool", "reads_pool", "twin_rows")
+
+    def __init__(self):
+        from svim_tpu_torch.sigtable import SIG_TYPES, StringPool, TableBuilder
+
+        self.contigs_pool = StringPool()
+        self.reads_pool = StringPool()
+        self.builders = {sig_type: TableBuilder(sig_type, self.contigs_pool,
+                                                self.reads_pool)
+                         for sig_type in SIG_TYPES}
+        self.twin_rows = []  # (global row tag, SignatureTranslocation)
+
+    def finalize(self):
+        from svim_tpu_torch.sigtable import SignatureSoA
+
+        self.twin_rows.sort(key=lambda pair: pair[0])
+        twins = [twin for _, twin in self.twin_rows]
+        soa = SignatureSoA(
+            {t: b.finalize() for t, b in self.builders.items()},
+            self.contigs_pool, self.reads_pool)
+        return soa, twins
+
+
+def _emit_classified(group_rows, group_sizes, fetched, packed, getrname,
+                     options, per_row_sigs, per_row_twins):
+    """Consume fetched pair-classification outputs and assemble per-read
+    signatures in reference order."""
+    (code, p1, p2, aux, contig2, qpos, twin_mask, twin_p1, twin_p2,
+     twin_aux, is_reverse, ref_id) = fetched
+
+    for g, row in enumerate(group_rows):
+        if not (code[g] != 0).any() and not twin_mask[g].any():
+            continue
+        emit = _Emitter(packed.names[row], options)
+        n_pairs = group_sizes[g] - 1
+        for pair in range(n_pairs):
+            event = int(code[g, pair])
+            if twin_mask[g, pair] and options.all_bnds:
+                taux = int(twin_aux[g, pair])
+                emit.all_bnds.append(SignatureTranslocation(
+                    getrname(int(ref_id[g, pair])), int(twin_p1[g, pair]),
+                    "rev" if taux & 1 else "fwd",
+                    getrname(int(ref_id[g, pair])), int(twin_p2[g, pair]),
+                    "rev" if taux & 2 else "fwd", "suppl", emit.read_name))
+            if event == 0:
+                continue
+            contig = getrname(int(ref_id[g, pair]))
+            if event == 1:  # INS
+                anchor, deviation = int(p1[g, pair]), int(p2[g, pair])
+                position = int(qpos[g, pair])
+                if is_reverse[g, pair]:
+                    position = int(packed.read_len[row]) - position
+                sequence = _slice_sequence(packed.sequences, row, position,
+                                           position + deviation)
+                emit.signatures.append(SignatureInsertion(
+                    contig, anchor, anchor + deviation, "suppl",
+                    emit.read_name, sequence))
+            elif event == 2:  # DEL
+                anchor, length = int(p1[g, pair]), int(p2[g, pair])
+                emit.signatures.append(SignatureDeletion(
+                    contig, anchor, anchor + length, "suppl", emit.read_name))
+            elif event == 3:  # INV
+                emit.signatures.append(SignatureInversion(
+                    contig, int(p1[g, pair]), int(p2[g, pair]), "suppl",
+                    emit.read_name, _INV_DIRECTIONS[int(aux[g, pair])]))
+            elif event == 4:  # tandem duplication run entry
+                bits = int(aux[g, pair])
+                emit.tandem_runs.append((contig, int(p1[g, pair]), int(p2[g, pair]),
+                                         bool(bits & 1), bool(bits & 2)))
+            elif event == 5:  # BND
+                bits = int(aux[g, pair])
+                emit.bnd(contig, int(p1[g, pair]), "rev" if bits & 1 else "fwd",
+                         getrname(int(contig2[g, pair])), int(p2[g, pair]),
+                         "rev" if bits & 2 else "fwd")
+        _merge_tandem_runs(emit)
+        _pair_translocations(emit)
+        per_row_sigs.setdefault(row, []).extend(emit.signatures)
+        if options.all_bnds:
+            per_row_twins.setdefault(row, []).extend(emit.all_bnds)
 
 
 def collect_soa_from_bam(bam_path: str, options, device):
@@ -49,9 +338,9 @@ def collect_soa_from_bam(bam_path: str, options, device):
     Returns (header, GenotypeTable, SignatureSoA, twins).  Inputs above
     STREAMING_THRESHOLD_BYTES, or --stream_input, stream with bounded
     memory; smaller ones take the one-shot pipelined path."""
-    from svim_tpu_torch.native import host_library
+    from svim_tpu_torch import native
 
-    host_library()   # both scanners are native; raises when it cannot build
+    native.get_library()   # both scanners are native; raises when it cannot build
     if (getattr(options, "stream_input", False)
             or os.path.getsize(bam_path) > STREAMING_THRESHOLD_BYTES):
         from svim_tpu_torch.io.bamstream import collect_streaming
@@ -73,10 +362,9 @@ def _collect_soa_pipelined_stream(compressed: bytes, options, device):
     Mid-scan incremental clustering stays off: svim_tpu's clusterer binds
     the JAX CLUSTER path, and its output is byte-equal with the feature off
     (tests/test_incremental_cluster.py)."""
-    from svim_tpu import native
-    from svim_tpu.io.bamstream import _parse_header
-    from svim_tpu.io.packing import bucket_size
-    from svim_tpu_torch.io.bamstream import _batch_from_columns
+    from svim_tpu_torch import native
+    from svim_tpu_torch.io.bamstream import _batch_from_columns, _parse_header
+    from svim_tpu_torch.io.packing import bucket_size
 
     if getattr(options, "incremental_cluster", "auto") != "off":
         logging.info("Mid-scan incremental clustering is off in the PyTorch "

@@ -5,8 +5,8 @@ _stream_bam_carve, _pack_columns, _pack_rows, collect_streaming).  The
 compressed file is mmapped, BGZF blocks inflate window by window (native
 parallel inflate), records are carved across window boundaries, and each
 window's rows become packed batches.  The BGZF and record parsing is
-svim_tpu's (imported); the batch builders are copied because svim_tpu's
-ship their CIGARs to JAX.
+svim_tpu's, copied; the batch builders differ: svim_tpu's ship their
+CIGARs to JAX.
 
 Batches are built on the prefetch thread without touching the device: the
 host->device copy happens on the consumer thread, in
@@ -16,39 +16,220 @@ as the kernels that read it.
 
 from __future__ import annotations
 
+import gzip
 import mmap
 import struct
-from typing import List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from svim_tpu.collect.packed import SoAState
-from svim_tpu.io.bamscan import LazySequences, LazyStrings
-from svim_tpu.io.bamstream import (
-    FSECONDARY,
-    FUNMAP,
-    StreamedBatch,
-    _decompress_window,
-    _find_sa_py,
-    _parse_header,
-    _prefetch,
-    _row_bucket,
-    _try_header_end,
-    scan_bgzf_blocks,
-)
-from svim_tpu.io.packing import bucket_size
-from svim_tpu_torch.collect.packed import (
-    GenotypeColumns,
-    dispatch_collect_scan,
-    signatures_from_packed_soa,
-)
-from svim_tpu_torch.io.bamscan import build_packed
+from svim_tpu_torch.io.bamscan import LazySequences, LazyStrings, build_packed
+from svim_tpu_torch.io.packing import bucket_size
+from svim_tpu_torch.io.sam import AlignmentHeader
 
-# target decompressed window size (svim_tpu's); read at call time, so tests
+# target decompressed window size; read at call time, so tests
 # can shrink it
 WINDOW_UNCOMPRESSED = 128 * 1024 * 1024
 
 BATCHES = 0   # batches consumed by collect_streaming (chip_smoke reads it)
+
+FUNMAP = 0x4
+FSECONDARY = 0x100
+ROW_BUCKETS = (1024, 2048, 4096, 8192, 16384)
+
+
+def _row_bucket(n: int) -> int:
+    for bucket in ROW_BUCKETS:
+        if n <= bucket:
+            return bucket
+    return n
+
+
+def scan_bgzf_blocks(data) -> Iterator[Tuple[int, int, int]]:
+    """Yield (offset, compressed_size, uncompressed_size) per BGZF member."""
+    offset = 0
+    size = len(data)
+    while offset + 18 <= size:
+        if data[offset] != 0x1F or data[offset + 1] != 0x8B:
+            raise ValueError("not a BGZF stream at offset {0}".format(offset))
+        (xlen,) = struct.unpack_from("<H", data, offset + 10)
+        extra = offset + 12
+        extra_end = extra + xlen
+        bsize = None
+        while extra + 4 <= extra_end:
+            s1, s2, slen = data[extra], data[extra + 1], struct.unpack_from(
+                "<H", data, extra + 2)[0]
+            if s1 == 0x42 and s2 == 0x43 and slen == 2:
+                bsize = struct.unpack_from("<H", data, extra + 4)[0] + 1
+            extra += 4 + slen
+        if bsize is None:
+            raise ValueError("BGZF member without BC subfield")
+        if offset + bsize > size:
+            raise ValueError(
+                "truncated or corrupt BGZF stream: member at offset {0} "
+                "claims {1} bytes but only {2} remain".format(
+                    offset, bsize, size - offset))
+        (isize,) = struct.unpack_from("<I", data, offset + bsize - 4)
+        yield offset, bsize, isize
+        offset += bsize
+
+
+def _decompress_window(data, blocks, prefix=b"") -> bytes:
+    """Inflate a BGZF block range into a buffer that starts with `prefix`
+    (the carried partial record from the previous window) — one small
+    prefix copy instead of concatenating carry + the whole inflated
+    window."""
+    start = blocks[0][0]
+    end = blocks[-1][0] + blocks[-1][1]
+    window = bytes(data[start:end])
+    try:
+        from svim_tpu_torch import native
+        out = native.bgzf_decompress_with_prefix(window, prefix)
+        if out is not None:
+            return out
+    except Exception:
+        pass
+    return prefix + gzip.decompress(window)
+
+
+class StreamedBatch:
+    """One packed batch plus its SA tags (same contract the fused COLLECT
+    pass consumes)."""
+
+    __slots__ = ("packed", "sa_tags", "row_offset", "n_real")
+
+    def __init__(self, packed, sa_tags, row_offset, n_real):
+        self.packed = packed
+        self.sa_tags = sa_tags
+        self.row_offset = row_offset  # global row index of this batch's row 0
+        self.n_real = n_real          # rows beyond this are padding
+
+
+class GenotypeTable:
+    """Whole-file per-record columns for genotyping region queries."""
+
+    __slots__ = ("ref_id", "ref_start", "ref_end", "mapq", "names")
+
+    def __init__(self, ref_id, ref_start, ref_end, mapq, names):
+        self.ref_id = ref_id
+        self.ref_start = ref_start
+        self.ref_end = ref_end
+        self.mapq = mapq
+        self.names = names
+
+
+def peek_bam_header(path: str):
+    """Decode just enough leading BGZF blocks to parse the header (cheap
+    sort-order dispatch without touching the record stream)."""
+    with open(path, "rb") as handle:
+        data = handle.read(8 * 1024 * 1024)
+    buffer = b""
+    for offset, bsize, _isize in scan_bgzf_blocks(data):
+        if offset + bsize > len(data):
+            break
+        buffer += gzip.decompress(bytes(data[offset:offset + bsize]))
+        end = _try_header_end(buffer)
+        if end is not None:
+            header, _ = _parse_header(buffer)
+            return header
+    raise ValueError("could not parse BAM header from the leading blocks")
+
+
+_TAG_SIZES = {ord("c"): 1, ord("C"): 1, ord("s"): 2, ord("S"): 2,
+              ord("i"): 4, ord("I"): 4, ord("f"): 4, ord("A"): 1}
+
+
+def _find_sa_py(buffer, p, end) -> Optional[str]:
+    if buffer.find(b"SAZ", p, end) < 0:
+        return None
+    while p + 3 <= end:
+        value_type = buffer[p + 2]
+        if buffer[p] == 0x53 and buffer[p + 1] == 0x41 and value_type == 0x5A:
+            nul = buffer.index(b"\x00", p + 3, end)
+            return buffer[p + 3:nul].decode()
+        p += 3
+        if value_type in _TAG_SIZES:
+            p += _TAG_SIZES[value_type]
+        elif value_type in (0x5A, 0x48):
+            p = buffer.index(b"\x00", p, end) + 1
+        elif value_type == 0x42:
+            sub = buffer[p]
+            (count,) = struct.unpack_from("<i", buffer, p + 1)
+            p += 5 + count * _TAG_SIZES[sub]
+        else:
+            return None
+    return None
+
+
+def _try_header_end(buffer) -> Optional[int]:
+    if len(buffer) < 12 or buffer[:4] != b"BAM\x01":
+        if buffer[:4] != b"BAM\x01":
+            raise ValueError("not a BAM stream")
+        return None
+    (l_text,) = struct.unpack_from("<i", buffer, 4)
+    offset = 8 + l_text
+    if offset + 4 > len(buffer):
+        return None
+    (n_ref,) = struct.unpack_from("<i", buffer, offset)
+    offset += 4
+    for _ in range(n_ref):
+        if offset + 4 > len(buffer):
+            return None
+        (l_name,) = struct.unpack_from("<i", buffer, offset)
+        offset += 4 + l_name + 4
+    if offset > len(buffer):
+        return None
+    return offset
+
+
+def _parse_header(buffer):
+    (l_text,) = struct.unpack_from("<i", buffer, 4)
+    text = buffer[8:8 + l_text].split(b"\x00", 1)[0].decode()
+    offset = 8 + l_text
+    (n_ref,) = struct.unpack_from("<i", buffer, offset)
+    offset += 4
+    references, lengths = [], []
+    for _ in range(n_ref):
+        (l_name,) = struct.unpack_from("<i", buffer, offset)
+        offset += 4
+        references.append(buffer[offset:offset + l_name - 1].decode())
+        offset += l_name
+        lengths.append(struct.unpack_from("<i", buffer, offset)[0])
+        offset += 4
+    header = AlignmentHeader.from_text(text)
+    if not header.references:
+        header = AlignmentHeader(header.hd, references, lengths, text)
+    return header, offset
+
+
+def _prefetch(iterator, depth: int = 2):
+    """Run `iterator` on a background thread with a bounded queue: the BGZF
+    decompress + record carve of batch N+1/N+2 overlaps the device pass and
+    host materialization of batch N (window buffers are immutable bytes, so
+    already-yielded batches stay valid).  Exceptions propagate."""
+    import queue
+    import threading
+
+    sentinel = object()
+    q = queue.Queue(maxsize=depth)
+
+    def worker():
+        try:
+            for item in iterator:
+                q.put(item)
+            q.put(sentinel)
+        except BaseException as error:  # noqa: BLE001 - re-raised on the consumer
+            q.put(error)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item
 
 
 def stream_bam(path: str, min_mapq: int, batch_reads: int = 4096,
@@ -57,7 +238,7 @@ def stream_bam(path: str, min_mapq: int, batch_reads: int = 4096,
 
     With the native library each window runs the fused inflate+count pass;
     without it the carve path runs, and with no carver a pure-Python walk."""
-    from svim_tpu import native
+    from svim_tpu_torch import native
 
     # batches copy what they keep out of the map (window bytes, inflated
     # buffers), so it closes when the stream ends
@@ -107,7 +288,7 @@ def _stream_bam_fused(data, min_mapq: int, batch_reads: int,
     """Window-fused streaming scan: per window one native pass inflates the
     blocks behind the carried partial record and counts/compacts its
     records; rows then fill by memcpy from the scan cache."""
-    from svim_tpu import native
+    from svim_tpu_torch import native
 
     block_iter = scan_bgzf_blocks(data)
     pending_blocks = []
@@ -186,7 +367,7 @@ def _stream_bam_carve(data, min_mapq: int, batch_reads: int,
                       min_sv_size: int):
     """Incremental carve/compact streaming scan (a header spanning windows,
     or no fused window pass)."""
-    from svim_tpu import native
+    from svim_tpu_torch import native
 
     block_iter = scan_bgzf_blocks(data)
     pending_blocks = []
@@ -328,13 +509,13 @@ def _cigar_batch(buffer, cigar_offsets, op_counts, max_ops, min_sv_size):
     compact_cigar_row per row)."""
     n_real = len(op_counts)
     if min_sv_size > 0 and n_real:
-        from svim_tpu import native
+        from svim_tpu_torch import native
 
         compact = native.cigar_compact_rows(buffer, cigar_offsets, op_counts,
                                             min_sv_size, bucket_size)
         if compact is not None:
             return compact
-    from svim_tpu.io.packing import compact_cigar_row
+    from svim_tpu_torch.io.packing import compact_cigar_row
 
     cigar_words = np.zeros((n_real, bucket_size(max_ops)), dtype=np.int32)
     for row in range(n_real):
@@ -391,6 +572,13 @@ def collect_streaming(path: str, options, device):
 
     Returns (header, GenotypeTable, SignatureSoA, twins), the shape of
     svim_tpu's collect_streaming(..., soa=True)."""
+    from svim_tpu_torch.collect.packed import (
+        GenotypeColumns,
+        SoAState,
+        dispatch_collect_scan,
+        signatures_from_packed_soa,
+    )
+
     stream = _prefetch(stream_bam(path, options.min_mapq, options.batch_reads,
                                   min_sv_size=options.min_sv_size), depth=2)
     header = next(stream)

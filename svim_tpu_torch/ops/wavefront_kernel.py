@@ -11,8 +11,10 @@ Three layers:
   * `banded_distance_torch` — the plain PyTorch version, a line-for-line
     port of the jnp `banded_distance` (K = 2W+1); runs on any device.
   * `banded_distance_cuda` — the wrapper of the hand-written CUDA kernel
-    (csrc/wavefront.cu, one CTA per pair), bit-identical to the plain
-    version, counted in `LAUNCHES`.
+    (csrc/wavefront.cu: one warp per pair with the fronts in registers,
+    narrow bands tried first inside the kernel; one CTA per pair for bands
+    too wide for that), equal to the plain version entry for entry, also
+    above the band; counted in `LAUNCHES`.
   * `banded_distance` — the dispatcher: a CPU tensor takes the plain
     version, a CUDA tensor the kernel.
 """
@@ -100,6 +102,9 @@ def banded_distance_torch(a_codes, a_lens, b_codes, b_lens, band: int):
 
 _library = None
 _max_shared_bytes = None
+_STATIC_SHARED_BYTES = 16   # the CTA kernel's own shared variable, rounded up
+WARP_KERNEL_MAX_SLOTS = 32 * 33   # slots of a front one warp holds in registers
+VARIANTS = ("warp", "cta", "cta_unstaged", "global")
 
 
 def _kernel_library():
@@ -108,13 +113,19 @@ def _kernel_library():
         from svim_tpu_torch.ops._build import load
 
         library = load("wavefront")
-        library.wavefront_banded_distance.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        library.wavefront_banded_distance.restype = ctypes.c_int
+        pointer, integer = ctypes.c_void_p, ctypes.c_int
+        library.wavefront_banded_distance_warp.argtypes = [
+            pointer, pointer, pointer, pointer, pointer, integer, integer,
+            integer, integer, integer, pointer]
+        library.wavefront_banded_distance_warp.restype = integer
+        library.wavefront_banded_distance_cta.argtypes = [
+            pointer, pointer, pointer, pointer, pointer, pointer, integer,
+            integer, integer, integer, integer, pointer]
+        library.wavefront_banded_distance_cta.restype = integer
         library.wavefront_max_shared_bytes.argtypes = []
-        library.wavefront_max_shared_bytes.restype = ctypes.c_int
+        library.wavefront_max_shared_bytes.restype = integer
+        library.wavefront_uses_dpx.argtypes = []
+        library.wavefront_uses_dpx.restype = integer
         _max_shared_bytes = library.wavefront_max_shared_bytes()
         if _max_shared_bytes <= 0:
             raise RuntimeError("cannot query the per-block shared-memory "
@@ -123,19 +134,56 @@ def _kernel_library():
     return _library
 
 
-def uses_shared_fronts(band: int) -> bool:
-    """True when three fronts of 2*band+1 int32 cells fit the opt-in
-    shared-memory limit (else the kernel keeps them in global scratch)."""
+def uses_dpx() -> bool:
+    """True when the built kernel folds add and min with Hopper's DPX
+    instruction (the toolkit declares __viaddmin_s32)."""
+    return bool(_kernel_library().wavefront_uses_dpx())
+
+
+def _front_stride(length: int, band: int) -> int:
+    """int32 slots of one front of the CTA kernel: one per diagonal of one
+    parity within min(band, length) and a margin slot on either side, made
+    even so that the strings staged behind two fronts start 16-byte aligned."""
+    return (min(band, length) + 4) & ~1
+
+
+def kernel_variant(length: int, band: int) -> str:
+    """The code path a launch of this shape takes: "warp" (fronts in
+    registers, one warp per pair), "cta" (one CTA per pair, fronts and
+    strings in shared memory), "cta_unstaged" (fronts in shared memory,
+    strings read from global memory) or "global" (fronts in a global
+    scratch buffer)."""
     _kernel_library()
-    return 3 * (2 * band + 1) * 4 <= _max_shared_bytes
+    room = _max_shared_bytes - _STATIC_SHARED_BYTES
+    if min(band, length) + 1 <= WARP_KERNEL_MAX_SLOTS and 2 * length <= room:
+        return "warp"
+    fronts = 2 * _front_stride(length, band) * 4
+    if fronts + 2 * length <= room:
+        return "cta"
+    if fronts <= room:
+        return "cta_unstaged"
+    return "global"
 
 
-def banded_distance_cuda(a_codes, a_lens, b_codes, b_lens, band: int):
+def _warps_per_cta(batch: int, length: int) -> int:
+    """Pairs a CTA of the warp kernel: four where the batch fills the card
+    several times over and their staged strings fit, else fewer, so that a
+    small batch spreads over as many SMs as it has pairs."""
+    warps = 4 if batch >= 2048 else 1
+    while warps > 1 and warps * 2 * length > _max_shared_bytes:
+        warps //= 2
+    return warps
+
+
+def banded_distance_cuda(a_codes, a_lens, b_codes, b_lens, band: int,
+                         variant=None):
     """banded_distance on the card through csrc/wavefront.cu.
 
     a_codes, b_codes: (B, L) uint8 contiguous CUDA tensors; a_lens, b_lens:
     (B,) int32 contiguous on the same device.  Returns (B,) int32 on that
-    device, equal to banded_distance_torch entry for entry."""
+    device, equal to banded_distance_torch entry for entry.  `variant`
+    forces one of VARIANTS instead of the one `kernel_variant` picks (the
+    kernel checks); it raises when the shape does not fit that variant."""
     global LAUNCHES
     device = a_codes.device
     if device.type != "cuda":
@@ -167,15 +215,37 @@ def banded_distance_cuda(a_codes, a_lens, b_codes, b_lens, band: int):
         return out
     with torch.cuda.device(device):
         library = _kernel_library()
-        scratch = None
-        if not uses_shared_fronts(band):
-            scratch = torch.empty((batch, 3, 2 * band + 1), dtype=torch.int32,
+        if variant is None:
+            variant = kernel_variant(length, band)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        pointers = (a_codes.data_ptr(), a_lens.data_ptr(), b_codes.data_ptr(),
+                    b_lens.data_ptr(), out.data_ptr())
+        room = _max_shared_bytes - _STATIC_SHARED_BYTES
+        stride = _front_stride(length, band)
+        if variant == "warp":
+            slots = min(band, length) + 1
+            if slots > WARP_KERNEL_MAX_SLOTS or 2 * length > room:
+                raise ValueError("L={0}, W={1} does not fit the warp "
+                                 "kernel".format(length, band))
+            slots_per_lane = 3 if slots <= 96 else 9 if slots <= 288 else 33
+            code = library.wavefront_banded_distance_warp(
+                *pointers, batch, length, band, slots_per_lane,
+                _warps_per_cta(batch, length), stream)
+        elif variant in ("cta", "cta_unstaged"):
+            stage = int(variant == "cta")
+            if 2 * stride * 4 + stage * 2 * length > room:
+                raise ValueError("L={0}, W={1} does not fit shared-memory "
+                                 "fronts".format(length, band))
+            code = library.wavefront_banded_distance_cta(
+                *pointers, None, batch, length, band, stride, stage, stream)
+        elif variant == "global":
+            scratch = torch.empty((batch, 2, stride), dtype=torch.int32,
                                   device=device)
-        code = library.wavefront_banded_distance(
-            a_codes.data_ptr(), a_lens.data_ptr(), b_codes.data_ptr(),
-            b_lens.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            batch, length, band, torch.cuda.current_stream(device).cuda_stream)
+            code = library.wavefront_banded_distance_cta(
+                *pointers, scratch.data_ptr(), batch, length, band, stride,
+                0, stream)
+        else:
+            raise ValueError("unknown variant {0!r}".format(variant))
     if code != 0:
         raise RuntimeError("wavefront kernel launch failed: CUDA error "
                            "{0}".format(code))
@@ -196,12 +266,26 @@ def banded_distance(a_codes, a_lens, b_codes, b_lens, band: int):
 # --- host drivers -------------------------------------------------------------
 
 
-def _encode(strings, length):
-    """Raw bytes, zero-padded to `length` (exact comparison incl. N etc.)."""
-    out = np.zeros((len(strings), length), dtype=np.uint8)
-    for row, text in enumerate(strings):
-        raw = np.frombuffer(text.encode(), dtype=np.uint8)
-        out[row, :len(raw)] = raw
+def _encode(strings, length, out=None):
+    """Raw bytes, zero-padded to `length` (exact comparison incl. N etc.),
+    as one (len(strings), length) uint8 matrix, with no Python loop over
+    the strings: numpy converts the list to fixed-width byte strings, which
+    is this matrix.  `out`, when given, is the matrix to overwrite."""
+    count = len(strings)
+    try:
+        fixed = np.array(strings, dtype="S{0}".format(length))
+        longest = max(map(len, strings), default=0)
+    except UnicodeEncodeError:   # characters outside ASCII: their UTF-8 bytes
+        raw = [text.encode() for text in strings]
+        fixed = np.array(raw, dtype="S{0}".format(length))
+        longest = max(map(len, raw))
+    if longest > length:   # the conversion above would have cut it
+        raise ValueError("a string of {0} bytes does not fit length "
+                         "{1}".format(longest, length))
+    codes = fixed.view(np.uint8).reshape(count, length)
+    if out is None:
+        return codes
+    out[...] = codes
     return out
 
 
@@ -219,9 +303,9 @@ def _pow4_at_least(value: int, floor: int) -> int:
     return result
 
 
-# The kernel runs one CTA per pair, so a launch wants many pairs in flight;
-# 8192 pairs keep every SM busy and bound the padded codes at 2 x 8192 x L
-# bytes.  The plain version on the CPU holds several (B, 2W+1) int32
+# The kernel runs one warp (wide bands: one CTA) per pair, so a launch wants
+# many pairs in flight; 8192 pairs keep every SM busy and bound the padded
+# codes at 2 x 8192 x L bytes.  The plain version on the CPU holds several (B, 2W+1) int32
 # temporaries per step, so its batch is capped by cells instead.
 CUDA_PAIRS_PER_LAUNCH = 8192
 CPU_BATCH_CHUNK = 1024
@@ -237,14 +321,36 @@ def _chunk_size(band: int, device) -> int:
     return chunk
 
 
+def _pack_chunk(chunk, length, device):
+    """The four kernel inputs of a list of string pairs on `device`, from
+    one host buffer (codes of a, codes of b, lengths of a, lengths of b;
+    pinned for a card) that goes up in a single copy."""
+    count = len(chunk)
+    codes_bytes = count * length
+    lens_offset = -(-2 * codes_bytes // 16) * 16   # int32 views need alignment
+    # every byte the kernel reads is written below
+    host = torch.empty(lens_offset + 8 * count, dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    view = host.numpy()
+    _encode([a for a, _ in chunk], length,
+            out=view[:codes_bytes].reshape(count, length))
+    _encode([b for _, b in chunk], length,
+            out=view[codes_bytes:2 * codes_bytes].reshape(count, length))
+    lens = view[lens_offset:].view(np.int32)
+    lens[:count] = np.fromiter((len(a) for a, _ in chunk), dtype=np.int32,
+                               count=count)
+    lens[count:] = np.fromiter((len(b) for _, b in chunk), dtype=np.int32,
+                               count=count)
+    packed = host.to(device, non_blocking=True)
+    device_lens = packed[lens_offset:].view(torch.int32)
+    return (packed[:codes_bytes].view(count, length), device_lens[:count],
+            packed[codes_bytes:2 * codes_bytes].view(count, length),
+            device_lens[count:])
+
+
 def _run_chunk(chunk, length, band, device):
     """One banded_distance call over string pairs -> device int32 tensor."""
-    a_codes = torch.from_numpy(_encode([a for a, _ in chunk], length))
-    b_codes = torch.from_numpy(_encode([b for _, b in chunk], length))
-    a_lens = torch.tensor([len(a) for a, _ in chunk], dtype=torch.int32)
-    b_lens = torch.tensor([len(b) for _, b in chunk], dtype=torch.int32)
-    return banded_distance(a_codes.to(device), a_lens.to(device),
-                           b_codes.to(device), b_lens.to(device), band)
+    return banded_distance(*_pack_chunk(chunk, length, device), band)
 
 
 def batched_edit_distance_resident(pairs, band_hints, device):

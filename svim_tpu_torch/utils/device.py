@@ -1,9 +1,10 @@
 """Device selection for the port.
 
 The device is picked ONCE (by the CLI) and passed down explicitly to every
-stage and op.  `SVIM_TORCH_DEVICE=cuda|cpu` overrides the choice — the
-port's counterpart of JAX_PLATFORMS; asking for `cuda` where there is no
-card raises instead of falling back.
+stage and op.  The port runs on the card: without a visible CUDA device
+`select_device` raises unless the caller asked for the CPU with
+`SVIM_TORCH_DEVICE=cpu` (the port's counterpart of JAX_PLATFORMS), as the
+tests do.  It never falls back on its own.
 """
 
 from __future__ import annotations
@@ -14,20 +15,20 @@ import torch
 
 
 def select_device() -> torch.device:
-    """`cuda` when a card is visible, else `cpu`; SVIM_TORCH_DEVICE
-    overrides."""
+    """The current CUDA device; `cpu` only when SVIM_TORCH_DEVICE=cpu asks
+    for it.  Raises RuntimeError when no card is visible and the CPU was
+    not asked for."""
     requested = os.environ.get("SVIM_TORCH_DEVICE", "").strip().lower()
     if requested not in ("", "cuda", "cpu"):
         raise ValueError("SVIM_TORCH_DEVICE must be 'cuda' or 'cpu', got "
                          "{0!r}".format(requested))
     if requested == "cpu":
         return torch.device("cpu")
-    if requested == "cuda" or torch.cuda.is_available():
-        if not torch.cuda.is_available():
-            raise RuntimeError("SVIM_TORCH_DEVICE=cuda but torch sees no "
-                               "CUDA device")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch sees no CUDA device; svim_tpu_torch runs on "
+                           "the card unless SVIM_TORCH_DEVICE=cpu asks for "
+                           "the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def describe(device: torch.device) -> str:

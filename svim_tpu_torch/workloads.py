@@ -2,7 +2,7 @@
 
 - `golden_workload`: the simulated two-contig sample whose variants.vcf is
   pinned in tests/golden/variants.golden.vcf (the SimConfig of
-  tests/test_golden_vcf.py), written by svim_tpu's host simulator.
+  tests/test_golden_vcf.py), written by the host simulator (sim.py).
 - `bench_workload`: bench.py's synthetic long-read sample (ONT-like reads
   of 3,000 CIGAR ops, DEL and INS loci at 24x coverage, split reads on 1 in
   12 background reads) at a given read count; the same bytes as
@@ -28,10 +28,10 @@ import zlib
 
 import numpy as np
 
-from svim_tpu.collect.collect import retrieve_other_alignments
-from svim_tpu.io import bam as bamio
-from svim_tpu.io.bamstream import scan_bgzf_blocks
-from svim_tpu.io.sam import AlignmentFile, AlignmentHeader, parse_sam_line
+from svim_tpu_torch.collect.collect import retrieve_other_alignments
+from svim_tpu_torch.io import bam as bamio
+from svim_tpu_torch.io.bamstream import scan_bgzf_blocks
+from svim_tpu_torch.io.sam import AlignmentFile, AlignmentHeader, parse_sam_line
 
 # the SimConfig of tests/test_golden_vcf.py
 GOLDEN_SIM = dict(seed=42, genome_length=900_000, second_contig_length=250_000,
@@ -43,7 +43,7 @@ COVERAGE = 24            # reads supporting each SV locus
 
 
 def golden_workload(directory):
-    from svim_tpu.sim import SimConfig, simulate
+    from svim_tpu_torch.sim import SimConfig, simulate
 
     genome, bam, _truth = simulate(directory, SimConfig(**GOLDEN_SIM))
     return bam, genome

@@ -186,19 +186,48 @@ def test_soa_tables_equal_jax_on_bench_workload(tmp_path):
         jax_packed.collect_soa_from_bam(bam, options))
 
 
-def test_host_library_builds_svim_tpu_native_sources(tmp_path, monkeypatch):
-    """A missing native library is built by the port from svim_tpu's sources
-    (with the `-include string` that g++ 13 needs) and loaded."""
-    from svim_tpu import native
-    from svim_tpu_torch.native import host_library
+def _tree_state(directory):
+    return {name: (os.path.getsize(os.path.join(directory, name)),
+                   os.path.getmtime(os.path.join(directory, name)))
+            for name in sorted(os.listdir(directory))}
 
-    target = str(tmp_path / "_svimnative.so")
-    monkeypatch.setattr(native, "_LIBRARY", target)
+
+def test_host_library_builds_svim_tpu_native_sources(tmp_path, monkeypatch):
+    """The port's native library is built from the port's own sources (which
+    include <string>, as g++ 13 needs) into the port's build directory, and
+    nothing under svim_tpu/native is created or changed."""
+    import svim_tpu.native as jax_native
+    from svim_tpu_torch import native
+
+    jax_dir = os.path.dirname(jax_native.__file__)
+    before = _tree_state(jax_dir)
+    with open(native._SOURCE) as handle:
+        assert "#include <string>" in handle.read()
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "_build"))
     monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "_build_failed", False)
-    library = host_library()
-    assert library._name == target
+    library = native.get_library()
+    assert os.path.dirname(library._name) == str(tmp_path / "_build")
+    assert library._name == native.library_path()
     assert library.myers_distance(b"ACGTT", 5, b"AGTT", 4) == 1
+    assert _tree_state(jax_dir) == before
+    # the build the package itself uses lies in its git-ignored directory
+    monkeypatch.undo()
+    package_dir = os.path.dirname(os.path.dirname(native.__file__))
+    assert os.path.dirname(native.library_path()) == os.path.join(
+        package_dir, "_build")
+
+
+def test_native_build_failure_raises(tmp_path, monkeypatch):
+    """No Python stand-in: a failing g++ raises instead of returning None."""
+    from svim_tpu_torch import native
+
+    broken = tmp_path / "broken.cpp"
+    broken.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(native, "_SOURCE", str(broken))
+    monkeypatch.setattr(native, "_lib", None)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        native.get_library()
 
 
 def test_streaming_sizes_are_not_ported(tmp_path):

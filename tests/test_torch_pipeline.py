@@ -168,7 +168,9 @@ def test_resident_ins_route_equals_jax():
                                   [edit_distance(a, b) for a, b in pairs])
 
 
-def test_inputs_outside_the_slice_raise(tmp_path):
+def test_inputs_outside_the_slice_raise(tmp_path, monkeypatch):
+    monkeypatch.setenv("SVIM_TORCH_DEVICE", "cpu")
+
     def options(*extra, sub="alignment"):
         if sub == "reads":
             return parse_arguments(arguments=["reads", str(tmp_path),
