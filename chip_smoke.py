@@ -36,8 +36,11 @@ Phases, each of which raises (non-zero exit) on failure:
   7. distance kernel vs plain version on the card: span_position_matrix_cuda
      against span_position_matrix_torch on seeded partitions at P in {32,
      128} and B in {8, 1024, 8192}, with and without the same-read wall,
-     plus the case of tests/test_parallel.py; outputs must be bit-equal;
-     prints kernel and plain ms per shape (no entry point calls this
+     plus the case of tests/test_parallel.py, P = 64 and 256, P not a
+     multiple of 4, B = 1, more partitions than the card holds CTAs, P too
+     large to stage in shared memory, each forced path of the kernel once
+     and norms in, on the edges of and outside the range of its written-out
+     division (distance_cases); outputs must be bit-equal; prints kernel and plain ms per shape (no entry point calls this
      kernel, as in the JAX package);
   8. streaming slice: the bench BAM rewritten as level-0 BGZF (over 96 MiB,
      same records) through `alignment --edit_backend wavefront --profile`
@@ -49,7 +52,20 @@ Phases, each of which raises (non-zero exit) on failure:
   9. the other inputs: the golden workload as SAM text and as a
      queryname-sorted BAM (SA entries as real supplementary records) with
      --edit_backend wavefront must write VCFs hashing to svim_tpu's
-     (SAM_VCF_SHA256, QUERYNAME_VCF_SHA256) and launch the wavefront kernel.
+     (SAM_VCF_SHA256, QUERYNAME_VCF_SHA256) and launch the wavefront kernel;
+ 10. the default main path, mid-scan incremental clustering
+     (--incremental_cluster auto, which phases 4, 5, 8 and 9 switch off
+     because their pinned telemetry and launch counts were measured so):
+     the bench BAM one-shot with --batch_reads 512 and both edit backends,
+     once with the scan delivered in chunks of 512 rows (partitions must be
+     reused from the mid-scan memo) and once as the scan comes (reuse is
+     whatever the walker's lead allows), and the golden workload in chunks
+     of 64; every VCF must hash to the pinned one; prints COLLECT and
+     CLUSTER seconds beside phase 5's `off` runs;
+ 11. the other flags on the golden workload: --device_backend host must
+     write the golden VCF with no kernel launch; --profile_trace (with
+     --edit_backend wavefront) must write the golden VCF and Chrome traces
+     under traces/ whose CLUSTER trace names the wavefront kernel.
 The script imports torch and the port, never jax or the JAX package: the
 inputs come from svim_tpu_torch.workloads.
 Then one JSON line describing the kernels, the card line, and the last
@@ -74,8 +90,9 @@ MAIN_SHAPE = (8192, 1024, 1024)
 GOLDEN = os.path.join(ROOT, "tests", "golden", "variants.golden.vcf")
 # where the clustering stage resolved its device-eligible partitions: the
 # counts svim_tpu's own run gives on the CPU (with mid-scan incremental
-# clustering off, as the port runs; tests/test_torch_pipeline.py checks the
-# golden ones).  On both workloads every partition has exact float64 ties
+# clustering off, as the phases that pin them run the port: partitions
+# reused from the mid-scan memo are not counted, and how many are depends on
+# the scan's timing; tests/test_torch_pipeline.py checks the golden ones).  On both workloads every partition has exact float64 ties
 # (pre_tie) or a resident INS labeling the float32 guard rejects
 # (resident_relink), in svim_tpu too; phase 6 covers accepted labelings.
 _NO_TELEMETRY = {"device": 0, "pre_tie": 0, "pre_wall": 0, "post_tie": 0,
@@ -483,17 +500,23 @@ KERNEL_MODULES = {"wavefront_banded_distance": "wavefront_kernel",
 PATH_LAUNCHES = {}
 
 
-def _drive(path, arguments):
+def _drive(path, arguments, chunk=0):
     """One run of the port's CLI as a path of the smoke: every kernel's
     launch count is set to 0 just before it and read just after (into
-    PATH_LAUNCHES[path]).  Returns the wavefront kernel's count."""
+    PATH_LAUNCHES[path]).  With `chunk` the one-shot scan is delivered in
+    claims of that many rows (workloads.chunked_scan).  Returns the
+    wavefront kernel's count."""
+    import contextlib
     import importlib
+
+    from svim_tpu_torch import workloads
 
     modules = {name: importlib.import_module("svim_tpu_torch.ops." + module)
                for name, module in KERNEL_MODULES.items()}
     for module in modules.values():
         module.LAUNCHES = 0
-    code = _run_port(arguments)
+    with workloads.chunked_scan(chunk) if chunk else contextlib.nullcontext():
+        code = _run_port(arguments)
     PATH_LAUNCHES[path] = {name: module.LAUNCHES
                            for name, module in modules.items()}
     if code != 0:
@@ -515,7 +538,8 @@ def phase_golden():
     bam, genome = workloads.golden_workload(directory)
     working_dir = os.path.join(directory, "wd")
     launches = _drive("golden", ["alignment", working_dir, bam, genome,
-                                 "--edit_backend", "wavefront"])
+                                 "--edit_backend", "wavefront",
+                                 "--incremental_cluster", "off"])
     if _normalized_vcf(os.path.join(working_dir, "variants.vcf")) \
             != _normalized_vcf(GOLDEN):
         raise AssertionError("golden slice: variants.vcf differs from "
@@ -533,7 +557,8 @@ def phase_golden():
 
 
 def phase_bench(card, recorder):
-    """Returns the bench workload's (bam, genome)."""
+    """Returns the bench workload's (bam, genome) and the stage seconds of
+    its two runs by edit backend."""
     from svim_tpu_torch import workloads
 
     directory = os.path.join(SCRATCH, "bench{0}".format(BENCH_READS))
@@ -547,6 +572,7 @@ def phase_bench(card, recorder):
             .format(BENCH_READS, time.perf_counter() - started,
                     os.path.getsize(bam)))
     results = {}
+    off_seconds = {}
     for backend in ("wavefront", "auto"):
         working_dir = os.path.join(directory, "wd_" + backend)
         # the timed run goes through the ops themselves; the recorded
@@ -554,9 +580,11 @@ def phase_bench(card, recorder):
         started = time.perf_counter()
         launches = _drive("bench_" + backend,
                           ["alignment", working_dir, bam, genome,
-                           "--edit_backend", backend, "--profile"])
+                           "--edit_backend", backend, "--profile",
+                           "--incremental_cluster", "off"])
         wall = time.perf_counter() - started
         seconds = _stage_seconds(working_dir)
+        off_seconds[backend] = seconds
         rate = BENCH_READS / (seconds["collect"] + seconds["cluster"])
         telemetry = _telemetry()
         calls = _calls_per_class(os.path.join(working_dir, "variants.vcf"))
@@ -586,10 +614,11 @@ def phase_bench(card, recorder):
         "to svim_tpu's (sha256)")
     with recorder:
         code = _run_port(["alignment", os.path.join(directory, "wd_recorded"),
-                          bam, genome, "--edit_backend", "wavefront"])
+                          bam, genome, "--edit_backend", "wavefront",
+                          "--incremental_cluster", "off"])
     if code != 0:
         raise RuntimeError("recorded bench slice exited with {0}".format(code))
-    return bam, genome
+    return bam, genome, off_seconds
 
 
 def _same_linkage(got, want, where):
@@ -747,14 +776,17 @@ def phase_linkage(recorder):
             accepted_rows, max_error))
 
 
-def _distance_inputs(rng, batch, pad):
+def _distance_inputs(rng, batch, pad, wide=False):
     """Seeded (B, P) partitions: negative starts, zero and negative spans,
-    repeated read ids, a ragged number of valid slots per partition."""
+    repeated read ids, a ragged number of valid slots per partition; `wide`
+    draws the coordinates from all of int32, so that sums and differences
+    wrap and |Δ| reaches 2^31."""
     import numpy as np
 
-    starts = rng.integers(-5_000, 2_000_000, size=(batch, pad)).astype(
-        np.int32)
-    ends = (starts + rng.integers(-50, 5_000, size=(batch, pad))).astype(
+    low, high, span = (-2**31, 2**31 - 1, 2**30) if wide \
+        else (-5_000, 2_000_000, 5_000)
+    starts = rng.integers(low, high, size=(batch, pad)).astype(np.int32)
+    ends = (starts + rng.integers(-50, span, size=(batch, pad))).astype(
         np.int32)
     ends[:, ::7] = starts[:, ::7]
     reads = rng.integers(0, max(2, pad // 3), size=(batch, pad)).astype(
@@ -778,61 +810,127 @@ def _parallel_case():
     return starts, ends, reads, valid
 
 
-# float32 operations of one distance cell: two differences, two absolute
-# values, a maximum, a clamp, two divisions, a sum, a comparison, two selects
-DISTANCE_OPS_PER_CELL = 12
+# instructions the card issues for one distance cell: 230 in the inner loop
+# of the 16-byte-store kernel for its 8 cells, counted from its SASS by
+# scripts/distance_kernel_sass.py (beside the differences, absolute values,
+# conversions, maximum, sum, comparisons and selects, each IEEE division is
+# a reciprocal estimate and three to five fused multiply-adds), and the
+# card's issue rate: one instruction a lane and clock on 132 SMs x 128 lanes
+# x 1.98 GHz, which is half its float32 rate (a fused multiply-add counts
+# as two operations there)
+DISTANCE_OPS_PER_CELL = 29
+LANE_INSTRUCTIONS_PER_SECOND = FLOAT32_FLOPS_PER_SECOND / 2
 
 
 def distance_bound_ms_of(batch, pad):
     """The least time the card could take for one (B, P) call: bytes (three
     int32 and one bool (B, P) inputs read once, the (B, P, P) float32 result
-    written once) over the memory rate, or DISTANCE_OPS_PER_CELL operations
-    a cell over the float32 rate.  Returns (ms, "bytes" or "operations")."""
+    written once) over the memory rate, or DISTANCE_OPS_PER_CELL
+    instructions a cell over the issue rate.  Returns (ms, "bytes" or
+    "operations")."""
     bytes_ms = (13 * batch * pad + 4 * batch * pad * pad) \
         / HBM_BYTES_PER_SECOND * 1e3
     ops_ms = DISTANCE_OPS_PER_CELL * batch * pad * pad \
-        / FLOAT32_FLOPS_PER_SECOND * 1e3
+        / LANE_INSTRUCTIONS_PER_SECOND * 1e3
     if ops_ms >= bytes_ms:
         return ops_ms, "operations"
     return bytes_ms, "bytes"
 
 
+def distance_cases(rng):
+    """((B, P), inputs, forced launch options) of phase 7.  The wrapper's own
+    choice at P in {32, 128} and B in {8, 1024, 8192} and at the case of
+    tests/test_parallel.py; P = 64 and 256; P = 30 and 101 (no 16-byte rows:
+    scalar stores); P = 100 (a row group of 32 threads of which 25 hold
+    columns); B = 1 and 133 (fewer partitions than CTAs the card holds:
+    the rows of a partition cut into bands), B = 300 (bands and several
+    work items a CTA) and B = 1057, 2113 and 8192 (several partitions a
+    CTA through both staging buffers, a ragged last round); P = 6000 and
+    5121 (too large to stage in shared memory); each forced path: scalar
+    stores at P = 128 and 32, 16-byte stores asked for; then norms (`norm`,
+    else 900) below and above the range [2^-40, 2^40] in which the kernel
+    divides by its own written-out sequence, on its edges, next to them,
+    negative, 1 and 3, each with every slot valid."""
+    import numpy as np
+
+    cases = [((batch, pad), {}) for pad in (32, 128)
+             for batch in (8, 1024, 8192)]
+    cases += [((batch, pad), {}) for batch, pad in (
+        (1, 64), (133, 64), (1, 256), (133, 256), (1, 30), (133, 30),
+        (7, 101), (9, 100), (1, 128), (133, 128), (1057, 128), (1, 32),
+        (2, 600), (1057, 30), (2113, 64), (1, 6000), (2, 5121),
+        (300, 256), (300, 30))]
+    cases += [((64, 128), {"variant": "scalar"}),
+              ((64, 32), {"variant": "scalar"}),
+              ((64, 64), {"variant": "vector"}),
+              ((64, 128), {"norm": 1e-13}), ((64, 30), {"norm": 1e13}),
+              (DISTANCE_MAIN_SHAPE, {"variant": "scalar"})]
+    built = [(shape, _distance_inputs(rng, *shape), forced)
+             for shape, forced in cases]
+    low, high = np.float32(2.0 ** -40), np.float32(2.0 ** 40)
+    norms = [1.0, 3.0, -900.0, float(low), float(high), -float(low),
+             -float(high)]
+    norms += [float(np.nextafter(edge, toward)) for edge, toward in (
+        (low, np.float32(0)), (low, np.float32(1)), (high, np.float32(1)),
+        (high, np.float32(np.inf)))]
+    for index, norm in enumerate(norms):
+        shape = ((64, 128), (64, 30))[index % 2]
+        starts, ends, reads, valid = _distance_inputs(rng, *shape,
+                                                      wide=True)
+        built.append((shape, (starts, ends, reads, np.ones_like(valid)),
+                      {"norm": norm, "every_slot": "valid"}))
+    # the timed shape once more with every slot valid: the other inputs
+    # have a ragged number of valid slots, and an invalid row is stored
+    # without being computed
+    starts, ends, reads, valid = _distance_inputs(rng, *DISTANCE_MAIN_SHAPE)
+    built.append((DISTANCE_MAIN_SHAPE, (starts, ends, reads,
+                                        np.ones_like(valid)),
+                  {"every_slot": "valid"}))
+    built.insert(6, ((3, 128), _parallel_case(), {}))
+    return built
+
+
 def phase_distance():
-    """Phase 7: the distance kernel against its plain version, bit for bit.
-    Returns {(B, P, wall): (kernel ms, plain ms)} and the max abs error."""
+    """Phase 7: the distance kernel against its plain version, bit for
+    bit.  Returns
+    {(B, P, wall): (kernel ms, plain ms)} of the unforced cases and the max
+    abs error."""
     import numpy as np
     import torch
 
     from svim_tpu_torch.ops import distance_kernel as dk
 
     rng = np.random.default_rng(20261018)
-    cases = [((batch, pad), _distance_inputs(rng, batch, pad))
-             for pad in (32, 128) for batch in (8, 1024, 8192)]
-    cases.append(((3, 128), _parallel_case()))
     timings = {}
     max_abs_err = 0.0
-    for (batch, pad), arrays in cases:
+    for (batch, pad), arrays, forced in distance_cases(rng):
         tensors = [torch.from_numpy(x).cuda() for x in arrays]
+        options = dict(forced)
+        norm = options.pop("norm", 900.0)
+        options.pop("every_slot", None)
         for wall in (True, False):
             plain_ms, plain = _time_ms(
-                lambda: dk.span_position_matrix_torch(*tensors, 900.0,
+                lambda: dk.span_position_matrix_torch(*tensors, norm,
                                                       wall_same_read=wall), 5)
             kernel_ms, kernel = _time_ms(
-                lambda: dk.span_position_matrix_cuda(*tensors, 900.0,
-                                                     wall_same_read=wall), 20)
+                lambda: dk.span_position_matrix_cuda(
+                    *tensors, norm, wall_same_read=wall, **options), 20)
             differ = int((plain.view(torch.int32)
                           != kernel.view(torch.int32)).sum())
             if differ:
                 raise AssertionError("distance kernel != plain at B={0} P={1}"
-                                     " wall={2}: {3} entries differ".format(
-                                         batch, pad, wall, differ))
+                                     " wall={2} {3}: {4} entries differ"
+                                     .format(batch, pad, wall, forced,
+                                             differ))
             max_abs_err = max(max_abs_err,
                               float((plain - kernel).abs().max()))
-            timings[(batch, pad, wall)] = (kernel_ms, plain_ms)
-            log("distance", "B={0} P={1} wall={2}: bit-equal ({3} entries "
-                "below BIG); kernel {4:.4f} ms, plain {5:.4f} ms".format(
-                    batch, pad, wall, int((kernel < dk.BIG).sum()), kernel_ms,
-                    plain_ms))
+            if not forced:
+                timings[(batch, pad, wall)] = (kernel_ms, plain_ms)
+            log("distance", "B={0} P={1} wall={2}{3}: bit-equal ({4} entries "
+                "below BIG); kernel {5:.4f} ms, plain {6:.4f} ms".format(
+                    batch, pad, wall,
+                    " forced " + json.dumps(forced) if forced else "",
+                    int((kernel < dk.BIG).sum()), kernel_ms, plain_ms))
     return timings, max_abs_err
 
 
@@ -858,7 +956,8 @@ def phase_streaming(card, bench_bam, genome, golden_bam, golden_genome):
     started = time.perf_counter()
     launches = _drive("stream_bench", ["alignment", working_dir, stored,
                                        genome, "--edit_backend", "wavefront",
-                                       "--profile"])
+                                       "--profile", "--incremental_cluster",
+                                       "off"])
     wall = time.perf_counter() - started
     batches = bamstream.BATCHES
     seconds = _stage_seconds(working_dir)
@@ -888,7 +987,8 @@ def phase_streaming(card, bench_bam, genome, golden_bam, golden_genome):
     launches = _drive("stream_golden", ["alignment", working_dir, golden_bam,
                                         golden_genome, "--stream_input",
                                         "--batch_reads", "64",
-                                        "--edit_backend", "wavefront"])
+                                        "--edit_backend", "wavefront",
+                                        "--incremental_cluster", "off"])
     if bamstream.BATCHES <= 1 or launches <= 0:
         raise AssertionError("golden --stream_input: {0} batches, {1} "
                              "wavefront launches".format(bamstream.BATCHES,
@@ -916,7 +1016,8 @@ def phase_inputs(golden_bam, golden_genome):
         working_dir = os.path.join(directory, "wd_" + path)
         launches = _drive(path, ["alignment", working_dir, source,
                                  golden_genome, "--edit_backend",
-                                 "wavefront"])
+                                 "wavefront", "--incremental_cluster",
+                                 "off"])
         digest = _vcf_sha256(working_dir)
         if digest != expected:
             raise AssertionError("{0}: variants.vcf (sha256 {1}) differs from "
@@ -928,6 +1029,123 @@ def phase_inputs(golden_bam, golden_genome):
             "launches {1}".format(path, launches))
 
 
+def _reused(working_dir):
+    """(partitions reused at CLUSTER, partitions clustered mid-scan) from
+    the run's SVIM_*.log; (0, 0) when the run logged no reuse."""
+    logs = sorted(name for name in os.listdir(working_dir)
+                  if name.startswith("SVIM_") and name.endswith(".log"))
+    with open(os.path.join(working_dir, logs[-1])) as handle:
+        for line in handle:
+            if "Incremental clustering: " in line:
+                words = line.split("Incremental clustering: ", 1)[1].split()
+                return int(words[0]), int(words[2])
+    return 0, 0
+
+
+def phase_default_path(card, bench_bam, genome, off_seconds, golden_bam,
+                       golden_genome):
+    """Phase 10: --incremental_cluster auto (the default) on the bench and
+    golden workloads."""
+    directory = os.path.dirname(bench_bam)
+    for backend in ("wavefront", "auto"):
+        for chunk in (512, 0):
+            path = "incremental_{0}{1}".format(backend,
+                                               "_chunked" if chunk else "")
+            working_dir = os.path.join(directory, "wd_" + path)
+            launches = _drive(path, ["alignment", working_dir, bench_bam,
+                                     genome, "--edit_backend", backend,
+                                     "--profile", "--incremental_cluster",
+                                     "auto", "--batch_reads", "512"],
+                              chunk=chunk)
+            seconds = _stage_seconds(working_dir)
+            reused, memoized = _reused(working_dir)
+            digest = _vcf_sha256(working_dir)
+            log("default", "bench {0}, --incremental_cluster auto "
+                "--batch_reads 512, {1}: {2} of {3} mid-scan partitions "
+                "reused; collect {4!r} s, cluster {5!r} s (off: {6!r}, {7!r});"
+                " wavefront launches {8}; {9:.1f} reads/s through "
+                "COLLECT+CLUSTER on {10}".format(
+                    backend,
+                    "scan in chunks of 512" if chunk else "scan as it comes",
+                    reused, memoized, seconds["collect"], seconds["cluster"],
+                    off_seconds[backend]["collect"],
+                    off_seconds[backend]["cluster"], launches,
+                    BENCH_READS / (seconds["collect"] + seconds["cluster"]),
+                    card))
+            if digest != BENCH_VCF_SHA256:
+                raise AssertionError("{0}: variants.vcf (sha256 {1}) differs "
+                                     "from svim_tpu's".format(path, digest))
+            if chunk and reused <= 0:
+                raise AssertionError("{0}: no mid-scan partition was reused"
+                                     .format(path))
+            if backend == "wavefront" and launches <= 0:
+                raise AssertionError("{0} launched no wavefront kernel"
+                                     .format(path))
+    working_dir = os.path.join(os.path.dirname(golden_bam), "wd_incremental")
+    launches = _drive("incremental_golden",
+                      ["alignment", working_dir, golden_bam, golden_genome,
+                       "--edit_backend", "wavefront", "--batch_reads", "64"],
+                      chunk=64)
+    reused, memoized = _reused(working_dir)
+    if _normalized_vcf(os.path.join(working_dir, "variants.vcf")) \
+            != _normalized_vcf(GOLDEN):
+        raise AssertionError("golden, incremental: variants.vcf differs from "
+                             "tests/golden/variants.golden.vcf")
+    if reused <= 0 or launches <= 0:
+        raise AssertionError("golden, incremental: {0} partitions reused, {1}"
+                             " wavefront launches".format(reused, launches))
+    log("default", "golden, default --incremental_cluster, scan in chunks of "
+        "64: golden VCF; {0} of {1} mid-scan partitions reused; wavefront "
+        "launches {2}".format(reused, memoized, launches))
+
+
+def phase_flags(golden_bam, golden_genome):
+    """Phase 11: --device_backend host and --profile_trace on the golden
+    workload."""
+    directory = os.path.dirname(golden_bam)
+    working_dir = os.path.join(directory, "wd_host")
+    _drive("host", ["alignment", working_dir, golden_bam, golden_genome,
+                    "--device_backend", "host"])
+    if _normalized_vcf(os.path.join(working_dir, "variants.vcf")) \
+            != _normalized_vcf(GOLDEN):
+        raise AssertionError("--device_backend host: variants.vcf differs "
+                             "from tests/golden/variants.golden.vcf")
+    if any(PATH_LAUNCHES["host"].values()):
+        raise AssertionError("--device_backend host launched a kernel: {0}"
+                             .format(PATH_LAUNCHES["host"]))
+    log("flags", "--device_backend host: golden VCF, no kernel launch")
+
+    working_dir = os.path.join(directory, "wd_trace")
+    launches = _drive("profile_trace",
+                      ["alignment", working_dir, golden_bam, golden_genome,
+                       "--edit_backend", "wavefront", "--profile_trace"])
+    if _normalized_vcf(os.path.join(working_dir, "variants.vcf")) \
+            != _normalized_vcf(GOLDEN):
+        raise AssertionError("--profile_trace: variants.vcf differs from "
+                             "tests/golden/variants.golden.vcf")
+    kernels = {}
+    for stage in ("collect", "cluster"):
+        trace_path = os.path.join(working_dir, "traces", stage + ".json")
+        with open(trace_path) as handle:
+            events = json.load(handle)["traceEvents"]
+        if not events:
+            raise AssertionError("--profile_trace: {0} is empty".format(
+                trace_path))
+        kernels[stage] = sorted({event["name"] for event in events
+                                 if event.get("cat") == "kernel"})
+        log("flags", "--profile_trace: traces/{0}.json, {1} bytes, {2} events"
+            ", {3} CUDA kernels by name".format(
+                stage, os.path.getsize(trace_path), len(events),
+                len(kernels[stage])))
+    if not any("wavefront" in name for name in kernels["cluster"]):
+        raise AssertionError("--profile_trace: the CLUSTER trace names no "
+                             "wavefront kernel among {0} (launches {1})"
+                             .format(kernels["cluster"][:10], launches))
+    if not kernels["collect"]:
+        raise AssertionError("--profile_trace: the COLLECT trace names no "
+                             "CUDA kernel")
+
+
 def main():
     sys.path.insert(0, ROOT)
     card = phase_environment()
@@ -936,11 +1154,14 @@ def main():
     recorder = LinkageRecorder()
     with recorder:
         golden_bam, golden_genome = phase_golden()
-    bench_bam, bench_genome = phase_bench(card, recorder)
+    bench_bam, bench_genome, off_seconds = phase_bench(card, recorder)
     phase_linkage(recorder)
     distance_timings, distance_err = phase_distance()
     phase_streaming(card, bench_bam, bench_genome, golden_bam, golden_genome)
     phase_inputs(golden_bam, golden_genome)
+    phase_default_path(card, bench_bam, bench_genome, off_seconds,
+                       golden_bam, golden_genome)
+    phase_flags(golden_bam, golden_genome)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     log("paths", "kernel launches per path: {0}".format(

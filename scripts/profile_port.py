@@ -3,7 +3,8 @@
 bench workload, on one NVIDIA card.
 
     python3 scripts/profile_port.py [--root DIR] [--work DIR] [--reads 8192]
-        [--edit_backend wavefront] [--runs 3] [--label NAME] [--host_top N]
+        [--edit_backend wavefront] [--incremental_cluster auto|off]
+        [--batch_reads 4096] [--runs 3] [--label NAME] [--host_top N]
 
 Runs `svim_tpu_torch alignment --profile` on the bench workload of
 svim_tpu_torch/workloads.py (made once under --work, reused by later
@@ -13,8 +14,11 @@ summed by kernel name (device busy = every kernel and copy on the card;
 the traced run's stage seconds are inflated by the tracing and are not
 reported).  With --host_top N one more run goes under cProfile and the N
 functions with the largest cumulative host time are reported (inflated by
-the profiling; for shares, not for seconds).  Prints the card's name and
-power limit, then one JSON object.
+the profiling; for shares, not for seconds).  --incremental_cluster and
+--batch_reads are passed to the port (its defaults: auto, 4096); each
+untraced run reports how many partitions clustered mid-scan were reused at
+CLUSTER, which depends on how far the scan's threads were ahead.  Prints
+the card's name and power limit, then one JSON object.
 
 --root is the checkout whose svim_tpu_torch is measured (default: the one
 this script lies in), so two checkouts can be compared within one call on
@@ -39,6 +43,19 @@ def _stage_seconds(working_dir):
     raise RuntimeError("no stage timings in the log of " + working_dir)
 
 
+def _reused(working_dir):
+    """[partitions reused at CLUSTER, partitions clustered mid-scan] from
+    the run's log; [0, 0] when it logged no reuse."""
+    logs = sorted(name for name in os.listdir(working_dir)
+                  if name.startswith("SVIM_") and name.endswith(".log"))
+    with open(os.path.join(working_dir, logs[-1])) as handle:
+        for line in handle:
+            if "Incremental clustering: " in line:
+                words = line.split("Incremental clustering: ", 1)[1].split()
+                return [int(words[0]), int(words[2])]
+    return [0, 0]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,6 +64,9 @@ def main():
         here, "svim_tpu_torch", "_build", "profile"))
     parser.add_argument("--reads", type=int, default=8192)
     parser.add_argument("--edit_backend", default="wavefront")
+    parser.add_argument("--incremental_cluster", default="auto",
+                        choices=("auto", "off"))
+    parser.add_argument("--batch_reads", type=int, default=4096)
     parser.add_argument("--runs", type=int, default=3)
     parser.add_argument("--label", default="")
     parser.add_argument("--host_top", type=int, default=0)
@@ -80,7 +100,9 @@ def main():
         wavefront_kernel.LAUNCHES = 0
         started = time.perf_counter()
         code = cli.main(["alignment", working_dir, bam, genome,
-                         "--edit_backend", args.edit_backend, "--profile"])
+                         "--edit_backend", args.edit_backend, "--profile",
+                         "--incremental_cluster", args.incremental_cluster,
+                         "--batch_reads", str(args.batch_reads)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - started
         if code != 0:
@@ -95,7 +117,8 @@ def main():
         untraced.append({"wall": wall, "stages": seconds,
                          "reads_per_s": args.reads / (seconds["collect"]
                                                       + seconds["cluster"]),
-                         "wavefront_launches": wavefront_kernel.LAUNCHES})
+                         "wavefront_launches": wavefront_kernel.LAUNCHES,
+                         "reused_of_memoized": _reused(working_dir)})
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as trace:
@@ -129,7 +152,9 @@ def main():
             for key, value in ranked[:args.host_top]]
     print(json.dumps({
         "label": args.label, "card": card, "reads": args.reads,
-        "edit_backend": args.edit_backend, "untraced_runs": untraced,
+        "edit_backend": args.edit_backend,
+        "incremental_cluster": args.incremental_cluster,
+        "batch_reads": args.batch_reads, "untraced_runs": untraced,
         "traced_wall_s": traced_wall, "device_busy_s": busy,
         "wavefront_kernel_s": sum(seconds for name, seconds in by_name.items()
                                   if "wavefront" in name),

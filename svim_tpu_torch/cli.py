@@ -5,7 +5,9 @@ Counterpart of svim_tpu/cli.py (svim/svim:25-217) for `alignment` mode:
 a coordinate-sorted BGZF BAM (one-shot or streaming COLLECT), SAM text,
 or a queryname-sorted file.  The stages are the port's; logging setup,
 argument parsing, writers, plots and the host genotyping of parsed
-records are svim_tpu's.  Options the port does not run yet raise
+records are svim_tpu's.  --device_backend cpu runs every stage on the
+CPU, host takes the record-based host COLLECT and GENOTYPE, tpu is refused
+(utils/device.py).  Options the port does not run yet raise
 NotImplementedError naming their ROADMAP item instead of taking another
 route.
 """
@@ -82,11 +84,6 @@ def check_supported(options):
     """Raise NotImplementedError for options outside the ported slice."""
     if options.sub != "alignment":
         raise _not_ported("'reads' mode", "Queue 1 item 8")
-    if options.device_backend != "auto":
-        raise _not_ported("--device_backend {0} (the port runs on the device "
-                          "select_device() picks; SVIM_TORCH_DEVICE=cpu|cuda "
-                          "overrides)".format(options.device_backend),
-                          "Queue 1 item 11")
     if options.distributed:
         raise _not_ported("--distributed", "Queue 1 item 10")
     if options.num_shards > 1:
@@ -97,7 +94,9 @@ def _collect(options, device):
     """COLLECT for an `alignment`-mode input (svim_tpu/cli.py:132-194).
 
     A coordinate-sorted BGZF BAM goes through the packed scanners; SAM text
-    and queryname-sorted input are parsed into records first.  Returns
+    and queryname-sorted input are parsed into records first.  Under
+    --device_backend host every input is parsed into records and walked by
+    the host code of collect/collect.py, with no device pass.  Returns
     (alignment index or AlignmentFile, signatures, all_bnds twins,
     options), or None for an unsorted input (logged as the reference
     does)."""
@@ -105,12 +104,17 @@ def _collect(options, device):
     from svim_tpu_torch.io.packed_fetch import PackedAlignmentIndex
     from svim_tpu_torch.io.sam import AlignmentFile
     from svim_tpu_torch.collect import packed as collect_packed
+    from svim_tpu_torch.collect.collect import (
+        analyze_alignment_file_coordsorted,
+        analyze_alignment_file_querysorted,
+    )
 
+    host = options.device_backend == "host"
     logging.info("MODE: alignment")
     logging.info("INPUT: {0}".format(os.path.abspath(options.bam_file)))
     with open(options.bam_file, "rb") as probe:
         is_bgzf = probe.read(2) == b"\x1f\x8b"
-    if is_bgzf:
+    if is_bgzf and not host:
         try:
             peeked_order = peek_bam_header(options.bam_file).sort_order
         except (ValueError, OSError):
@@ -130,11 +134,17 @@ def _collect(options, device):
                       "contain a sorting order in its header line.")
         return None
     if sort_order == "coordinate":
-        sigs, trans = collect_packed.collect_signatures_packed(
-            aln_file, options, device)
+        if host:
+            sigs, trans = analyze_alignment_file_coordsorted(aln_file, options)
+        else:
+            sigs, trans = collect_packed.collect_signatures_packed(
+                aln_file, options, device)
     elif sort_order == "queryname":
-        sigs, trans = collect_packed.collect_signatures_packed_querysorted(
-            aln_file, options, device)
+        if host:
+            sigs, trans = analyze_alignment_file_querysorted(aln_file, options)
+        else:
+            sigs, trans = collect_packed.collect_signatures_packed_querysorted(
+                aln_file, options, device)
         logging.warning("Skipping genotyping because it requires a "
                         "coordinate-sorted input BAM file. The given file is "
                         "queryname-sorted according to its header line.")
@@ -151,13 +161,18 @@ def run_pipeline(options, device):
     """The four-stage pipeline on `device`; returns the exit code."""
     root_logger = logging.getLogger()
     check_supported(options)
-    if getattr(options, "profile_trace", False):
-        logging.warning("--profile_trace captures jax traces in svim_tpu; the "
-                        "port logs --profile stage timings only.")
-    timer = StageTimer(enabled=options.profile or options.profile_trace)
+    trace_requested = getattr(options, "profile_trace", False)
+    timer = StageTimer(
+        enabled=options.profile or trace_requested,
+        trace_dir=(os.path.join(options.working_dir, "traces")
+                   if trace_requested else None))
+    if trace_requested:
+        logging.warning("--profile_trace instruments host threads; traced "
+                        "host-bound stage wall times run above their real "
+                        "duration. Use --profile alone for timings.")
 
     logging.info("****************** STEP 1: COLLECT ******************")
-    with timer.stage("collect"):
+    with timer.stage("collect", trace=True):
         result = _collect(options, device)
     if result is None:
         return 1
@@ -187,7 +202,7 @@ def run_pipeline(options, device):
         count_of("DUP_INT"), type_names["DUP_INT"]))
 
     logging.info("****************** STEP 2: CLUSTER ******************")
-    with timer.stage("cluster"):
+    with timer.stage("cluster", trace=True):
         signature_clusters = cluster_sv_signatures(sv_signatures, options,
                                                    device)
         translocation_clusters_all_bnds = None
@@ -296,7 +311,7 @@ def main(arguments=None):
         print("Please choose one of the two modes ('reads' or 'alignment'). "
               "See --help for more information.")
         return 1
-    device = select_device()
+    device = select_device(options.device_backend)
     _setup_logging(options)
     logging.info("****************** Start svim-tpu (PyTorch port), version "
                  "{0} ******************".format(__version__))

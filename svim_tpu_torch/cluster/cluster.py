@@ -33,6 +33,7 @@ from svim_tpu_torch.signatures import (
     SignatureClusterBiLocal,
     SignatureClusterUniLocal,
 )
+from svim_tpu_torch.sigtable import LazyMembers, SignatureSoA
 from svim_tpu_torch.state import to_host
 from svim_tpu_torch.utils.exactstats import stdev_half_ints, stdev_ints
 
@@ -86,12 +87,28 @@ _TYPE_LABELS = {
 
 
 def dispatch_clusters_from_partitions(partitions, reference, options,
-                                      batcher):
+                                      batcher, memo=None):
     """Phase 1: subsample, precompute INS edit distances, and register the
     batched device agglomerations on `batcher` (the stage driver runs one
-    kernel call per pad bucket for all types and fetches once)."""
+    kernel call per pad bucket for all types and fetches once).
+
+    `memo` optionally carries mid-scan incremental results keyed by exact
+    partition content (cluster/incremental.py); hit partitions skip every
+    phase here and reuse their stored clusters in the finish half."""
     work = _ClusterWork()
     work.partitions = partitions
+    if memo:
+        for index, partition in enumerate(partitions):
+            if not 2 <= len(partition) <= MAX_PARTITION_SIZE:
+                # >MAX partitions subsample through the shared RNG stream and
+                # are never memoized; singletons are cheaper than the lookup
+                continue
+            indices = getattr(partition, "indices", None)
+            if indices is None:
+                continue
+            stored = memo.get((_partition_type(partition), indices.tobytes()))
+            if stored is not None:
+                work.memo_hits[index] = stored
     seed(RANDOM_SEED)
     # subsample oversized partitions upfront (same RNG consumption order as
     # sampling inside the loop); table views sample POSITIONS, which draws
@@ -115,8 +132,9 @@ def dispatch_clusters_from_partitions(partitions, reference, options,
         resident_mode = (device_cluster.ins_resident_enabled(options)
                          and device_route)
         work.ed_cache = precompute_ins_edit_distances(
-            [s for s in work.samples
-             if len(s) >= 2 and not (resident_mode and 3 <= len(s) <= 128)],
+            [s for i, s in enumerate(work.samples)
+             if len(s) >= 2 and i not in work.memo_hits
+             and not (resident_mode and 3 <= len(s) <= 128)],
             reference, options, batcher.device)
 
     if device_route and partitions and partitions[0]:
@@ -124,7 +142,8 @@ def dispatch_clusters_from_partitions(partitions, reference, options,
         if element_type in device_cluster.DEVICE_TYPES:
             work.eligible = [(index, sample_list)
                              for index, sample_list in enumerate(work.samples)
-                             if 3 <= len(sample_list) <= 128]
+                             if 3 <= len(sample_list) <= 128
+                             and index not in work.memo_hits]
             if work.eligible:
                 work.pending = device_cluster.dispatch_partitions_device(
                     [sample_list for _, sample_list in work.eligible],
@@ -150,6 +169,17 @@ def finish_clusters_from_partitions(work, reference, options, fetched=None):
                           for position, (index, _) in enumerate(work.eligible)}
 
     for partition_index, partition_sample in enumerate(work.samples):
+        memo_hit = work.memo_hits.get(partition_index)
+        if memo_hit is not None:
+            # mid-scan incremental result whose content key matched this
+            # exact partition: reuse the stored cluster index arrays
+            table = partition_sample.table
+            clustered = 0
+            for member_indices in memo_hit:
+                clusters_final.append(LazyMembers(table, member_indices))
+                clustered += len(member_indices)
+            duplicate_signatures += len(partition_sample) - clustered
+            continue
         if len(partition_sample) == 1:
             if getattr(partition_sample, "table", None) is not None:
                 clusters_final.append(partition_sample)
@@ -246,6 +276,16 @@ def finish_clusters_from_partitions(work, reference, options, fetched=None):
     return clusters_final
 
 
+def clusters_from_partitions(partitions, reference, options, device):
+    """Cluster each partition with average linkage cut at cluster_max_distance
+    (SVIM_clustering.py:122-180), on a batcher of its own on `device`: the
+    agglomerations run when the finish half fetches them."""
+    work = dispatch_clusters_from_partitions(
+        partitions, reference, options,
+        device_cluster.DeviceBatcher(options, device))
+    return finish_clusters_from_partitions(work, reference, options)
+
+
 def partition_and_cluster_candidates(candidates, options, type, device):
     """Second clustering round over DUP_INT candidates
     (SVIM_clustering.py:306-372)."""
@@ -337,9 +377,9 @@ def cluster_sv_signatures(sv_signatures, options, device):
 
     Returns (deletion, insertion, inversion, tandem_duplication,
     insertion_from, translocation) cluster lists."""
-    from svim_tpu_torch.sigtable import SignatureSoA
-
     soa = sv_signatures if isinstance(sv_signatures, SignatureSoA) else None
+    # mid-scan incremental results (content-addressed; cluster/incremental.py)
+    memo = getattr(soa, "cluster_memo", None) if soa is not None else None
     by_type = {key: [] for key in _TYPE_LABELS}
     if soa is None:
         for signature in sv_signatures:
@@ -363,7 +403,7 @@ def cluster_sv_signatures(sv_signatures, options, device):
                 partitions = form_partitions(by_type[key],
                                              options.partition_max_distance)
             staged[key] = (partitions, dispatch_clusters_from_partitions(
-                partitions, reference, options, batcher))
+                partitions, reference, options, batcher, memo=memo))
         fetched = to_host(batcher.device_outputs())
         consolidated = {}
         for key in ("DEL", "INS", "INV", "DUP_TAN", "DUP_INT", "BND"):
@@ -373,6 +413,11 @@ def cluster_sv_signatures(sv_signatures, options, device):
             consolidated[key] = _consolidate_typed(clusters, partitions,
                                                    _TYPE_LABELS[key])
         device_cluster.TELEMETRY.log_summary()
+        if memo:
+            hits = sum(len(work.memo_hits)
+                       for _partitions, work in staged.values())
+            logging.info("Incremental clustering: %d of %d partitions computed "
+                         "mid-scan were reused.", hits, len(memo))
     return (consolidated["DEL"], consolidated["INS"], consolidated["INV"],
             consolidated["DUP_TAN"], consolidated["DUP_INT"],
             consolidated["BND"])

@@ -356,19 +356,22 @@ def collect_soa_pipelined(bam_path: str, options, device):
     return _collect_soa_pipelined_stream(compressed, options, device)
 
 
-def _collect_soa_pipelined_stream(compressed: bytes, options, device):
+def _collect_soa_pipelined_stream(compressed: bytes, options, device,
+                                  allow_incremental: bool = True):
     """collect_soa_pipelined over in-memory BGZF bytes.
 
-    Mid-scan incremental clustering stays off: svim_tpu's clusterer binds
-    the JAX CLUSTER path, and its output is byte-equal with the feature off
-    (tests/test_incremental_cluster.py)."""
+    Unless --incremental_cluster is off (or `allow_incremental` is false),
+    partitions that are final behind the scan frontier are clustered between
+    batches, while the session's threads scan ahead; the results ride on the
+    returned SoA as `cluster_memo` (cluster/incremental.py)."""
     from svim_tpu_torch import native
+    from svim_tpu_torch.cluster.incremental import (
+        IncrementalClusterer,
+        incremental_enabled,
+    )
     from svim_tpu_torch.io.bamstream import _batch_from_columns, _parse_header
     from svim_tpu_torch.io.packing import bucket_size
 
-    if getattr(options, "incremental_cluster", "auto") != "off":
-        logging.info("Mid-scan incremental clustering is off in the PyTorch "
-                     "port (output is identical either way).")
     # the scan session shares the host cores with the torch CPU ops when the
     # device is the CPU (native default: cores - 2); a card leaves them all
     # to inflate + walk
@@ -384,12 +387,15 @@ def _collect_soa_pipelined_stream(compressed: bytes, options, device):
     staged: List = []   # (StagedCollectSoA, global row start, real rows)
     state = SoAState()
     consumed = 0        # staged entries already fetched + consumed mid-scan
+    incremental = None  # mid-scan clustering (cluster/incremental.py)
     try:
         while True:
             row_start, n, max_ops, _body, done = session.next_rows(batch_reads)
             if header is None:
                 # the walker parsed the header before delivering any rows
                 header, _offset = _parse_header(session.data)
+                if allow_incremental and incremental_enabled(options):
+                    incremental = IncrementalClusterer(options, header, device)
             if n:
                 batch = _batch_from_columns(
                     session.data,
@@ -402,15 +408,26 @@ def _collect_soa_pipelined_stream(compressed: bytes, options, device):
             # consume every stage but the newest while the walker threads
             # scan ahead: the fetch and the host-side emit ride inside the
             # scan's wall time
+            advanced = False
             while len(staged) - consumed >= 2:
                 stage, stage_start, _sn = staged[consumed]
                 consume_signatures_soa(stage, to_host(stage.device_tree()),
                                        header, options, state,
                                        row_tag_offset=stage_start)
                 consumed += 1
+                advanced = True
+            if advanced and incremental is not None and consumed < len(staged):
+                # cluster partitions already final behind the frontier (the
+                # first un-consumed row) while the walker threads own the
+                # scan; the CLUSTER stage reuses whatever still matches
+                next_packed = staged[consumed][0].packed
+                incremental.observe(state, int(next_packed.ref_id[0]),
+                                    int(next_packed.ref_start[0]))
             if done:
                 break
     except BaseException:
+        if incremental is not None:
+            incremental.finish()
         session.close()
         raise
 
@@ -418,6 +435,8 @@ def _collect_soa_pipelined_stream(compressed: bytes, options, device):
         consume_signatures_soa(stage, to_host(stage.device_tree()), header,
                                options, state, row_tag_offset=row_start)
     soa, twins = state.finalize()
+    if incremental is not None:
+        soa.cluster_memo = incremental.finish()
 
     columns = GenotypeColumns()
     for stage, _row_start, n_real in staged:

@@ -81,7 +81,8 @@ class Config:
                                        # ~8x faster to render) | "bar" (the
                                        # reference's exact per-bin patches,
                                        # SVIM_plot.py:41-63)
-    device_backend: str = "auto"       # "auto" | "tpu" | "cpu" | "host" (no kernels)
+    device_backend: str = "auto"       # "auto" (the card) | "cpu" | "host" (record-
+                                       # based COLLECT/GENOTYPE) | "tpu" (refused)
     edit_backend: str = "auto"         # "auto" | "wavefront" | "python"
     cluster_backend: str = "device"    # "device" (on-device agglomeration, exact
                                        # fallback for f32-ambiguous partitions) | "exact"
@@ -92,10 +93,9 @@ class Config:
                                        # final partition content matches) | "off"
     stream_input: bool = False         # force the bounded-memory streaming scanner
     profile: bool = False              # per-stage wall-clock timing (untraced)
-    profile_trace: bool = False        # additionally capture jax.profiler traces
-                                       # (inflates host-stage wall times ~3x)
-    distributed: bool = False          # multi-process run (jax.distributed via
-                                       # SVIM_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID)
+    profile_trace: bool = False        # additionally capture torch.profiler traces
+                                       # (inflates host-stage wall times)
+    distributed: bool = False          # multi-process run (not ported)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -177,16 +177,18 @@ def _add_common_options(parser: argparse.ArgumentParser) -> None:
     execution = parser.add_argument_group("EXECUTION (svim-tpu)")
     execution.add_argument("--device_backend", type=str, default=d.device_backend,
                            choices=("auto", "tpu", "cpu", "host"),
-                           help="Device backend for the array path; 'host' disables "
-                                "the device kernels entirely (default: %(default)s).")
+                           help="Where the array path runs: 'auto' on the CUDA "
+                                "card (an error without one), 'cpu' on the CPU; "
+                                "'host' parses records and runs COLLECT and "
+                                "GENOTYPE in host code with no device pass; 'tpu' "
+                                "is refused, this package has no TPU backend "
+                                "(default: %(default)s).")
     execution.add_argument("--edit_backend", type=str, default=d.edit_backend,
                            choices=("auto", "wavefront", "python"),
                            help="Edit-distance backend for insertion clustering: "
-                                "'auto' runs the native host batch (measured fastest "
-                                "on every shape; SVIM_RESIDENT_INS_AUTO=1 flips TPU "
-                                "runs to the device-resident wavefront route for "
-                                "attached silicon); 'wavefront' forces the device "
-                                "route; 'python' forces pure Python "
+                                "'auto' runs the native host batch; 'wavefront' "
+                                "runs the device-resident route (the wavefront "
+                                "kernel on the card); 'python' forces pure Python "
                                 "(default: %(default)s).")
     execution.add_argument("--cluster_backend", type=str, default=d.cluster_backend,
                            choices=("exact", "device"),
@@ -211,25 +213,23 @@ def _add_common_options(parser: argparse.ArgumentParser) -> None:
                                 "(default: %(default)s).")
     execution.add_argument("--stream_input", action="store_true",
                            help="Stream the input BAM window-by-window with bounded "
-                                "memory (automatic for inputs over 256 MiB; "
+                                "memory (automatic for inputs over 96 MiB; "
                                 "default: %(default)s).")
     execution.add_argument("--profile", action="store_true",
                            help="Log accurate per-stage wall-clock timings "
                                 "(default: %(default)s).")
     execution.add_argument("--profile_trace", action="store_true",
-                           help="Additionally capture jax profiler traces under "
+                           help="Additionally capture torch.profiler traces of "
+                                "COLLECT and CLUSTER (Chrome trace JSON) under "
                                 "<working_dir>/traces for device timeline "
                                 "inspection. The trace instrumentation inflates "
-                                "HOST-bound stage wall times roughly 3x, so the "
+                                "HOST-bound stage wall times, so the "
                                 "timings logged by a traced run are not "
                                 "representative - use --profile alone for "
                                 "timings (default: %(default)s).")
     execution.add_argument("--distributed", action="store_true",
-                           help="Run as one process of a multi-host job: initialize "
-                                "jax.distributed from SVIM_COORDINATOR / "
-                                "SVIM_NUM_PROCESSES / SVIM_PROCESS_ID, ingest this "
-                                "process's BAM block range, exchange signature tables "
-                                "over the mesh; only process 0 writes outputs "
+                           help="Run as one process of a multi-host job (not "
+                                "ported to this package yet: refused) "
                                 "(default: %(default)s).")
 
 

@@ -197,7 +197,8 @@ def genotype_packed_multi(groups, table, header, options, device):
         all_jobs.extend(jobs)
 
     counts = [None] * len(all_pending)
-    if all_pending:
+    # --device_backend host keeps the numpy join of _finish_genotype_jobs
+    if all_pending and getattr(options, "device_backend", "auto") != "host":
         counts = genotype_ref_support_device(all_jobs, per_tid, device)
     _finish_genotype_jobs(all_pending, counts, table, options)
 

@@ -70,7 +70,10 @@ def _build(path: str) -> None:
                            "{0}{1}".format(result.stdout,
                                            result.stderr[-4000:]))
     os.replace(partial, path)
-    logging.debug("Built the native host library into %s", path)
+    # a logger of this module: logging.debug() on a root logger without
+    # handlers would install a stderr handler for the rest of the process
+    logging.getLogger(__name__).debug(
+        "Built the native host library into %s", path)
 
 
 def get_library():

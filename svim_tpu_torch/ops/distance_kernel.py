@@ -10,8 +10,10 @@ Three layers, on the pattern of ops/wavefront_kernel.py:
     line-for-line port of the jnp `span_position_matrix`; runs on any
     device and equals the jnp twin bit for bit on the CPU.
   * `span_position_matrix_cuda` — the wrapper of the hand-written CUDA
-    kernel (csrc/span_distance.cu), bit-identical to the plain version,
-    counted in `LAUNCHES`.
+    kernel (csrc/span_distance.cu: a persistent grid, a partition staged
+    once in shared memory, four columns a thread in registers, 16-byte
+    streaming stores), bit-identical to the plain version, counted in
+    `LAUNCHES`.
   * `span_position_matrix` — the dispatcher: a CPU tensor takes the plain
     version, a CUDA tensor the kernel.
 
@@ -63,6 +65,9 @@ def span_position_matrix_torch(starts, ends, read_ids, valid,
     return torch.where(pair_valid, distance, big)
 
 
+VARIANTS = {None: 0, "vector": 1, "scalar": 2}
+
+
 _library = None
 
 
@@ -75,7 +80,7 @@ def _kernel_library():
         library.span_distance_matrix.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         library.span_distance_matrix.restype = ctypes.c_int
         _library = library
     return _library
@@ -83,13 +88,22 @@ def _kernel_library():
 
 def span_position_matrix_cuda(starts, ends, read_ids, valid,
                               position_distance_normalizer,
-                              wall_same_read: bool = True):
+                              wall_same_read: bool = True, variant=None):
     """span_position_matrix on the card through csrc/span_distance.cu.
 
     starts, ends, read_ids: (B, P) int32 contiguous CUDA tensors; valid:
     (B, P) bool on the same device.  Returns (B, P, P) float32 on that
-    device, equal to span_position_matrix_torch entry for entry."""
+    device, equal to span_position_matrix_torch entry for entry.  The
+    kernel takes 16-byte stores when P is a multiple of 4 and scalar stores
+    otherwise; `variant` "vector" insists on the former (refused for another
+    P) and "scalar" forces the latter, for the tests."""
     global LAUNCHES
+    if variant not in VARIANTS:
+        raise ValueError("variant must be one of {0}".format(
+            sorted(key for key in VARIANTS if key)))
+    if variant == "vector" and starts.shape[-1] % 4:
+        raise ValueError("16-byte stores need P to be a multiple of 4, got "
+                         "P={0}".format(starts.shape[-1]))
     device = starts.device
     if device.type != "cuda":
         raise ValueError("span_position_matrix_cuda needs CUDA tensors")
@@ -117,7 +131,7 @@ def span_position_matrix_cuda(starts, ends, read_ids, valid,
             starts.data_ptr(), ends.data_ptr(), read_ids.data_ptr(),
             valid.data_ptr(), out.data_ptr(), batch, p,
             float(position_distance_normalizer), int(bool(wall_same_read)),
-            torch.cuda.current_stream(device).cuda_stream)
+            VARIANTS[variant], torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
         raise RuntimeError("span distance kernel launch failed: CUDA error "
                            "{0}".format(code))

@@ -18,10 +18,14 @@ input paths:
 - `sam_text`: the records as a SAM text file;
 - `queryname_bam`: the records grouped by read name (SO:queryname), with
   each SA-tag entry of a primary written as a real supplementary record.
+
+`chunked_scan` delivers a one-shot scan's rows in fixed chunks, so that a
+small input drives the mid-scan consume and clustering path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import zlib
@@ -230,3 +234,35 @@ def queryname_bam(bam, out):
                                                     "queryname"))
     bamio.write_bam(out, header, records)
     return out
+
+
+@contextlib.contextmanager
+def chunked_scan(chunk):
+    """While active, the native scan session hands the one-shot COLLECT
+    loop its rows in `chunk`-sized claims, as a walker slower than the
+    consumer would.  A small file otherwise arrives in one claim (the
+    session gives a caller everything scanned so far), and one claim never
+    reaches the mid-scan consume and incremental clustering of
+    collect/packed.py.  The rows, and so the output, are the same."""
+    from svim_tpu_torch import native
+
+    original = native.BamScanSession.next_rows
+    buffers = {}
+
+    def chunked(self, min_rows):
+        buffer = buffers.get(id(self))
+        if buffer is None:
+            buffers[id(self)] = buffer = list(original(self, min_rows))
+        row_start, remaining, max_ops, body, done = buffer
+        take = min(chunk, remaining)
+        buffer[0] += take
+        buffer[1] -= take
+        if buffer[1] == 0:
+            buffers.pop(id(self))   # claim a fresh range next call
+        return (row_start, take, max_ops, body, done and buffer[1] == 0)
+
+    native.BamScanSession.next_rows = chunked
+    try:
+        yield
+    finally:
+        native.BamScanSession.next_rows = original

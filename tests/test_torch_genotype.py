@@ -93,6 +93,27 @@ def test_genotype_packed_multi_equals_jax(tmp_path, default_options,
         assert got.support_fraction == want.support_fraction
     assert any(candidate.ref_reads for candidate in port_dels)
 
+    # --device_backend host: the numpy join alone, same genotypes
+    host_dels = copy.deepcopy(port_dels)
+    host_ins = copy.deepcopy(port_ins)
+    for candidate in host_dels + [host_ins]:
+        candidate.genotype = candidate.ref_reads = None
+
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("--device_backend host ran the device join")
+
+    original = torch_kernel.genotype_ref_support_device
+    torch_kernel.genotype_ref_support_device = no_kernel
+    try:
+        genotype_packed_multi(groups(host_dels, host_ins), packed, header,
+                              default_options.replace(device_backend="host"),
+                              CPU)
+    finally:
+        torch_kernel.genotype_ref_support_device = original
+    for got, want in zip(host_dels + [host_ins], port_dels + [port_ins]):
+        assert (got.genotype, got.ref_reads, got.alt_reads) \
+            == (want.genotype, want.ref_reads, want.alt_reads)
+
 
 def test_genotype_ref_support_guards_giant_contigs():
     """Doubled positions are int32: contigs past 2^30 bp go to the host

@@ -1,9 +1,11 @@
 """svim_tpu_torch stands on its own: it imports neither jax nor any module
 of svim_tpu.  Checked in a fresh interpreter (this test process already
-imported both through tests/conftest.py) after two whole golden slices
+imported both through tests/conftest.py) after three whole golden slices
 (its input written by the port's workload generator): one-shot with
---edit_backend wavefront, and streaming (--stream_input), so lazy imports
-on both paths count; statically over every source file of the port and
+--edit_backend wavefront, streaming (--stream_input), and one-shot with
+mid-scan incremental clustering at work (the default, with the scan
+delivered in chunks so that partitions are reused), so lazy imports on all
+three paths count; statically over every source file of the port and
 chip_smoke.py; and select_device refuses to carry on without a card unless
 the CPU was asked for."""
 
@@ -24,7 +26,7 @@ sys.path.insert(0, {repo!r})
 sys.path.insert(0, os.path.join({repo!r}, "tests"))
 import svim_tpu_torch
 from svim_tpu_torch.cli import main
-from svim_tpu_torch.workloads import golden_workload
+from svim_tpu_torch.workloads import chunked_scan, golden_workload
 from test_golden_vcf import GOLDEN, _normalize
 
 bam, genome = golden_workload({work!r})
@@ -36,10 +38,24 @@ code_stream = main(["alignment", streamed, bam, genome, "--stream_input",
                     "--batch_reads", "64"])
 same_stream = (_normalize(os.path.join(streamed, "variants.vcf"))
                == _normalize(GOLDEN))
+incremental = os.path.join({work!r}, "wd_incremental")
+with chunked_scan(64):
+    code_incremental = main(["alignment", incremental, bam, genome,
+                             "--batch_reads", "64"])
+same_incremental = (_normalize(os.path.join(incremental, "variants.vcf"))
+                    == _normalize(GOLDEN))
+reused = 0
+for name in os.listdir(incremental):
+    if name.startswith("SVIM_") and name.endswith(".log"):
+        for line in open(os.path.join(incremental, name)):
+            if "Incremental clustering: " in line:
+                reused = int(line.split("Incremental clustering: ")[1].split()[0])
 def loaded(package):
     return sorted(name for name in sys.modules
                   if name == package or name.startswith(package + "."))
-print(json.dumps({{"code": [code, code_stream], "golden": [same, same_stream],
+print(json.dumps({{"code": [code, code_stream, code_incremental],
+                  "golden": [same, same_stream, same_incremental],
+                  "reused": reused > 0,
                   "jax": loaded("jax"), "svim_tpu": loaded("svim_tpu")}}))
 """
 
@@ -52,8 +68,8 @@ def test_port_pipeline_imports_no_jax(tmp_path):
         capture_output=True, text=True, timeout=600, env=env, cwd=tmp_path)
     assert result.returncode == 0, result.stderr[-4000:]
     report = json.loads(result.stdout.strip().splitlines()[-1])
-    assert report == {"code": [0, 0], "golden": [True, True], "jax": [],
-                      "svim_tpu": []}
+    assert report == {"code": [0, 0, 0], "golden": [True, True, True],
+                      "reused": True, "jax": [], "svim_tpu": []}
 
 
 def _imported_modules(path):

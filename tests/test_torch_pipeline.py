@@ -3,10 +3,14 @@ alignment` on the golden workload writes a variants.vcf byte-equal to
 tests/golden/variants.golden.vcf (with the default and the wavefront edit
 backend) and signature BED files equal to svim_tpu's, resolving its
 clustering partitions by the same routes (FallbackTelemetry); the
-device-resident INS route clusters exactly like svim_tpu's; inputs outside
-the slice raise NotImplementedError naming their ROADMAP item."""
+device-resident INS route clusters exactly like svim_tpu's; --device_backend
+cpu and host and --profile_trace write the same VCF bytes (tpu is refused by
+name); inputs outside the slice raise NotImplementedError naming their
+ROADMAP item."""
 
 import importlib.util
+import json
+import logging
 import os
 import random
 
@@ -91,6 +95,84 @@ def test_port_writes_golden_vcf_and_jax_signature_beds(golden_run,
     for name in beds:
         assert (wd / "signatures" / name).read_bytes() \
             == (jax_wd / "signatures" / name).read_bytes(), name
+
+
+def _drop_log_handlers(before):
+    root = logging.getLogger()
+    for handler in root.handlers[:]:
+        if handler not in before:
+            root.removeHandler(handler)
+            handler.close()
+
+
+@pytest.mark.parametrize("device_backend", ["cpu", "host"])
+def test_device_backend_cpu_and_host_write_the_golden_vcf(golden_run,
+                                                          device_backend,
+                                                          monkeypatch):
+    """`cpu` asks for the CPU through the flag alone; `host` takes the
+    record-based COLLECT and GENOTYPE (CLUSTER stays on the selected
+    device, here the CPU through the environment)."""
+    directory, bam, genome, jax_wd, _telemetry_by_backend = golden_run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if device_backend == "cpu":
+        monkeypatch.delenv("SVIM_TORCH_DEVICE", raising=False)
+    else:
+        monkeypatch.setenv("SVIM_TORCH_DEVICE", "cpu")
+    from svim_tpu_torch.collect import packed as collect_packed
+    from svim_tpu_torch.ops import genotype_kernel
+
+    if device_backend == "host":
+        def no_device_pass(*args, **kwargs):
+            raise AssertionError("--device_backend host ran a device pass")
+
+        monkeypatch.setattr(collect_packed, "collect_soa_from_bam",
+                            no_device_pass)
+        monkeypatch.setattr(genotype_kernel, "genotype_ref_support_device",
+                            no_device_pass)
+    wd = directory / "port_backend_{0}".format(device_backend)
+    before = list(logging.getLogger().handlers)
+    try:
+        assert torch_cli.main(["alignment", str(wd), bam, genome,
+                               "--device_backend", device_backend]) == 0
+    finally:
+        _drop_log_handlers(before)
+    assert _normalize(wd / "variants.vcf") == _normalize(GOLDEN) \
+        == _normalize(jax_wd / "variants.vcf")
+    log = "".join(path.read_text() for path in wd.glob("SVIM_*.log"))
+    assert "DEVICE: cpu" in log
+    assert ("packed array COLLECT path" in log) == (device_backend == "cpu")
+
+
+def test_profile_trace_writes_traces_and_the_same_vcf(golden_run,
+                                                      monkeypatch):
+    directory, bam, genome, _jax_wd, _telemetry_by_backend = golden_run
+    monkeypatch.setenv("SVIM_TORCH_DEVICE", "cpu")
+    wd = directory / "port_traced"
+    before = list(logging.getLogger().handlers)
+    try:
+        assert torch_cli.main(["alignment", str(wd), bam, genome,
+                               "--profile_trace"]) == 0
+    finally:
+        _drop_log_handlers(before)
+    assert _normalize(wd / "variants.vcf") == _normalize(GOLDEN)
+    for stage in ("collect", "cluster"):
+        trace = json.loads((wd / "traces" / (stage + ".json")).read_text())
+        assert trace["traceEvents"], stage
+    assert sorted(os.listdir(wd / "traces")) == ["cluster.json",
+                                                 "collect.json"]
+    log = "".join(path.read_text() for path in wd.glob("SVIM_*.log"))
+    assert "--profile_trace instruments host threads" in log
+    assert "Stage timings" in log
+    # without the flag nothing is traced
+    assert not (directory / "port_auto" / "traces").exists()
+
+
+def test_help_text_names_no_other_framework(capsys):
+    with pytest.raises(SystemExit):
+        torch_cli.main(["alignment", "--help"])
+    text = capsys.readouterr().out
+    assert "--device_backend" in text and "--profile_trace" in text
+    assert "jax" not in text.lower()
 
 
 class _Reference:
@@ -180,12 +262,16 @@ def test_inputs_outside_the_slice_raise(tmp_path, monkeypatch):
 
     for bad, item in ((options(sub="reads"), "Queue 1 item 8"),
                       (options("--num_shards", "2"), "Queue 1 item 10"),
-                      (options("--distributed"), "Queue 1 item 10"),
-                      (options("--device_backend", "host"),
-                       "Queue 1 item 11")):
+                      (options("--distributed"), "Queue 1 item 10")):
         with pytest.raises(NotImplementedError, match=item):
             torch_cli.check_supported(bad)
     torch_cli.check_supported(options("--edit_backend", "wavefront"))
+    torch_cli.check_supported(options("--device_backend", "host"))
+    # the port has no TPU backend: refused by name, pointing at `auto`
+    with pytest.raises(ValueError, match="--device_backend tpu.*auto"):
+        torch_cli.main(["alignment", str(tmp_path / "tpu"), "x.bam", "g.fa",
+                        "--device_backend", "tpu"])
+    assert not (tmp_path / "tpu").exists()
     # an unsorted input is refused as svim_tpu refuses it: logged, exit 1
     sam = tmp_path / "x.sam"
     sam.write_text("@HD\tVN:1.6\tSO:unsorted\n@SQ\tSN:chr1\tLN:1000\n")
