@@ -66,6 +66,29 @@ Phases, each of which raises (non-zero exit) on failure:
      write the golden VCF with no kernel launch; --profile_trace (with
      --edit_backend wavefront) must write the golden VCF and Chrome traces
      under traces/ whose CLUSTER trace names the wavefront kernel.
+ 12. `reads` mode: stub ngmlr, minimap2, samtools and gunzip executables on
+     PATH (svim_tpu_torch.workloads.stub_aligners; the aligner "produces"
+     the golden records as SAM text, the samtools stub sorts them into a
+     BGZF BAM with the port's io layer) and `reads <wd> <fastq> <genome>
+     --edit_backend wavefront`: the golden VCF, as many wavefront launches
+     as phase 4, and a second run that re-uses the cached BAM without a new
+     stub call;
+ 13. --distributed: the bench workload with `--distributed --edit_backend
+     wavefront --profile` as 2 and as 3 rank subprocesses sharing the one
+     card (3 leaves uneven ranges), and the golden workload as 2; every rank
+     must exit 0, name a CUDA device in its log, launch the wavefront
+     kernel and hold neither jax nor svim_tpu in its interpreter; rank 0's
+     variants.vcf must hash to the pinned one and the ranks' eligible
+     partition counts must sum to the single-process count; prints each
+     rank's stage seconds and exchange bytes beside phase 5's
+     single-process seconds (ranks that share a card and its host's cores:
+     a correctness run, no scaling figure);
+ 14. --num_shards: the bench workload with `--num_shards 8 --edit_backend
+     wavefront`: pinned VCF, "8 shards over 1 device(s)" in the log; every
+     COLLECT scan and GENOTYPE join the run made is re-run unsharded on its
+     recorded inputs and must be equal, as must the two agglomeration ops on
+     seeded partitions cut into 8; entry.entry() and
+     entry.dryrun_multichip(8) run on the card.
 The script imports torch and the port, never jax or the JAX package: the
 inputs come from svim_tpu_torch.workloads.
 Then one JSON line describing the kernels, the card line, and the last
@@ -1146,6 +1169,396 @@ def phase_flags(golden_bam, golden_genome):
                              "CUDA kernel")
 
 
+def _non_help_calls(log_path):
+    with open(log_path) as handle:
+        return [line for line in handle if "--help" not in line]
+
+
+def phase_reads(golden_bam, golden_genome):
+    """Phase 12: `reads` mode over stub aligners on the golden records."""
+    from svim_tpu_torch import workloads
+
+    directory = os.path.join(os.path.dirname(golden_bam), "reads_mode")
+    os.makedirs(directory, exist_ok=True)
+    sam = workloads.sam_text(golden_bam, os.path.join(directory,
+                                                      "aligned.sam"))
+    fastq = os.path.join(directory, "sample.fastq")
+    with open(fastq, "w") as handle:
+        handle.write("@read0\nACGT\n+\n!!!!\n")
+    working_dir = os.path.join(directory, "wd")
+    cached = os.path.join(working_dir, "sample.ngmlr.coordsorted.bam")
+    for stale in (cached, cached + ".bai"):
+        if os.path.exists(stale):
+            os.remove(stale)
+    arguments = ["reads", working_dir, fastq, golden_genome,
+                 "--edit_backend", "wavefront", "--incremental_cluster", "off"]
+    with workloads.stub_aligners(directory, sam) as stub_log:
+        launches = _drive("reads", arguments)
+        calls = _non_help_calls(stub_log)
+        for wanted in ("ngmlr", "samtools view", "samtools sort",
+                       "samtools index"):
+            if not any(call.startswith(wanted) for call in calls):
+                raise AssertionError("reads mode: no {0!r} stub call among "
+                                     "{1}".format(wanted, calls))
+        if _normalized_vcf(os.path.join(working_dir, "variants.vcf")) \
+                != _normalized_vcf(GOLDEN):
+            raise AssertionError("reads mode: variants.vcf differs from "
+                                 "tests/golden/variants.golden.vcf")
+        golden_launches = PATH_LAUNCHES["golden"]["wavefront_banded_distance"]
+        if launches != golden_launches or launches <= 0:
+            raise AssertionError("reads mode: {0} wavefront launches, the "
+                                 "golden slice {1}".format(launches,
+                                                           golden_launches))
+        again = _drive("reads_cached", arguments)
+        if len(_non_help_calls(stub_log)) != len(calls):
+            raise AssertionError("reads mode: the second run called a stub "
+                                 "again instead of re-using " + cached)
+        if _normalized_vcf(os.path.join(working_dir, "variants.vcf")) \
+                != _normalized_vcf(GOLDEN) or again != launches:
+            raise AssertionError("reads mode, cached BAM: other output")
+    log("reads", "stub aligners ({0} calls), golden VCF, wavefront launches "
+        "{1} (as the golden slice); the second run re-used the cached BAM "
+        "with no stub call".format(len(calls), launches))
+
+
+# a rank of phase 13: the port's CLI, then what its interpreter holds
+_RANK_SCRIPT = """
+import json, sys
+sys.path.insert(0, {root!r})
+from svim_tpu_torch.cli import main
+code = main(sys.argv[1:])
+print("LOADED " + json.dumps(sorted(
+    name for name in sys.modules
+    if name.split(".")[0] in ("jax", "jaxlib", "svim_tpu"))))
+sys.exit(code)
+"""
+RANK_TIMEOUT = 300   # seconds, each rank subprocess
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_log_values(working_dir, rank):
+    """What rank `rank` wrote to its SVIM_*.p<rank>.log: the DEVICE line and
+    the JSON lines --profile logs."""
+    logs = sorted(name for name in os.listdir(working_dir)
+                  if name.endswith(".p{0}.log".format(rank)))
+    values = {}
+    markers = {"DEVICE: ": "device", "Stage seconds: ": "seconds",
+               "Kernel launches: ": "launches",
+               "Cluster telemetry: ": "telemetry",
+               "Exchange totals: ": "exchange",
+               "Distributed collect phases: ": "phases"}
+    with open(os.path.join(working_dir, logs[-1])) as handle:
+        for line in handle:
+            for marker, key in markers.items():
+                if marker in line:
+                    text = line.split(marker, 1)[1].strip()
+                    values[key] = text if key in ("device", "phases") \
+                        else json.loads(text)
+    missing = sorted(set(markers.values()) - set(values))
+    if missing:
+        raise AssertionError("rank {0} of {1} logged no {2}".format(
+            rank, working_dir, missing))
+    return values
+
+
+def _run_ranks(path, world, working_dir, bam, genome):
+    """One --distributed run of `world` rank subprocesses on the one card.
+    Returns the per-rank log values; PATH_LAUNCHES[path] gets the launches
+    summed over the ranks (each rank counted from 0 in its own process)."""
+    import shutil
+
+    if os.path.isdir(working_dir):
+        shutil.rmtree(working_dir)
+    coordinator = "127.0.0.1:{0}".format(_free_port())
+    procs = []
+    outputs = []
+    try:
+        for rank in range(world):
+            env = dict(os.environ, SVIM_COORDINATOR=coordinator,
+                       SVIM_NUM_PROCESSES=str(world),
+                       SVIM_PROCESS_ID=str(rank), GLOO_SOCKET_IFNAME="lo")
+            env.pop("SVIM_TORCH_DEVICE", None)
+            console = open("{0}.rank{1}.console.log".format(working_dir,
+                                                             rank), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", _RANK_SCRIPT.format(root=ROOT),
+                 "alignment", working_dir, bam, genome, "--distributed",
+                 "--edit_backend", "wavefront", "--profile"],
+                env=env, stdout=console, stderr=subprocess.STDOUT),
+                console))
+        for proc, _console in procs:
+            proc.wait(timeout=RANK_TIMEOUT)
+    finally:
+        for proc, console in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            console.close()
+            with open(console.name) as handle:
+                outputs.append(handle.read())
+    failed = [rank for rank, (proc, _console) in enumerate(procs)
+              if proc.returncode != 0]
+    if failed:
+        for rank, output in enumerate(outputs):
+            sys.stderr.write("--- {0}, rank {1} (exit {2}) ---\n{3}\n".format(
+                path, rank, procs[rank][0].returncode, output[-3000:]))
+        raise RuntimeError("{0}: ranks {1} failed".format(path, failed))
+    ranks = []
+    for rank, output in enumerate(outputs):
+        loaded = [line for line in output.splitlines()
+                  if line.startswith("LOADED ")]
+        if loaded != ["LOADED []"]:
+            raise AssertionError("{0}, rank {1} holds {2}".format(
+                path, rank, loaded))
+        values = _rank_log_values(working_dir, rank)
+        if not values["device"].startswith("cuda"):
+            raise AssertionError("{0}, rank {1} ran on {2}".format(
+                path, rank, values["device"]))
+        if values["launches"]["wavefront_banded_distance"] <= 0:
+            raise AssertionError("{0}, rank {1} launched no wavefront "
+                                 "kernel".format(path, rank))
+        ranks.append(values)
+    PATH_LAUNCHES[path] = {
+        name: sum(values["launches"][name] for values in ranks)
+        for name in KERNEL_MODULES}
+    return ranks
+
+
+def phase_distributed(card, bench_bam, bench_genome, off_seconds, golden_bam,
+                      golden_genome):
+    """Phase 13: --distributed as rank subprocesses on the one card."""
+    runs = [("distributed_bench_w2", 2, bench_bam, bench_genome,
+             BENCH_VCF_SHA256, sum(BENCH_TELEMETRY["wavefront"].values())),
+            ("distributed_bench_w3", 3, bench_bam, bench_genome,
+             BENCH_VCF_SHA256, sum(BENCH_TELEMETRY["wavefront"].values())),
+            ("distributed_golden_w2", 2, golden_bam, golden_genome,
+             SAM_VCF_SHA256, sum(GOLDEN_TELEMETRY.values()))]
+    for path, world, bam, genome, expected, eligible in runs:
+        working_dir = os.path.join(os.path.dirname(bam), "wd_" + path)
+        started = time.perf_counter()
+        ranks = _run_ranks(path, world, working_dir, bam, genome)
+        wall = time.perf_counter() - started
+        digest = _vcf_sha256(working_dir)
+        if digest != expected:
+            raise AssertionError("{0}: variants.vcf (sha256 {1}) differs "
+                                 "from the pinned one".format(path, digest))
+        counted = [values["telemetry"]["eligible"] for values in ranks]
+        if sum(counted) != eligible:
+            raise AssertionError("{0}: the ranks resolved {1} eligible "
+                                 "partitions, one process {2}".format(
+                                     path, counted, eligible))
+        received = {values["exchange"]["received"] for values in ranks}
+        if len(received) != 1 or received.pop() != sum(
+                values["exchange"]["sent"] for values in ranks):
+            raise AssertionError("{0}: exchange bytes do not add up: {1}"
+                                 .format(path, [values["exchange"]
+                                                for values in ranks]))
+        for rank, values in enumerate(ranks):
+            log("distributed", "{0} rank {1}/{2} on {3}: stages {4}; {5}; "
+                "exchange {6}; wavefront launches {7}; eligible partitions "
+                "{8}".format(path, rank, world, values["device"],
+                             json.dumps(values["seconds"]), values["phases"],
+                             json.dumps(values["exchange"]),
+                             values["launches"]["wavefront_banded_distance"],
+                             values["telemetry"]["eligible"]))
+        log("distributed", "{0}: {1} ranks sharing {2}, wall {3:.2f}s with "
+            "start-up; VCF hashes to the pinned one; eligible partitions {4} "
+            "sum to {5}{6}".format(
+                path, world, card, wall, counted, eligible,
+                "; one process (phase 5, off): collect {0!r} s, cluster {1!r} "
+                "s".format(off_seconds["wavefront"]["collect"],
+                           off_seconds["wavefront"]["cluster"])
+                if "bench" in path else ""))
+
+
+class ShardedCallRecorder:
+    """While active, keeps the inputs and outputs of every row-sharded
+    COLLECT scan and every GENOTYPE join the main path runs."""
+
+    def __init__(self):
+        from svim_tpu_torch.ops import genotype_kernel
+        from svim_tpu_torch.parallel import mesh
+
+        self.mesh = mesh
+        self.genotype_kernel = genotype_kernel
+        self.scans = []
+        self.joins = []
+
+    def __enter__(self):
+        self.scan = self.mesh.collect_scan_sharded
+        self.join = self.genotype_kernel.genotype_ref_support_device
+
+        def scan(num_shards, device, cigar_words, ref_start, min_sv_size):
+            outputs = self.scan(num_shards, device, cigar_words, ref_start,
+                                min_sv_size)
+            self.scans.append((num_shards, device, cigar_words, ref_start,
+                               min_sv_size, outputs))
+            return outputs
+
+        def join(jobs, per_tid, device, num_shards=1):
+            counts = self.join(jobs, per_tid, device, num_shards)
+            self.joins.append((jobs, per_tid, device, num_shards, counts))
+            return counts
+
+        self.mesh.collect_scan_sharded = scan
+        self.genotype_kernel.genotype_ref_support_device = join
+        return self
+
+    def __exit__(self, *exc):
+        self.mesh.collect_scan_sharded = self.scan
+        self.genotype_kernel.genotype_ref_support_device = self.join
+
+
+def _sharded_op(op, shards, device, args, kwargs):
+    """`op` over `shards` blocks of its tensor arguments' leading axis
+    (other arguments pass to every shard), outputs gathered on `device`."""
+    import torch
+
+    from svim_tpu_torch.parallel import mesh
+
+    names = sorted(kwargs)
+    values = list(args) + [kwargs[name] for name in names]
+    cut = [index for index, value in enumerate(values)
+           if isinstance(value, torch.Tensor)]
+    outputs = []
+    for block in mesh.shard_batch(shards, device, *(values[i] for i in cut)):
+        local = list(values)
+        for index, tensor in zip(cut, block):
+            local[index] = tensor
+        outputs.append(op(*local[:len(args)],
+                          **dict(zip(names, local[len(args):]))))
+    return mesh.gather_shards(outputs, device)
+
+
+def phase_shards(bench_bam, bench_genome):
+    """Phase 14: --num_shards 8 on the bench workload."""
+    import numpy as np
+    import torch
+
+    from svim_tpu_torch import entry
+    from svim_tpu_torch.ops import genotype_kernel, linkage_kernel
+    from svim_tpu_torch.parallel import mesh
+
+    shards = 8
+    working_dir = os.path.join(os.path.dirname(bench_bam), "wd_num_shards")
+    with ShardedCallRecorder() as recorder:
+        launches = _drive("num_shards", [
+            "alignment", working_dir, bench_bam, bench_genome, "--num_shards",
+            str(shards), "--edit_backend", "wavefront",
+            "--incremental_cluster", "off"])
+    digest = _vcf_sha256(working_dir)
+    if digest != BENCH_VCF_SHA256:
+        raise AssertionError("--num_shards {0}: variants.vcf (sha256 {1}) "
+                             "differs from svim_tpu's".format(shards, digest))
+    if launches <= 0:
+        raise AssertionError("--num_shards launched no wavefront kernel")
+    logs = sorted(name for name in os.listdir(working_dir)
+                  if name.startswith("SVIM_") and name.endswith(".log"))
+    with open(os.path.join(working_dir, logs[-1])) as handle:
+        layout = "{0} shards over {1} device(s)".format(
+            shards, min(shards, torch.cuda.device_count()))
+        if layout not in handle.read():
+            raise AssertionError("--num_shards: no {0!r} in the log".format(
+                layout))
+
+    cut_scans = 0
+    for (num_shards, device, words, ref_start, min_sv_size,
+         got) in recorder.scans:
+        if device.type != "cuda" or num_shards != shards:
+            raise AssertionError("a COLLECT scan ran on {0} over {1} shards"
+                                 .format(device, num_shards))
+        want = mesh.collect_scan_sharded(1, device, words, ref_start,
+                                         min_sv_size)
+        if len(got) != len(want) or not all(
+                a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+                for a, b in zip(got, want)):
+            raise AssertionError("row-sharded COLLECT scan differs from the "
+                                 "unsharded one at {0} rows".format(
+                                     words.shape[0]))
+        cut_scans += words.shape[0] % shards == 0
+    if not cut_scans:
+        raise AssertionError("no COLLECT scan of the run was cut into shards")
+
+    cut_joins = 0
+    original = genotype_kernel.shard_batch
+    blocks = []
+
+    def counted(*args):
+        result = original(*args)
+        blocks.append(len(result))
+        return result
+
+    genotype_kernel.shard_batch = counted
+    try:
+        for jobs, per_tid, device, num_shards, got in recorder.joins:
+            if got != genotype_kernel.genotype_ref_support_device(
+                    jobs, per_tid, device, 1):
+                raise AssertionError("sharded GENOTYPE join differs from the "
+                                     "unsharded one at {0} jobs".format(
+                                         len(jobs)))
+            # a prefix of the jobs whose candidate axis divides: one of 8
+            # consecutive lengths does
+            for count in range(len(jobs), max(len(jobs) - shards, 0), -1):
+                del blocks[:]
+                sharded = genotype_kernel.genotype_ref_support_device(
+                    jobs[:count], per_tid, device, shards)
+                if blocks == [shards]:
+                    if sharded != genotype_kernel.genotype_ref_support_device(
+                            jobs[:count], per_tid, device, 1):
+                        raise AssertionError("GENOTYPE join cut into {0} "
+                                             "differs at {1} jobs".format(
+                                                 shards, count))
+                    cut_joins += 1
+                    break
+    finally:
+        genotype_kernel.shard_batch = original
+    if not recorder.joins or not cut_joins:
+        raise AssertionError("no GENOTYPE join was cut into shards ({0} "
+                             "joins recorded)".format(len(recorder.joins)))
+
+    # the CLUSTER batcher's two agglomeration ops: on this workload every
+    # coordinate partition is resolved at dispatch (telemetry pre_tie), so
+    # its flushes are empty; seeded partitions stand in
+    device = torch.device("cuda")
+    rng = np.random.default_rng(20261019)
+    checked = []
+    for name, args, kwargs in _synthetic_linkage(rng, device):
+        if name == "ins_matrices_from_pairs":
+            continue
+        op = getattr(linkage_kernel, name)
+        want = op(*args, **kwargs)
+        got = _sharded_op(op, shards, device, args, kwargs)
+        if not all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(got, want)):
+            raise AssertionError("{0} cut into {1} shards differs from the "
+                                 "whole batch at P={2}".format(
+                                     name, shards, args[0].shape[1]))
+        checked.append("{0} P={1}".format(name, args[0].shape[1]))
+
+    function, arguments = entry.entry()
+    outputs = function(*arguments)
+    torch.cuda.synchronize()
+    if any(value.device.type != "cuda" for value in arguments) \
+            or int(outputs[10]) != len(outputs[5]) or int(outputs[10]) <= 0:
+        raise AssertionError("entry.entry() did not run on the card")
+    entry.dryrun_multichip(shards)
+    log("shards", "--num_shards {0}: VCF hashes to svim_tpu's; {1!r}; "
+        "wavefront launches {2}; {3} COLLECT scans ({4} cut into shards) and "
+        "{5} GENOTYPE joins ({6} prefixes cut into shards) equal their "
+        "unsharded runs; {7} equal whole-batch runs; entry() found {8} "
+        "events on the card; dryrun_multichip({0}) passed".format(
+            shards, layout, launches, len(recorder.scans), cut_scans,
+            len(recorder.joins), cut_joins, ", ".join(checked),
+            int(outputs[10])))
+
+
 def main():
     sys.path.insert(0, ROOT)
     card = phase_environment()
@@ -1162,6 +1575,10 @@ def main():
     phase_default_path(card, bench_bam, bench_genome, off_seconds,
                        golden_bam, golden_genome)
     phase_flags(golden_bam, golden_genome)
+    phase_reads(golden_bam, golden_genome)
+    phase_distributed(card, bench_bam, bench_genome, off_seconds, golden_bam,
+                      golden_genome)
+    phase_shards(bench_bam, bench_genome)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     log("paths", "kernel launches per path: {0}".format(

@@ -50,6 +50,7 @@ from svim_tpu_torch.ops.linkage_kernel import (
     ins_matrices_from_pairs,
     span_position_agglomerate_batched,
 )
+from svim_tpu_torch.parallel.mesh import gather_shards, shard_batch
 from svim_tpu_torch.state import to_host
 
 _FUSED_KIND = {"DEL": KIND_SPAN_POSITION, "INV": KIND_SPAN_POSITION,
@@ -233,8 +234,9 @@ class DeviceBatcher:
         self.fused_flushed = False
         self.extra_outputs = {}  # routes dispatched eagerly (INS resident)
 
-    def _put(self, values):
-        return torch.from_numpy(values).to(self.device)
+    @property
+    def num_shards(self):
+        return getattr(self.options, "num_shards", 1)
 
     def add_fused(self, sample, wall_same_read: bool, element_type: str = "DEL"):
         if self.fused_flushed:
@@ -291,12 +293,18 @@ class DeviceBatcher:
                 valid[row] = row_valid
                 wall[row] = row_wall
                 kinds[row] = row_kind
-            self.outputs[("fused", pad)] = span_position_agglomerate_batched(
-                self._put(starts), self._put(ends), self._put(reads),
-                self._put(valid), float(np.float32(
-                    options.position_distance_normalizer)),
-                float(np.float32(options.cluster_max_distance)),
-                self._put(wall), dest=self._put(dest), kind=self._put(kinds))
+            # --num_shards cuts the partition axis over the shard devices
+            normalizer = float(np.float32(
+                options.position_distance_normalizer))
+            max_distance = float(np.float32(options.cluster_max_distance))
+            self.outputs[("fused", pad)] = gather_shards([
+                span_position_agglomerate_batched(
+                    s_starts, s_ends, s_reads, s_valid, normalizer,
+                    max_distance, s_wall, dest=s_dest, kind=s_kinds)
+                for (s_starts, s_ends, s_dest, s_reads, s_valid, s_wall,
+                     s_kinds) in shard_batch(
+                         self.num_shards, self.device, starts, ends, dest,
+                         reads, valid, wall, kinds)], self.device)
         self.fused_rows = {}
         self.fused_flushed = True
 
@@ -311,8 +319,10 @@ class DeviceBatcher:
                 n = matrix.shape[0]
                 matrices[row, :n, :n] = matrix
                 valid[row, :n] = True
-            self.outputs[("matrix", pad)] = agglomerate_batched(
-                self._put(matrices), self._put(valid))
+            self.outputs[("matrix", pad)] = gather_shards([
+                agglomerate_batched(*shard) for shard in shard_batch(
+                    self.num_shards, self.device, matrices, valid)],
+                self.device)
         self.matrix_rows = {}
 
     def device_outputs(self):

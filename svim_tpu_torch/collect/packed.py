@@ -356,9 +356,82 @@ def collect_soa_pipelined(bam_path: str, options, device):
     return _collect_soa_pipelined_stream(compressed, options, device)
 
 
+def collect_soa_pipelined_range(bam_path: str, options, num_processes: int,
+                                process_id: int, device):
+    """Pipelined SoA COLLECT over ONE process's record range (--distributed).
+
+    Same contract as io.bamrange.scan_bam_range (concatenating per-rank
+    outputs in rank order reproduces the serial stream exactly: both ends of
+    every boundary run the identical deterministic record-chain scan), but
+    through the native scan session: the rank's stream is header blocks +
+    its owned blocks + a small overhang, the session's walker skips to
+    walk_start and stops at walk_end (inflated coordinates), and
+    inflate/walk/device passes overlap exactly as in the single-process
+    pipelined path.  Mid-scan clustering is off for a rank: the exchange
+    re-merges the tables."""
+    import struct
+
+    from svim_tpu_torch.io.bamrange import BamRangePlan
+
+    plan = BamRangePlan(bam_path)
+    comp = plan.compressed
+    offs = plan.block_offsets
+    n_blocks = len(offs) - 1
+    b_lo, b_hi = plan.block_range(num_processes, process_id)
+
+    def isize(j):
+        # BGZF ISIZE field: inflated size of block j
+        return struct.unpack_from("<I", comp, offs[j + 1] - 4)[0]
+
+    if b_lo >= b_hi:
+        return _empty_rank_collect(plan)
+    range_infl = sum(isize(j) for j in range(b_lo, b_hi))
+    if b_lo == 0:
+        head = b""
+        head_infl = 0
+        my_first = plan.first_record_offset
+    else:
+        head = comp[:offs[plan.header_blocks]]
+        head_infl = plan.header_inflated_len
+        my_first = plan._range_first_record(b_lo)
+        if my_first is None or my_first >= range_infl:
+            # whole range is the interior of one giant upstream record
+            return _empty_rank_collect(plan)
+    parts = [head, comp[offs[b_lo]:offs[b_hi]]]
+    walk_end = -1
+    if b_hi < n_blocks:
+        next_first = plan._range_first_record(b_hi)
+        if next_first is None:
+            # everything after this range is a straddling tail we own
+            parts.append(comp[offs[b_hi]:])
+        else:
+            tail_infl = 0
+            j = b_hi
+            while tail_infl < next_first:
+                tail_infl += isize(j)
+                j += 1
+            parts.append(comp[offs[b_hi]:offs[j]])
+            walk_end = head_infl + range_infl + next_first
+    return _collect_soa_pipelined_stream(
+        b"".join(parts), options, device, allow_incremental=False,
+        walk_start=head_infl + my_first, walk_end=walk_end)
+
+
+def _empty_rank_collect(plan):
+    """(header, empty GenotypeTable, empty SoA, no twins) for a rank that
+    owns no whole record."""
+    from svim_tpu_torch.io.bamstream import _parse_header
+
+    header, _offset = _parse_header(plan.header_bytes)
+    soa, twins = SoAState().finalize()
+    return header, GenotypeColumns().table(), soa, twins
+
+
 def _collect_soa_pipelined_stream(compressed: bytes, options, device,
-                                  allow_incremental: bool = True):
-    """collect_soa_pipelined over in-memory BGZF bytes.
+                                  allow_incremental: bool = True,
+                                  walk_start: int = -1, walk_end: int = -1):
+    """collect_soa_pipelined over in-memory BGZF bytes, with optional walker
+    bounds in inflated coordinates (a rank's byte range).
 
     Unless --incremental_cluster is off (or `allow_incremental` is false),
     partitions that are final behind the scan frontier are clustered between
@@ -380,7 +453,8 @@ def _collect_soa_pipelined_stream(compressed: bytes, options, device,
         scan_workers = native._scan_workers(reserve=0)
     session = native.BamScanSession(compressed, options.min_mapq,
                                     options.min_sv_size,
-                                    n_threads=scan_workers)
+                                    n_threads=scan_workers,
+                                    walk_start=walk_start, walk_end=walk_end)
 
     batch_reads = max(1, int(getattr(options, "batch_reads", 4096)))
     header = None
@@ -581,13 +655,15 @@ def _signatures_from_grouped_packed(packed, group_sizes, name_table, options,
 
 
 def dispatch_collect_scan(packed, options, device):
-    """Run the fused geometry+events pass on `device`; returns its output
-    tuple (tensors) for _consume_collect."""
-    from svim_tpu_torch.ops.cigar_kernel import collect_scan
+    """Run the fused geometry+events pass on `device` (row-sharded under
+    --num_shards when the rows divide); returns its output tuple (tensors on
+    `device`) for _consume_collect."""
+    from svim_tpu_torch.parallel.mesh import collect_scan_sharded
 
     columns = _device_columns(packed, device)
-    return collect_scan(columns["cigar_words"], columns["ref_start"],
-                        int(options.min_sv_size))
+    return collect_scan_sharded(
+        getattr(options, "num_shards", 1), device, columns["cigar_words"],
+        columns["ref_start"], int(options.min_sv_size))
 
 
 def _device_columns(packed, device):

@@ -95,7 +95,8 @@ class Config:
     profile: bool = False              # per-stage wall-clock timing (untraced)
     profile_trace: bool = False        # additionally capture torch.profiler traces
                                        # (inflates host-stage wall times)
-    distributed: bool = False          # multi-process run (not ported)
+    distributed: bool = False          # one rank of a torch.distributed (Gloo) job:
+                                       # SVIM_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -199,7 +200,9 @@ def _add_common_options(parser: argparse.ArgumentParser) -> None:
                                 "'exact' (host float64 scipy only) "
                                 "(default: %(default)s).")
     execution.add_argument("--num_shards", type=int, default=d.num_shards,
-                           help="Number of data-parallel read shards across the device mesh (default: %(default)s).")
+                           help="Number of data-parallel shards the batched device "
+                                "passes are cut into, laid round-robin over the "
+                                "visible cards (default: %(default)s).")
     execution.add_argument("--batch_reads", type=int, default=d.batch_reads,
                            help="Reads per packed device batch (default: %(default)s).")
     execution.add_argument("--incremental_cluster", type=str,
@@ -228,8 +231,12 @@ def _add_common_options(parser: argparse.ArgumentParser) -> None:
                                 "representative - use --profile alone for "
                                 "timings (default: %(default)s).")
     execution.add_argument("--distributed", action="store_true",
-                           help="Run as one process of a multi-host job (not "
-                                "ported to this package yet: refused) "
+                           help="Run as one process of a multi-process job: join "
+                                "the torch.distributed (Gloo) group given by "
+                                "SVIM_COORDINATOR / SVIM_NUM_PROCESSES / "
+                                "SVIM_PROCESS_ID, ingest this process's BAM block "
+                                "range, exchange signature tables as host bytes; "
+                                "only process 0 writes outputs "
                                 "(default: %(default)s).")
 
 

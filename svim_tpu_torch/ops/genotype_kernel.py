@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from svim_tpu_torch.parallel.mesh import gather_shards, shard_batch
+
 ALIGNMENT_CAP = 500   # SVIM_genotyping.py:56
 WINDOW = 1000         # SVIM_genotyping.py:49
 INT_MAX = 2**31 - 1
@@ -106,8 +108,9 @@ class DeviceGenotypeTable:
         self.ids = np.concatenate(id_parts).astype(np.int32)
 
 
-def genotype_ref_support_device(jobs, per_tid, device):
-    """Reference-support counts for genotyping jobs on `device`.
+def genotype_ref_support_device(jobs, per_tid, device, num_shards: int = 1):
+    """Reference-support counts for genotyping jobs on `device` (the
+    candidate axis cut over `num_shards` shards when it divides).
 
     Each job is (tid, start, end, type_class, support_id_list,
     contig_length) with type_class 0 for DEL/INV and 1 for INS/DUP_INT
@@ -166,29 +169,37 @@ def genotype_ref_support_device(jobs, per_tid, device):
 
     c = len(rows)
     s_pad = _round_up_pow2(max(1, max(len(r[7]) for r in rows)), 8)
-    columns = np.zeros((7, c), dtype=np.int32)
+    columns = np.zeros((c, 7), dtype=np.int32)
     support_sorted = np.full((c, s_pad), INT_MAX, dtype=np.int32)
     for row_index, (_job, row_lo, row_width, row_ws, row_start, row_end,
                     row_class, support_ids) in enumerate(rows):
         # minimum_overlap = min((end-start)/2, 2000), doubled => integer
-        columns[:, row_index] = (row_lo, row_width, 2 * row_ws, 2 * row_start,
-                                 2 * row_end, min(row_end - row_start, 4000),
-                                 row_class)
+        columns[row_index] = (row_lo, row_width, 2 * row_ws, 2 * row_start,
+                              2 * row_end, min(row_end - row_start, 4000),
+                              row_class)
         if support_ids:
             support_sorted[row_index, :len(support_ids)] = np.sort(
                 np.asarray(support_ids, dtype=np.int32))
 
-    columns = torch.from_numpy(columns).to(device)
-    support_sorted = torch.from_numpy(support_sorted).to(device)
-    starts2 = torch.from_numpy(table.starts2).to(device)
-    ends2 = torch.from_numpy(table.ends2).to(device)
-    ids = torch.from_numpy(table.ids).to(device)
+    # --num_shards cuts the candidate axis over the shard devices; each
+    # device holds its own copy of the table
     chunk = max(1, MAX_GATHER_CELLS // slice_len)
-    counts = torch.cat([
-        genotype_support_batched(*columns[:, first:first + chunk],
-                                 support_sorted[first:first + chunk],
-                                 starts2, ends2, ids, slice_len)
-        for first in range(0, c, chunk)]).cpu().numpy()
+    tables = {}
+    shard_counts = []
+    for shard_columns, shard_support in shard_batch(
+            num_shards, device, columns, support_sorted):
+        target = shard_columns.device
+        if target not in tables:
+            tables[target] = tuple(
+                torch.from_numpy(column).to(target)
+                for column in (table.starts2, table.ends2, table.ids))
+        shard_columns = shard_columns.T.contiguous()
+        shard_counts.append((torch.cat([
+            genotype_support_batched(*shard_columns[:, first:first + chunk],
+                                     shard_support[first:first + chunk],
+                                     *tables[target], slice_len)
+            for first in range(0, shard_columns.shape[1], chunk)]),))
+    counts = gather_shards(shard_counts, device)[0].cpu().numpy()
     for row_index, row in enumerate(rows):
         results[row[0]] = int(counts[row_index])
     return results

@@ -15,11 +15,13 @@ import os
 import torch
 
 
-def select_device(device_backend: str = "auto") -> torch.device:
+def select_device(device_backend: str = "auto",
+                  distributed: bool = False) -> torch.device:
     """The device for --device_backend `device_backend`: the current CUDA
-    device under "auto" and "host" (which only moves COLLECT and GENOTYPE
-    to the record-based host paths); the CPU under "cpu" or when
-    SVIM_TORCH_DEVICE=cpu asks for it.  "tpu" is refused: the port has no
+    device (with `distributed`, the rank's card, made current) under "auto"
+    and "host" (which only moves COLLECT and GENOTYPE to the record-based
+    host paths); the CPU under "cpu" or when SVIM_TORCH_DEVICE=cpu asks for
+    it.  "tpu" is refused: the port has no
     TPU backend.  Raises RuntimeError when no card is visible and the CPU
     was not asked for."""
     if device_backend == "tpu":
@@ -39,6 +41,9 @@ def select_device(device_backend: str = "auto") -> torch.device:
         raise RuntimeError("torch sees no CUDA device; svim_tpu_torch runs on "
                            "the card unless --device_backend cpu or "
                            "SVIM_TORCH_DEVICE=cpu asks for the CPU")
+    if distributed:
+        rank = int(os.environ.get("SVIM_PROCESS_ID", "0"))
+        torch.cuda.set_device(rank % torch.cuda.device_count())
     return torch.device("cuda", torch.cuda.current_device())
 
 

@@ -21,6 +21,11 @@ input paths:
 
 `chunked_scan` delivers a one-shot scan's rows in fixed chunks, so that a
 small input drives the mid-scan consume and clustering path.
+
+`stub_aligners` puts executable stand-ins for ngmlr, minimap2, samtools and
+gunzip on PATH, so that `reads` mode runs where no aligner is installed:
+the aligner stubs emit a prepared SAM stream, the samtools stub sorts it
+into a real BGZF BAM with this package's io layer.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from __future__ import annotations
 import contextlib
 import os
 import random
+import stat
+import sys
 import zlib
 
 import numpy as np
@@ -266,3 +273,99 @@ def chunked_scan(chunk):
         yield
     finally:
         native.BamScanSession.next_rows = original
+
+
+_ALIGNER_STUB = """#!{python}
+import os, sys
+with open(os.environ["SVIM_STUB_LOG"], "a") as log:
+    log.write("{name} " + " ".join(sys.argv[1:]) + "\\n")
+if "--help" in sys.argv:
+    sys.exit(0)
+if "-q" not in sys.argv and not sys.stdin.isatty():
+    # reads piped in (gunzip -c ... | ngmlr): consume them as the aligner
+    # would, or the upstream stage dies on EPIPE under pipefail
+    sys.stdin.read()
+with open(os.environ["SVIM_STUB_SAM"]) as sam:
+    sys.stdout.write(sam.read())
+"""
+
+_SAMTOOLS_STUB = """#!{python}
+import os, sys
+sys.path.insert(0, {root!r})
+with open(os.environ["SVIM_STUB_LOG"], "a") as log:
+    log.write("samtools " + " ".join(sys.argv[1:]) + "\\n")
+if "--help" in sys.argv:
+    sys.exit(0)
+mode = sys.argv[1]
+if mode == "view":
+    sys.stdout.write(sys.stdin.read())       # SAM text passes through
+elif mode == "sort":
+    out_path = sys.argv[sys.argv.index("-o") + 1]
+    from svim_tpu_torch.io.sam import AlignmentHeader, parse_sam_line
+    from svim_tpu_torch.io import bam as bamio
+    header_lines, records = [], []
+    header = None
+    for line in sys.stdin:
+        if line.startswith("@"):
+            header_lines.append(line.rstrip("\\n"))
+            continue
+        if header is None:
+            header = AlignmentHeader.from_text("\\n".join(header_lines))
+        if line.strip():
+            records.append(parse_sam_line(line, header))
+    records.sort(key=lambda r: (r.reference_id, r.reference_start))
+    # stamp the coordinate sort order the pipeline dispatches on
+    text = "\\n".join(l for l in header_lines if not l.startswith("@HD"))
+    header = AlignmentHeader.from_text("@HD\\tVN:1.6\\tSO:coordinate\\n" + text)
+    bamio.write_bam(out_path, header, records)
+elif mode == "index":
+    with open(sys.argv[2] + ".bai", "wb") as handle:
+        handle.write(b"BAI\\x01")
+"""
+
+_GUNZIP_STUB = """#!{python}
+import sys
+if "--help" in sys.argv:
+    sys.exit(0)
+import gzip
+with gzip.open(sys.argv[-1], "rt") as handle:
+    sys.stdout.write(handle.read())
+"""
+
+
+@contextlib.contextmanager
+def stub_aligners(directory, sam_path):
+    """While active, PATH starts with `directory`/bin holding stub ngmlr,
+    minimap2, samtools and gunzip executables: the aligners write the SAM
+    text at `sam_path` to their standard output, `samtools sort` turns what
+    it reads into a coordinate-sorted BGZF BAM, `samtools index` leaves a
+    .bai marker.  Yields the path of the log that every stub call appends
+    its argv to (one line a call, the --help probes included)."""
+    bin_dir = os.path.join(directory, "bin")
+    os.makedirs(bin_dir, exist_ok=True)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for name, template in (("ngmlr", _ALIGNER_STUB),
+                           ("minimap2", _ALIGNER_STUB),
+                           ("samtools", _SAMTOOLS_STUB),
+                           ("gunzip", _GUNZIP_STUB)):
+        path = os.path.join(bin_dir, name)
+        with open(path, "w") as handle:
+            handle.write(template.format(python=sys.executable, name=name,
+                                         root=root))
+        os.chmod(path, os.stat(path).st_mode | stat.S_IXUSR | stat.S_IXGRP
+                 | stat.S_IXOTH)
+    log_path = os.path.join(directory, "stub_calls.log")
+    with open(log_path, "w"):
+        pass
+    changed = {"PATH": bin_dir + os.pathsep + os.environ.get("PATH", ""),
+               "SVIM_STUB_SAM": sam_path, "SVIM_STUB_LOG": log_path}
+    saved = {name: os.environ.get(name) for name in changed}
+    os.environ.update(changed)
+    try:
+        yield log_path
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value

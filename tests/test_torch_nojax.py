@@ -5,7 +5,8 @@ imported both through tests/conftest.py) after three whole golden slices
 --edit_backend wavefront, streaming (--stream_input), and one-shot with
 mid-scan incremental clustering at work (the default, with the scan
 delivered in chunks so that partitions are reused), so lazy imports on all
-three paths count; statically over every source file of the port and
+three paths count; after a two-rank --distributed run, in each rank's
+interpreter; statically over every source file of the port and
 chip_smoke.py; and select_device refuses to carry on without a card unless
 the CPU was asked for."""
 
@@ -72,6 +73,39 @@ def test_port_pipeline_imports_no_jax(tmp_path):
                       "reused": True, "jax": [], "svim_tpu": []}
 
 
+_RANK_SCRIPT = """
+import json, sys
+from svim_tpu_torch.cli import main
+code = main(sys.argv[1:])
+print("LOADED " + json.dumps(sorted(
+    name for name in sys.modules
+    if name.split(".")[0] in ("jax", "jaxlib", "svim_tpu"))))
+sys.exit(code)
+"""
+
+
+def test_distributed_ranks_import_no_jax(tmp_path):
+    """Two real ranks of `alignment --distributed` on the golden workload:
+    both exit 0, rank 0 writes the golden VCF, and neither interpreter
+    holds jax or svim_tpu."""
+    from svim_tpu_torch.workloads import golden_workload
+    from test_golden_vcf import GOLDEN, _normalize
+    from test_torch_multihost import launch_ranks
+
+    bam, genome = golden_workload(str(tmp_path))
+    wd = str(tmp_path / "wd")
+    results = launch_ranks(2, [sys.executable, "-c", _RANK_SCRIPT,
+                               "alignment", wd, bam, genome, "--distributed",
+                               "--edit_backend", "wavefront"],
+                           cwd=str(tmp_path))
+    for rank, (code, output) in enumerate(results):
+        assert code == 0, "rank {0}:\n{1}".format(rank, output[-4000:])
+        loaded = [line for line in output.splitlines()
+                  if line.startswith("LOADED ")]
+        assert loaded == ["LOADED []"], loaded
+    assert _normalize(os.path.join(wd, "variants.vcf")) == _normalize(GOLDEN)
+
+
 def _imported_modules(path):
     """Every module name a source file imports, at any depth."""
     with open(path) as handle:
@@ -93,7 +127,13 @@ def _port_sources():
 
 def test_port_sources_import_neither_jax_nor_svim_tpu():
     sources = _port_sources()
-    assert len(sources) > 40
+    assert len(sources) > 50
+    names = {os.path.relpath(path, REPO) for path in sources}
+    for module in ("align.py", "entry.py", "sim2.py",
+                   "parallel/multihost.py", "parallel/cluster_shard.py",
+                   "parallel/mesh.py", "cluster/linkage.py",
+                   "cluster/reference_path.py"):
+        assert os.path.join("svim_tpu_torch", module) in names
     offending = []
     for path in sources:
         for name in _imported_modules(path):

@@ -5,8 +5,7 @@ backend) and signature BED files equal to svim_tpu's, resolving its
 clustering partitions by the same routes (FallbackTelemetry); the
 device-resident INS route clusters exactly like svim_tpu's; --device_backend
 cpu and host and --profile_trace write the same VCF bytes (tpu is refused by
-name); inputs outside the slice raise NotImplementedError naming their
-ROADMAP item."""
+name); no input that svim_tpu runs raises NotImplementedError."""
 
 import importlib.util
 import json
@@ -251,22 +250,16 @@ def test_resident_ins_route_equals_jax():
 
 
 def test_inputs_outside_the_slice_raise(tmp_path, monkeypatch):
+    """Nothing svim_tpu runs is refused any more: `reads` mode,
+    --num_shards and --distributed are ported (tests/test_torch_reads.py,
+    test_torch_parallel.py, test_torch_multihost.py), and the gate that
+    raised NotImplementedError for them is gone.  What is still refused is
+    what svim_tpu refuses too, and the TPU backend."""
     monkeypatch.setenv("SVIM_TORCH_DEVICE", "cpu")
-
-    def options(*extra, sub="alignment"):
-        if sub == "reads":
-            return parse_arguments(arguments=["reads", str(tmp_path),
-                                              "r.fa", "g.fa"])
-        return parse_arguments(arguments=["alignment", str(tmp_path),
-                                          "x.bam", "g.fa", *extra])
-
-    for bad, item in ((options(sub="reads"), "Queue 1 item 8"),
-                      (options("--num_shards", "2"), "Queue 1 item 10"),
-                      (options("--distributed"), "Queue 1 item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            torch_cli.check_supported(bad)
-    torch_cli.check_supported(options("--edit_backend", "wavefront"))
-    torch_cli.check_supported(options("--device_backend", "host"))
+    assert not hasattr(torch_cli, "check_supported")
+    assert not hasattr(torch_cli, "_not_ported")
+    with open(torch_cli.__file__) as handle:
+        assert "NotImplementedError" not in handle.read()
     # the port has no TPU backend: refused by name, pointing at `auto`
     with pytest.raises(ValueError, match="--device_backend tpu.*auto"):
         torch_cli.main(["alignment", str(tmp_path / "tpu"), "x.bam", "g.fa",
