@@ -6,18 +6,20 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. environment: a CUDA device is required; prints the card's name and
      power limit (nvidia-smi) and the torch / CUDA versions;
-  2. build: compiles csrc/wavefront.cu and csrc/span_distance.cu with nvcc
-     (both at once) and, beside them, the port's native host library
-     (svim_tpu_torch/native: scan session, POA) with g++, all into
-     svim_tpu_torch/_build;
+  2. build: compiles csrc/wavefront.cu, csrc/span_distance.cu and
+     csrc/agglomerate.cu with nvcc (all three at once) and, beside them, the
+     port's native host library (svim_tpu_torch/native: scan session, POA)
+     with g++, all into svim_tpu_torch/_build;
   3. kernel vs plain version on the card: banded_distance_cuda against
      banded_distance_torch on seeded inputs (half near-identical pairs, half
      random) at the main path's shapes and at one case per code path of the
      kernel (warp kernel with a ragged last CTA, CTA kernel with staged and
      unstaged strings, fronts in global scratch, narrow passes that resolve
-     and that run on to W, empty and one-character strings); outputs must be
-     exactly equal, above the band too, and 64 resolved entries must equal
-     the O(nm) dynamic program below;
+     and that run on to W, empty and one-character strings, and every case
+     of the card tests of tests/test_torch_wavefront.py, which need jax to
+     be collected and so run nowhere); outputs must be exactly equal, above
+     the band too, through the dispatcher as well (one launch a call), and
+     64 resolved entries must equal the O(nm) dynamic program below;
   4. golden slice: `alignment --edit_backend wavefront` on the simulated
      workload of tests/test_golden_vcf.py must write a variants.vcf
      byte-equal to tests/golden/variants.golden.vcf (##fileDate aside) and
@@ -29,10 +31,26 @@ Phases, each of which raises (non-zero exit) on failure:
      clustering telemetry must equal svim_tpu's (BENCH_TELEMETRY); prints
      stage seconds, calls per class, kernel launches and reads/s through
      COLLECT+CLUSTER;
-  6. linkage ops on the card: every call the main path made to the plain
-     PyTorch agglomeration ops in phases 4-5 is re-run on the CPU and must
-     agree; on seeded tie-free partitions the labels built from the card's
-     merges must equal exact float64 host linkage;
+  5b. tie-free slice: svim_tpu_torch.workloads.tiefree_workload at 8192
+     reads, the workload whose partitions the device labels, with
+     --incremental_cluster off and either edit backend: VCF sha256,
+     telemetry and accepted labelings by route equal to svim_tpu's
+     (TIEFREE_*), with labelings accepted on the fused and on the matrix
+     route and the agglomeration kernel launched; then at the CLI's
+     defaults: the same VCF; prints stage seconds of each run;
+  6. linkage ops on the card: every call the main path made to the
+     agglomeration ops in phases 4-5b (all three must have been called, on
+     the card) is re-run on the CPU and must agree, and is run through
+     the kernel (csrc/agglomerate.cu) and through the plain version on the
+     card: merges, heights, min_gap, dropped, has_wall and dedup_ambiguous
+     must be equal bit for bit on every row; the same for seeded tie-free
+     partitions, whose labels built from the card's merges must equal exact
+     float64 host linkage, and for the seeded cases of agglomerate_cases
+     (every kind with and without the wall, negative starts, zero spans,
+     wrapping coordinates, 3 and 128 valid slots in one call, padding
+     partitions, exact ties, B = 8 and 1024); prints kernel and plain ms
+     at B = 1024 with full partitions at P = 128 and P = 32 beside the
+     bound;
   7. distance kernel vs plain version on the card: span_position_matrix_cuda
      against span_position_matrix_torch on seeded partitions at P in {32,
      128} and B in {8, 1024, 8192}, with and without the same-read wall,
@@ -40,8 +58,10 @@ Phases, each of which raises (non-zero exit) on failure:
      multiple of 4, B = 1, more partitions than the card holds CTAs, P too
      large to stage in shared memory, each forced path of the kernel once
      and norms in, on the edges of and outside the range of its written-out
-     division (distance_cases); outputs must be bit-equal; prints kernel and plain ms per shape (no entry point calls this
-     kernel, as in the JAX package);
+     division (distance_cases), then untimed every case of the card tests
+     of tests/test_torch_distance.py (_distance_cross); outputs must be
+     bit-equal; prints kernel and plain ms per shape (no entry point calls
+     this kernel, as in the JAX package);
   8. streaming slice: the bench BAM rewritten as level-0 BGZF (over 96 MiB,
      same records) through `alignment --edit_backend wavefront --profile`
      must stream (io.bamstream.BATCHES), launch the wavefront kernel, match
@@ -137,6 +157,21 @@ SAM_VCF_SHA256 = ("a59cd4b5438e42f0b4d728cfa4dff7b0"
                   "3028aca61fd823004605ed1f25446da8")
 QUERYNAME_VCF_SHA256 = ("6296cf39aa2176464f1ac4072ac971cc"
                         "6228edbc67482247d37b92dcca95e383")
+# the tie-free workload (svim_tpu_torch.workloads.tiefree_workload) at 8192
+# reads: sha256 of svim_tpu's variants.vcf (##fileDate lines left out; one
+# hash for either edit backend), its clustering telemetry, and how many of
+# its accepted labelings (`device`) each CLUSTER route decided, all from
+# svim_tpu's CPU runs with --incremental_cluster off
+TIEFREE_READS = 8192
+TIEFREE_VCF_SHA256 = ("3cacea0334817fd7aa58a7b0e94d7e0b"
+                      "1b601b215417c407a46b141f8d045f72")
+TIEFREE_TELEMETRY = {"auto": dict(_NO_TELEMETRY, device=133, pre_tie=8,
+                                  post_tie=51),
+                     "wavefront": dict(_NO_TELEMETRY, device=135,
+                                       pre_tie=2, post_tie=20,
+                                       resident_relink=35)}
+TIEFREE_DEVICE_BY_ROUTE = {"auto": {"fused": 74, "matrix": 59},
+                           "wavefront": {"fused": 74, "resident": 61}}
 # (B, P) of the distance kernel's JSON timing: the largest listed shape
 DISTANCE_MAIN_SHAPE = (8192, 128)
 LINKAGE_OPS = ("span_position_agglomerate_batched", "agglomerate_batched",
@@ -167,7 +202,12 @@ def phase_build():
     import threading
 
     from svim_tpu_torch import native
-    from svim_tpu_torch.ops import _build, distance_kernel, wavefront_kernel
+    from svim_tpu_torch.ops import (
+        _build,
+        distance_kernel,
+        linkage_kernel,
+        wavefront_kernel,
+    )
 
     started = time.perf_counter()
     host = {}
@@ -179,19 +219,21 @@ def phase_build():
             host["error"] = error
         host["seconds"] = time.perf_counter() - started
 
-    # g++ compiles the host library while the two nvcc processes run
+    # g++ compiles the host library while the three nvcc processes run
     thread = threading.Thread(target=build_host)
     thread.start()
     try:
-        _build.build(("wavefront", "span_distance"))
+        _build.build(_build.KERNEL_SOURCES)
         wavefront_kernel._kernel_library()
         distance_kernel._kernel_library()
-        log("build", "wavefront.cu and span_distance.cu built (in parallel) "
-            "and loaded in {0:.2f}s (nvcc {1}); DPX add-min: {2}".format(
+        slots = linkage_kernel._kernel_library().agglomerate_max_slots()
+        log("build", "{0} built (in parallel) and loaded in {1:.2f}s (nvcc "
+            "{2}); DPX add-min: {3}; agglomeration up to P = {4}".format(
+                ", ".join(name + ".cu" for name in _build.KERNEL_SOURCES),
                 time.perf_counter() - started,
                 json.dumps({name: round(seconds, 2) for name, seconds
                             in _build.BUILD_SECONDS.items()}),
-                wavefront_kernel.uses_dpx()))
+                wavefront_kernel.uses_dpx(), slots))
     finally:
         thread.join()
     if "error" in host:
@@ -273,17 +315,22 @@ def kernel_shapes():
     W=4096 and W=16384 (one CTA per pair, fronts in shared memory), each on
     the code path the wrapper picks (variant None); then one case per code
     path of the kernel: the warp kernel with a ragged last CTA (B not a
-    multiple of the 4 pairs a CTA) at a narrow and at the widest band, and
-    the CTA kernel forced to each of its three layouts at two shapes."""
+    multiple of the 4 pairs a CTA) at a narrow and at the widest band, the
+    shapes of tests/test_torch_wavefront.py's card tests that the list
+    lacked (B = 64 at L, W = 1024, 256; L = 2048), and the CTA kernel forced
+    to each of its three layouts at three shapes (the last one that file's:
+    5 pairs, strings shorter than their rows, W = 300)."""
     shapes = [(batch, length, band, None) for length in (512, 1024)
               for band in (64, 128, 256, 1024) for batch in (8, 1024)]
     shapes += [(8192, 512, 64, None), (8192, 512, 256, None),
                MAIN_SHAPE + (None,), (8, 8192, 4096, None),
                (8, 16384, 16384, None), (2051, 512, 64, None),
-               (2051, 1024, 1024, None), (67, 300, 100, None)]
+               (2051, 1024, 1024, None), (67, 300, 100, None),
+               (64, 1024, 256, None), (8, 2048, 1024, None)]
     shapes += [(batch, length, band, variant)
                for variant in ("cta", "cta_unstaged", "global")
-               for batch, length, band in ((64, 512, 256), (16, 1024, 1024))]
+               for batch, length, band in ((64, 512, 256), (16, 1024, 1024),
+                                           (5, 1024, 300))]
     return shapes
 
 
@@ -343,6 +390,12 @@ def phase_kernels(shapes, dp_samples=64):
     dp_checked = 0
     for batch, length, band, variant in shapes:
         a_codes, a_lens, b_codes, b_lens = _pairs(rng, batch, length)
+        if batch == 5:
+            # strings of at most 600 characters in rows of `length`
+            short = _pairs(rng, batch, 600)
+            a_codes[:], b_codes[:] = 0, 0
+            a_codes[:, :600], b_codes[:, :600] = short[0], short[2]
+            a_lens, b_lens = short[1], short[3]
         if variant is None and batch == 67:
             # empty, one-character and far-apart strings beside the rest
             a_lens[:6] = (0, 0, 1, 1, 2, length)
@@ -356,6 +409,17 @@ def phase_kernels(shapes, dp_samples=64):
                                    1, warm_up=False)
         kernel_ms, kernel = _time_ms(
             lambda: wk.banded_distance_cuda(*tensors, variant=variant), 5)
+        if variant is None:
+            # the dispatcher the main path calls: one launch, the same values
+            before = wk.LAUNCHES
+            routed = wk.banded_distance(*tensors)
+            if wk.LAUNCHES != before + 1 or not torch.equal(routed, kernel):
+                raise AssertionError("banded_distance on CUDA tensors at B={0}"
+                                     " L={1} W={2}: {3} launches, equal to "
+                                     "the wrapper's output: {4}".format(
+                                         batch, length, band,
+                                         wk.LAUNCHES - before,
+                                         torch.equal(routed, kernel)))
         plain = plain.cpu().numpy()
         kernel = kernel.cpu().numpy()
         max_abs_err = max(max_abs_err, int(np.abs(
@@ -397,6 +461,9 @@ def phase_kernels(shapes, dp_samples=64):
                 batch, length, band, path, " (forced)" if variant else "",
                 len(resolved), early, batch - early, kernel_ms, plain_ms,
                 bound_ms, bound_by, cells))
+    if wk.kernel_variant(40000, 40000) != "global":
+        raise AssertionError("a band whose fronts exceed shared memory does "
+                             "not take the global-scratch path")
     if dp_checked < dp_samples:
         raise AssertionError("only {0} resolved entries checked against the "
                              "DP".format(dp_checked))
@@ -518,7 +585,8 @@ def _telemetry():
 
 
 KERNEL_MODULES = {"wavefront_banded_distance": "wavefront_kernel",
-                  "span_distance_matrix": "distance_kernel"}
+                  "span_distance_matrix": "distance_kernel",
+                  "agglomerate": "linkage_kernel"}
 # launch counts of every kernel, per path the smoke drives
 PATH_LAUNCHES = {}
 
@@ -579,21 +647,65 @@ def phase_golden():
     return bam, genome
 
 
-def phase_bench(card, recorder):
+# a workload's maker: svim_tpu_torch.workloads.<name>_workload(directory,
+# reads) in a process of its own
+_MAKER_SCRIPT = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from svim_tpu_torch import workloads
+getattr(workloads, sys.argv[2] + "_workload")(sys.argv[3], int(sys.argv[4]))
+"""
+WORKLOADS = {"bench": BENCH_READS, "tiefree": TIEFREE_READS}
+
+
+def _workload_paths(name):
+    directory = os.path.join(SCRATCH, "{0}{1}".format(name, WORKLOADS[name]))
+    return (directory, os.path.join(directory, name + ".bam"),
+            os.path.join(directory, "genome.fa"))
+
+
+def start_workloads():
+    """Starts the makers of the 8192-read workloads that are not on disk
+    yet.  Each is a minute or more of host Python (record parsing), so they
+    run beside each other and beside the kernel phases.  Returns {name:
+    (process, start time)} for _workload()."""
+    makers = {}
+    for name, reads in WORKLOADS.items():
+        directory, bam, genome = _workload_paths(name)
+        if not (os.path.exists(bam) and os.path.exists(genome)):
+            os.makedirs(directory, exist_ok=True)
+            makers[name] = (subprocess.Popen(
+                [sys.executable, "-c", _MAKER_SCRIPT, ROOT, name, directory,
+                 str(reads)]), time.perf_counter())
+    return makers
+
+
+def _workload(makers, name):
+    """(directory, bam, genome) of a workload: waits for its maker, or
+    makes it here when none was started and it is not on disk."""
+    directory, bam, genome = _workload_paths(name)
+    started = time.perf_counter()
+    if name in makers:
+        process, started = makers.pop(name)
+        if process.wait() != 0:
+            raise RuntimeError("making the {0} workload failed".format(name))
+    elif not (os.path.exists(bam) and os.path.exists(genome)):
+        os.makedirs(directory, exist_ok=True)
+        subprocess.run([sys.executable, "-c", _MAKER_SCRIPT, ROOT, name,
+                        directory, str(WORKLOADS[name])], check=True)
+    else:
+        return directory, bam, genome
+    log(name, "made the {0}-read workload in {1:.1f}s, in a process of its "
+        "own ({2} bytes)".format(WORKLOADS[name],
+                                 time.perf_counter() - started,
+                                 os.path.getsize(bam)))
+    return directory, bam, genome
+
+
+def phase_bench(card, recorder, makers):
     """Returns the bench workload's (bam, genome) and the stage seconds of
     its two runs by edit backend."""
-    from svim_tpu_torch import workloads
-
-    directory = os.path.join(SCRATCH, "bench{0}".format(BENCH_READS))
-    bam = os.path.join(directory, "bench.bam")
-    genome = os.path.join(directory, "genome.fa")
-    if not (os.path.exists(bam) and os.path.exists(genome)):
-        os.makedirs(directory, exist_ok=True)
-        started = time.perf_counter()
-        workloads.bench_workload(directory, BENCH_READS)
-        log("bench", "made the {0}-read workload in {1:.1f}s ({2} bytes)"
-            .format(BENCH_READS, time.perf_counter() - started,
-                    os.path.getsize(bam)))
+    directory, bam, genome = _workload(makers, "bench")
     results = {}
     off_seconds = {}
     for backend in ("wavefront", "auto"):
@@ -613,10 +725,11 @@ def phase_bench(card, recorder):
         calls = _calls_per_class(os.path.join(working_dir, "variants.vcf"))
         results[backend] = (working_dir, launches)
         log("bench", "{0}: wall {1:.2f}s; stages {2}; calls {3}; telemetry "
-            "{4}; wavefront launches {5}; {6:.1f} reads/s through "
-            "COLLECT+CLUSTER on {7}".format(
+            "{4}; wavefront launches {5}, agglomeration launches {8}; "
+            "{6:.1f} reads/s through COLLECT+CLUSTER on {7}".format(
                 backend, wall, json.dumps(seconds), json.dumps(calls),
-                json.dumps(telemetry), launches, rate, card))
+                json.dumps(telemetry), launches, rate, card,
+                PATH_LAUNCHES["bench_" + backend]["agglomerate"]))
         if telemetry != BENCH_TELEMETRY[backend]:
             raise AssertionError("bench slice ({0}) telemetry {1} != "
                                  "svim_tpu's {2}".format(
@@ -624,6 +737,9 @@ def phase_bench(card, recorder):
                                      BENCH_TELEMETRY[backend]))
     if results["wavefront"][1] <= 0:
         raise AssertionError("bench slice launched no wavefront kernel")
+    if PATH_LAUNCHES["bench_wavefront"]["agglomerate"] <= 0:
+        raise AssertionError("bench slice (wavefront) launched no "
+                             "agglomeration kernel on its resident route")
     if _normalized_vcf(os.path.join(results["wavefront"][0], "variants.vcf")) \
             != _normalized_vcf(os.path.join(results["auto"][0],
                                             "variants.vcf")):
@@ -642,6 +758,118 @@ def phase_bench(card, recorder):
     if code != 0:
         raise RuntimeError("recorded bench slice exited with {0}".format(code))
     return bam, genome, off_seconds
+
+
+class RouteCounter:
+    """While active, counts per CLUSTER route (fused, matrix, resident) the
+    partitions whose device labeling was accepted (FallbackTelemetry's
+    `device`, which does not say by which route)."""
+
+    ROUTES = {"fused": "_consume_fused", "matrix": "_consume_matrix",
+              "resident": "_consume_resident"}
+
+    def __init__(self):
+        from svim_tpu_torch.cluster import device_cluster
+
+        self.module = device_cluster
+        self.device = {route: 0 for route in self.ROUTES}
+
+    def _wrap(self, route, original):
+        def counted(*args, **kwargs):
+            before = self.module.TELEMETRY.device
+            results = original(*args, **kwargs)
+            self.device[route] += self.module.TELEMETRY.device - before
+            return results
+        return counted
+
+    def __enter__(self):
+        self.originals = {name: getattr(self.module, name)
+                          for name in self.ROUTES.values()}
+        for route, name in self.ROUTES.items():
+            setattr(self.module, name, self._wrap(route,
+                                                  self.originals[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, original in self.originals.items():
+            setattr(self.module, name, original)
+
+
+def phase_tiefree(card, recorder, makers):
+    """The tie-free workload at TIEFREE_READS reads through the CLI on the
+    card: with --incremental_cluster off and either edit backend the VCF
+    must hash to svim_tpu's, the telemetry and the accepted labelings a
+    route must equal svim_tpu's (TIEFREE_TELEMETRY, TIEFREE_DEVICE_BY_ROUTE:
+    the device decides partitions on the fused and on the matrix route) and
+    the agglomeration kernel must have been launched; a second run a
+    backend is recorded for phase 6; then once at the CLI's defaults (mid-
+    scan clustering): the same VCF.  Returns {path: stage seconds}."""
+    directory, bam, genome = _workload(makers, "tiefree")
+    stage_seconds = {}
+
+    def check_vcf(path, working_dir):
+        digest = _vcf_sha256(working_dir)
+        if digest != TIEFREE_VCF_SHA256:
+            raise AssertionError("{0}: variants.vcf (sha256 {1}) differs "
+                                 "from svim_tpu's".format(path, digest))
+
+    for backend in ("auto", "wavefront"):
+        path = "tiefree_" + backend
+        working_dir = os.path.join(directory, "wd_" + backend)
+        with RouteCounter() as routes:
+            _drive(path, ["alignment", working_dir, bam, genome,
+                          "--edit_backend", backend, "--profile",
+                          "--incremental_cluster", "off"])
+        seconds = stage_seconds[path] = _stage_seconds(working_dir)
+        telemetry = _telemetry()
+        by_route = {route: count for route, count in routes.device.items()
+                    if count}
+        log("tiefree", "{0}, --incremental_cluster off: stages {1}; calls "
+            "{2}; telemetry {3}; labelings accepted by route {4}; launches "
+            "{5}; {6:.1f} reads/s through COLLECT+CLUSTER on {7}".format(
+                backend, json.dumps(seconds), json.dumps(_calls_per_class(
+                    os.path.join(working_dir, "variants.vcf"))),
+                json.dumps(telemetry), json.dumps(by_route),
+                json.dumps(PATH_LAUNCHES[path]),
+                TIEFREE_READS / (seconds["collect"] + seconds["cluster"]),
+                card))
+        check_vcf(path, working_dir)
+        if telemetry != TIEFREE_TELEMETRY[backend]:
+            raise AssertionError("{0} telemetry {1} != svim_tpu's {2}".format(
+                path, telemetry, TIEFREE_TELEMETRY[backend]))
+        if by_route != TIEFREE_DEVICE_BY_ROUTE[backend] \
+                or by_route.get("fused", 0) <= 0 \
+                or (backend == "auto" and by_route.get("matrix", 0) <= 0):
+            raise AssertionError("{0}: labelings accepted by route {1}, "
+                                 "svim_tpu's {2}".format(
+                                     path, by_route,
+                                     TIEFREE_DEVICE_BY_ROUTE[backend]))
+        if telemetry["post_tie"] <= 0:
+            raise AssertionError(path + ": no partition fell to post_tie")
+        if PATH_LAUNCHES[path]["agglomerate"] <= 0:
+            raise AssertionError(path + " launched no agglomeration kernel")
+        with recorder:
+            working_dir = os.path.join(directory, "wd_recorded_" + backend)
+            code = _run_port(["alignment", working_dir, bam, genome,
+                              "--edit_backend", backend,
+                              "--incremental_cluster", "off"])
+        if code != 0:
+            raise RuntimeError("recorded {0} exited with {1}".format(path,
+                                                                     code))
+        check_vcf(path + " (recorded)", working_dir)
+
+    working_dir = os.path.join(directory, "wd_default")
+    _drive("tiefree_default", ["alignment", working_dir, bam, genome,
+                               "--profile"])
+    seconds = stage_seconds["tiefree_default"] = _stage_seconds(working_dir)
+    reused, memoized = _reused(working_dir)
+    check_vcf("tiefree_default", working_dir)
+    log("tiefree", "the CLI's defaults (--incremental_cluster auto): stages "
+        "{0}; {1} of {2} mid-scan partitions reused; telemetry {3}; launches "
+        "{4}; VCF hashes to svim_tpu's, as with auto and wavefront".format(
+            json.dumps(seconds), reused, memoized, json.dumps(_telemetry()),
+            json.dumps(PATH_LAUNCHES["tiefree_default"])))
+    return stage_seconds
 
 
 def _same_linkage(got, want, where):
@@ -717,6 +945,263 @@ def _synthetic_linkage(rng, device):
             1.0), {}
 
 
+# (B, P) at which the agglomeration kernel is timed and its bound stated:
+# full partitions in both pad buckets of the CLUSTER stage
+AGGLOMERATE_SHAPES = ((1024, 128), (1024, 32))
+# 4-byte shared-memory loads the card can do: 32 lanes an SM and clock on
+# 132 SMs at 1.98 GHz (128 bytes an SM and clock)
+SHARED_LOADS_PER_SECOND = 132 * 32 * 1.98e9
+
+
+# operations a cell of the fused entry's distance formula, a division counted
+# as one: two differences and two absolute values, the larger span and its
+# floor of 1, three conversions, two divisions, one sum, the same-read
+# comparison and its select
+AGGLOMERATE_BUILD_OPS_PER_CELL = 14
+
+
+def agglomerate_bound_ms(counts, pad, fused):
+    """The least time the card could take for one agglomeration call whose
+    partitions hold `counts` valid slots.  It is the largest of three times.
+    Bytes: each input read from and each output written to device memory
+    once, over the memory rate.  Shared-memory loads of the cheapest
+    algorithm known for the function, not of the kernel as written: with a
+    minimum kept a row, a step over m live slots reads rows lo and hi (2 m)
+    and reduces m row minima, so a partition of n slots needs
+    3 * sum(m for m in 2..n) loads, about 1.5 n * n and not (n - 1) * P * P.
+    Fused entry only: AGGLOMERATE_BUILD_OPS_PER_CELL operations a cell of
+    the upper triangle (the matrix is symmetric) over the card's issue
+    rate.  Returns (ms, "bytes" or "operations")."""
+    batch = len(counts)
+    counts = [int(count) for count in counts]
+    loads = sum(3 * (n * (n + 1) // 2 - 1) for n in counts if n >= 2)
+    ops_ms = loads / SHARED_LOADS_PER_SECOND * 1e3
+    moved = batch * (12 * (pad - 1) + 4)
+    if fused:
+        moved += batch * (17 * pad + 5) + batch * (pad + 2)
+        cells = sum(n * (n - 1) // 2 for n in counts)
+        ops_ms = max(ops_ms, AGGLOMERATE_BUILD_OPS_PER_CELL * cells
+                     / LANE_INSTRUCTIONS_PER_SECOND * 1e3)
+    else:
+        moved += batch * (4 * pad * pad + pad)
+    bytes_ms = moved / HBM_BYTES_PER_SECOND * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
+def agglomerate_scan_floor_ms(counts, pad):
+    """Not a bound of the function: the floor of the kernel's present design,
+    which rescans the whole P x P matrix in shared memory at each of a
+    partition's n - 1 steps, at the card's shared-memory load rate."""
+    loads = sum(max(int(count) - 1, 0) for count in counts) * pad * pad
+    return loads / SHARED_LOADS_PER_SECOND * 1e3
+
+
+def _fused_inputs(rng, batch, pad, kinds, walls, counts=None, wide=False):
+    """Seeded fused-route inputs in the op's argument order (numpy): the
+    coordinates of _distance_inputs (negative starts, zero and negative
+    spans, repeated read ids) with a destination column; `counts` sets the
+    valid slots a partition (0: a padding partition)."""
+    import numpy as np
+
+    starts, ends, reads, valid = _distance_inputs(rng, batch, pad, wide=wide)
+    if counts is not None:
+        valid = np.arange(pad)[None, :] < np.asarray(counts)[:, None]
+    low, high = (-2**31, 2**31 - 1) if wide else (-5_000, 2_000_000)
+    dest = rng.integers(low, high, size=(batch, pad)).astype(np.int32)
+    return (starts, ends, reads, valid, 900.0, 0.5,
+            np.broadcast_to(np.asarray(walls, dtype=bool), (batch,)).copy(),
+            dest,
+            np.broadcast_to(np.asarray(kinds, dtype=np.int32),
+                            (batch,)).copy())
+
+
+def _matrix_inputs(rng, batch, pad, counts, ties=False):
+    """Seeded symmetric (B, P, P) float32 matrices with `counts` valid slots
+    a partition; with `ties` the distances are a few multiples of 1/8, so
+    that most steps see several equal minima."""
+    import numpy as np
+
+    if ties:
+        points = rng.integers(1, 6, size=(batch, pad, pad)).astype(
+            np.float32) / 8
+    else:
+        points = rng.random((batch, pad, pad), dtype=np.float32)
+    upper = np.triu(points, 1)
+    valid = np.arange(pad)[None, :] < np.asarray(counts)[:, None]
+    return upper + upper.transpose(0, 2, 1), valid
+
+
+def agglomerate_cases(rng):
+    """(label, op name, numpy arguments) of phase 6's kernel comparison,
+    beside the seeded tie-free partitions of _synthetic_linkage and the
+    main path's recorded calls: every distance kind with and without the
+    wall in both pad buckets (negative starts, zero spans), kinds and walls
+    mixed in one batch, coordinates from all of int32 (wrapping sums), 3
+    and 128 valid slots in one call, padding partitions (0 and 1 valid
+    slots), exact-tie matrices (the lowest flat index must win), float64
+    distances (rounded to float32 by the dispatcher), B = 8 and
+    B = 1024, and the two timed shapes with every partition full."""
+    import numpy as np
+
+    fused = "span_position_agglomerate_batched"
+    matrix = "agglomerate_batched"
+    for pad in (32, 128):
+        for kind in (0, 1, 2):
+            for wall in (True, False):
+                yield ("P={0} kind={1} wall={2}".format(pad, kind, wall),
+                       fused, _fused_inputs(rng, 8, pad, kind, wall))
+        mixed = rng.integers(0, 3, size=1024)
+        walls = rng.random(1024) < 0.5
+        yield ("B=1024 P={0} kinds and walls mixed".format(pad), fused,
+               _fused_inputs(rng, 1024, pad, mixed, walls))
+        yield ("B=8 P={0} all of int32".format(pad), fused,
+               _fused_inputs(rng, 8, pad, mixed[:8], walls[:8], wide=True))
+        ragged = [3, pad, 0, 1, 2, pad // 2, 0, pad - 1]
+        yield ("P={0} slots {1}".format(pad, ragged), fused,
+               _fused_inputs(rng, 8, pad, mixed[:8], walls[:8],
+                             counts=ragged))
+        yield ("P={0} slots {1}".format(pad, ragged), matrix,
+               _matrix_inputs(rng, 8, pad, ragged))
+        yield ("P={0} exact ties".format(pad), matrix,
+               _matrix_inputs(rng, 8, pad, ragged, ties=True))
+        # float64 distances: the dispatcher rounds them to float32 on the
+        # card as the plain version does
+        distances, valid = _matrix_inputs(rng, 8, pad, ragged)
+        yield ("P={0} float64 distances".format(pad), matrix,
+               (distances.astype(np.float64) + 1e-9, valid))
+        counts = rng.integers(0, pad + 1, size=1024)
+        yield ("B=1024 P={0} exact ties".format(pad), matrix,
+               _matrix_inputs(rng, 1024, pad, counts, ties=True))
+        yield ("B=1024 P={0}".format(pad), matrix,
+               _matrix_inputs(rng, 1024, pad, counts))
+    for batch, pad in AGGLOMERATE_SHAPES:
+        full = np.full(batch, pad)
+        yield ("timed", matrix, _matrix_inputs(rng, batch, pad, full))
+        # distinct read ids: no slot is dropped, every step is a merge
+        arguments = list(_fused_inputs(rng, batch, pad, 0, True, counts=full))
+        arguments[2] = np.tile(np.arange(pad, dtype=np.int32), (batch, 1))
+        yield ("timed", fused, tuple(arguments))
+
+
+# what _kernel_against_plain has seen: calls compared, and the largest
+# difference between the kernel's and the plain version's heights and gaps
+AGGLOMERATE_CHECK = {"calls": 0, "max_abs_err": 0.0}
+
+
+def _bit_equal(a, b):
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _on_card(arguments):
+    """An op's positional arguments with every array (numpy, or a tensor on
+    any device) as a tensor on the card."""
+    import numpy as np
+    import torch
+
+    return [torch.from_numpy(np.ascontiguousarray(value)).cuda()
+            if isinstance(value, np.ndarray)
+            else value.cuda() if isinstance(value, torch.Tensor) else value
+            for value in arguments]
+
+
+def _kernel_against_plain(name, arguments, where):
+    """One agglomeration op through the kernel and through the plain
+    version, both on the card: every output must be equal bit for bit on
+    every row, accepted by the float32 guard or not.  `arguments` are the
+    op's positional arguments (tensors on any device, or numpy).  Returns
+    the kernel's outputs."""
+    import torch
+
+    from svim_tpu_torch.ops import linkage_kernel
+
+    tensors = _on_card(arguments)
+    before = linkage_kernel.LAUNCHES
+    got = getattr(linkage_kernel, name)(*tensors)
+    if linkage_kernel.LAUNCHES != before + 1:
+        raise AssertionError("{0}: {1} on CUDA tensors launched no kernel"
+                             .format(where, name))
+    want = getattr(linkage_kernel, name + "_plain")(*tensors)
+    torch.cuda.synchronize()
+    AGGLOMERATE_CHECK["calls"] += 1
+    for index, (a, b) in enumerate(zip(got, want)):
+        if a.dtype == torch.float32 and a.numel():
+            AGGLOMERATE_CHECK["max_abs_err"] = max(
+                AGGLOMERATE_CHECK["max_abs_err"],
+                float((a.double() - b.double()).abs().max()))
+        if not _bit_equal(a, b):
+            rows = (a != b).reshape(a.shape[0], -1).any(dim=1)
+            raise AssertionError(
+                "{0}: kernel != plain in output {1} on rows {2}".format(
+                    where, index, torch.nonzero(rows).flatten()[:8].tolist()))
+    if len(got) != len(want):
+        raise AssertionError("{0}: {1} outputs against {2}".format(
+            where, len(got), len(want)))
+    return got
+
+
+def phase_agglomerate():
+    """The kernel half of phase 6 on seeded inputs: csrc/agglomerate.cu
+    against the plain versions on the card (agglomerate_cases), and its
+    time at AGGLOMERATE_SHAPES beside the bound.  Returns {(op name, B, P):
+    (kernel ms, plain ms, bound ms, bound by)}."""
+    import numpy as np
+
+    from svim_tpu_torch.ops import linkage_kernel
+
+    rng = np.random.default_rng(20261020)
+    timings = {}
+    checked = 0
+    for label, name, arguments in agglomerate_cases(rng):
+        batch, pad = arguments[0].shape[:2]
+        where = "{0}, {1}".format(name, label)
+        got = _kernel_against_plain(name, arguments, where)
+        merged = int((got[0] >= 0).sum())
+        checked += 1
+        if label != "timed":
+            log("agglomerate", "{0} B={1}: bit-equal on every row ({2} "
+                "merges, {3} rows pass the float32 guard)".format(
+                    where, batch, merged,
+                    int((got[3] >= linkage_kernel.TIE_EPS).sum())))
+            continue
+        if merged != batch * (pad - 1):
+            raise AssertionError("{0}: {1} merges, not every step of every "
+                                 "partition".format(where, merged))
+        tensors = _on_card(arguments)
+        plain = getattr(linkage_kernel, name + "_plain")
+        kernel = getattr(linkage_kernel, name + "_cuda")
+        plain_ms, _ = _time_ms(lambda: plain(*tensors), 1, warm_up=False)
+        kernel_ms, _ = _time_ms(lambda: kernel(*tensors), 10)
+        fused = name != "agglomerate_batched"
+        counts = tensors[3 if fused else 1].sum(dim=1).tolist()
+        bound_ms, bound_by = agglomerate_bound_ms(counts, pad, fused)
+        timings[(name, batch, pad)] = (kernel_ms, plain_ms, bound_ms,
+                                       bound_by)
+        log("agglomerate", "{0} B={1} P={2}, every partition full: bit-equal;"
+            " kernel {3:.4f} ms, plain {4:.3f} ms, bound {5:.5f} ms by {6} "
+            "(kernel {7:.0f} times its bound; this design's full rescan a "
+            "step cannot go under {8:.4f} ms)".format(
+                name, batch, pad, kernel_ms, plain_ms, bound_ms, bound_by,
+                kernel_ms / bound_ms, agglomerate_scan_floor_ms(counts, pad)))
+    log("agglomerate", "{0} seeded cases: the kernel equals its plain "
+        "version on the card bit for bit".format(checked))
+    return timings
+
+
+def _positional(args, kwargs):
+    """A recorded linkage call's arguments in the op's positional order
+    (the fused op's callers pass dest and kind by name)."""
+    return tuple(args) + tuple(kwargs[name] for name in ("dest", "kind")
+                               if name in kwargs)
+
+
 def _host_labels(matrix, count, threshold):
     """Exact float64 average linkage cut at `threshold` (scipy's rules)."""
     import numpy as np
@@ -739,6 +1224,7 @@ def phase_linkage(recorder):
     if not recorder.calls:
         raise AssertionError("the main path made no linkage op call")
     seen = set()
+    kernel_rows = {}
     max_error = 0.0
     for number, (name, args, kwargs, got, devices) in enumerate(
             recorder.calls):
@@ -752,23 +1238,40 @@ def phase_linkage(recorder):
                                        msg=lambda m: where + ": " + m)
         else:
             max_error = max(max_error, _same_linkage(got, want, where)[1])
+            # the same inputs through the kernel and the plain version on
+            # the card; what the run itself got must be the kernel's output
+            again = _kernel_against_plain(name, _positional(args, kwargs),
+                                          where)
+            if not all(_bit_equal(a.cpu(), b) for a, b in zip(again, got)):
+                raise AssertionError(where + ": the run's outputs differ "
+                                     "from the kernel's on the same inputs")
+            rows = int(args[0].shape[0])
+            kernel_rows[name] = kernel_rows.get(name, 0) + rows
         seen.add(name)
     # partitions resolved on the host at dispatch (telemetry pre_*) never
-    # reach an op: on these workloads no fused-route partition does
+    # reach an op: the fused route's calls come from the tie-free workload
     log("linkage", "{0} main-path calls ({1}) agree with the CPU; not "
-        "called: {2}".format(len(recorder.calls), ", ".join(sorted(seen)),
-                             ", ".join(sorted(set(LINKAGE_OPS) - seen))
-                             or "none"))
+        "called: {2}; kernel equal to its plain version on the card bit for "
+        "bit on every row of every call (rows: {3})".format(
+            len(recorder.calls), ", ".join(sorted(seen)),
+            ", ".join(sorted(set(LINKAGE_OPS) - seen)) or "none",
+            json.dumps(kernel_rows)))
+    missing = set(LINKAGE_OPS) - seen
+    if missing:
+        raise AssertionError("the main path never called {0}".format(
+            sorted(missing)))
 
     rng = np.random.default_rng(20261017)
     threshold = 0.5
     accepted_rows = 0
     for name, args, kwargs in _synthetic_linkage(rng, torch.device("cuda")):
         op = getattr(linkage_kernel, name)
+        where = "synthetic {0}, P={1}".format(name, args[0].shape[1])
+        if name != "ins_matrices_from_pairs":
+            _kernel_against_plain(name, _positional(args, kwargs), where)
         got = _to_cpu(op(*args, **kwargs))
         args, kwargs = _to_cpu(args), _to_cpu(kwargs)
         want = op(*args, **kwargs)
-        where = "synthetic {0}, P={1}".format(name, args[0].shape[1])
         if name == "ins_matrices_from_pairs":
             torch.testing.assert_close(got, want, rtol=1e-6, atol=0,
                                        msg=lambda m: where + ": " + m)
@@ -913,6 +1416,80 @@ def distance_cases(rng):
     return built
 
 
+# the shapes and forced paths that tests/test_torch_distance.py's card test
+# crosses with every norm of _distance_norms()
+DISTANCE_CROSS_SHAPES = (
+    (1, 30, None), (133, 30, None), (133, 64, None), (3, 256, None),
+    (64, 128, "scalar"), (64, 64, "vector"), (1057, 30, None),
+    (2113, 64, None), (1, 6000, None), (2, 5121, None), (300, 256, None))
+
+
+def _distance_norms():
+    """900, norms below and above the range [2^-40, 2^40] in which the
+    kernel divides by its own written-out sequence, 1, 3, a negative one,
+    the edges of the range, their negatives and their neighbours."""
+    import numpy as np
+
+    low, high = np.float32(2.0 ** -40), np.float32(2.0 ** 40)
+    return [900.0, 1e-13, 1e13, 1.0, 3.0, -900.0, float(low), float(high),
+            -float(low), -float(high)] + [
+        float(np.nextafter(edge, toward)) for edge, toward in (
+            (low, np.float32(0)), (low, np.float32(1)),
+            (high, np.float32(1)), (high, np.float32(np.inf)))]
+
+
+def _distance_cross(rng):
+    """The card tests of tests/test_torch_distance.py that phase 7's list
+    does not hold (that file cannot run where there is no jax): through the
+    dispatcher, one launch a call, at (8, 32), (1024, 128) and (5, 200) with
+    coordinates from all of int32, with and without the wall; and every
+    shape of DISTANCE_CROSS_SHAPES with every norm, once with a ragged
+    number of valid slots (one partition with none) and once with every
+    slot valid.  One call each, untimed.  Returns the number of
+    comparisons."""
+    import numpy as np
+    import torch
+
+    from svim_tpu_torch.ops import distance_kernel as dk
+
+    def compare(got, want, where):
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError("distance kernel != plain, " + where)
+
+    compared = 0
+    for batch, pad in ((8, 32), (1024, 128), (5, 200)):
+        tensors = [torch.from_numpy(x).cuda()
+                   for x in _distance_inputs(rng, batch, pad, wide=True)]
+        for wall in (True, False):
+            before = dk.LAUNCHES
+            got = dk.span_position_matrix(*tensors, 900.0,
+                                          wall_same_read=wall)
+            if dk.LAUNCHES != before + 1:
+                raise AssertionError("span_position_matrix on CUDA tensors "
+                                     "launched no kernel")
+            compare(got, dk.span_position_matrix_torch(
+                *tensors, 900.0, wall_same_read=wall),
+                "dispatcher B={0} P={1} wall={2}".format(batch, pad, wall))
+            compared += 1
+    for batch, pad, variant in DISTANCE_CROSS_SHAPES:
+        starts, ends, reads, valid = _distance_inputs(rng, batch, pad,
+                                                      wide=True)
+        valid[batch // 2] = False
+        for slots in (valid, np.ones_like(valid)):
+            tensors = [torch.from_numpy(x).cuda()
+                       for x in (starts, ends, reads, slots)]
+            for norm in _distance_norms():
+                compare(dk.span_position_matrix_cuda(*tensors, norm,
+                                                     variant=variant),
+                        dk.span_position_matrix_torch(*tensors, norm),
+                        "B={0} P={1} variant={2} norm={3!r} every slot "
+                        "valid={4}".format(batch, pad, variant, norm,
+                                           bool(slots.all())))
+                compared += 1
+    torch.cuda.synchronize()
+    return compared
+
+
 def phase_distance():
     """Phase 7: the distance kernel against its plain version, bit for
     bit.  Returns
@@ -954,6 +1531,13 @@ def phase_distance():
                     batch, pad, wall,
                     " forced " + json.dumps(forced) if forced else "",
                     int((kernel < dk.BIG).sum()), kernel_ms, plain_ms))
+    started = time.perf_counter()
+    compared = _distance_cross(rng)
+    log("distance", "{0} more comparisons bit-equal in {1:.1f}s: the "
+        "dispatcher with coordinates from all of int32, and {2} shapes and "
+        "forced paths x {3} norms x ragged and full validity".format(
+            compared, time.perf_counter() - started,
+            len(DISTANCE_CROSS_SHAPES), len(_distance_norms())))
     return timings, max_abs_err
 
 
@@ -1562,13 +2146,25 @@ def phase_shards(bench_bam, bench_genome):
 def main():
     sys.path.insert(0, ROOT)
     card = phase_environment()
+    makers = start_workloads()
+    try:
+        run_phases(card, makers)
+    finally:
+        for process, _started in makers.values():
+            process.kill()
+            process.wait()
+
+
+def run_phases(card, makers):
     phase_build()
     timings, max_abs_err = phase_kernels(kernel_shapes())
     recorder = LinkageRecorder()
     with recorder:
         golden_bam, golden_genome = phase_golden()
-    bench_bam, bench_genome, off_seconds = phase_bench(card, recorder)
+    bench_bam, bench_genome, off_seconds = phase_bench(card, recorder, makers)
+    phase_tiefree(card, recorder, makers)
     phase_linkage(recorder)
+    agglomerate_timings = phase_agglomerate()
     distance_timings, distance_err = phase_distance()
     phase_streaming(card, bench_bam, bench_genome, golden_bam, golden_genome)
     phase_inputs(golden_bam, golden_genome)
@@ -1594,10 +2190,13 @@ def main():
         DISTANCE_MAIN_SHAPE + (True,)]
     distance_bound_ms, distance_bound_by = distance_bound_ms_of(
         *DISTANCE_MAIN_SHAPE)
-    # library_ms is null for both: PyTorch has no call that computes a
-    # banded Levenshtein distance, nor one for this pairwise distance with
-    # its same-read wall (torch.cdist has neither the two quotients nor the
-    # wall)
+    (agglomerate_ms, agglomerate_plain_ms, agglomerate_bound,
+     agglomerate_bound_by) = agglomerate_timings[
+        ("span_position_agglomerate_batched",) + AGGLOMERATE_SHAPES[0]]
+    # library_ms is null for all three: PyTorch has no call that computes a
+    # banded Levenshtein distance, none for this pairwise distance with its
+    # same-read wall (torch.cdist has neither the two quotients nor the
+    # wall), and no hierarchical clustering
     print(json.dumps({"kernels": [{
         "name": "wavefront_banded_distance", "route": "cuda",
         "source": "svim_tpu_torch/csrc/wavefront.cu",
@@ -1617,7 +2216,21 @@ def main():
         "max_abs_err": distance_err, "ms": distance_ms,
         "plain_ms": distance_plain_ms, "bound_ms": distance_bound_ms,
         "bound_by": distance_bound_by, "library_ms": None,
-        "shape": "B={0},P={1},wall".format(*DISTANCE_MAIN_SHAPE)}]}))
+        "shape": "B={0},P={1},wall".format(*DISTANCE_MAIN_SHAPE)}, {
+        "name": "agglomerate", "route": "cuda",
+        "source": "svim_tpu_torch/csrc/agglomerate.cu",
+        "replaces": "svim_tpu/ops/linkage_kernel.py:51",
+        "launches": PATH_LAUNCHES["tiefree_auto"]["agglomerate"],
+        "launches_by_path": by_path("agglomerate"),
+        "max_abs_err": AGGLOMERATE_CHECK["max_abs_err"],
+        "compared_calls": AGGLOMERATE_CHECK["calls"], "ms": agglomerate_ms,
+        "plain_ms": agglomerate_plain_ms, "bound_ms": agglomerate_bound,
+        "bound_by": agglomerate_bound_by, "library_ms": None,
+        "shape": "fused entry, B={0},P={1}, every partition full".format(
+            *AGGLOMERATE_SHAPES[0]),
+        "by_shape": {"{0} B={1} P={2}".format(*key): dict(zip(
+            ("ms", "plain_ms", "bound_ms", "bound_by"), value))
+            for key, value in agglomerate_timings.items()}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

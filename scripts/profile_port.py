@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Stage seconds and device busy time of the PyTorch/CUDA port on the
-bench workload, on one NVIDIA card.
+bench or the tie-free workload, on one NVIDIA card.
 
     python3 scripts/profile_port.py [--root DIR] [--work DIR] [--reads 8192]
-        [--edit_backend wavefront] [--incremental_cluster auto|off]
-        [--batch_reads 4096] [--runs 3] [--label NAME] [--host_top N]
+        [--workload bench|tiefree] [--edit_backend wavefront]
+        [--incremental_cluster auto|off] [--batch_reads 4096] [--runs 3]
+        [--label NAME] [--host_top N]
 
-Runs `svim_tpu_torch alignment --profile` on the bench workload of
-svim_tpu_torch/workloads.py (made once under --work, reused by later
-calls): one warm-up run, `--runs` untraced runs whose stage seconds are
+Runs `svim_tpu_torch alignment --profile` on a workload of
+svim_tpu_torch/workloads.py (`bench`: every partition resolved on the host;
+`tiefree`: most partitions labelled by the device; made once under --work
+by this script's own checkout, reused by later calls): one warm-up run, `--runs` untraced runs whose stage seconds are
 host wall clock, then one run under torch.profiler whose device times are
 summed by kernel name (device busy = every kernel and copy on the card;
 the traced run's stage seconds are inflated by the tracing and are not
@@ -22,7 +24,9 @@ the card's name and power limit, then one JSON object.
 
 --root is the checkout whose svim_tpu_torch is measured (default: the one
 this script lies in), so two checkouts can be compared within one call on
-one card by running the script once per --root with the same --work.
+one card by running the script once per --root with the same --work.  The
+workload is always written by this script's checkout (in a process of its
+own), so a --root from before a workload existed can be timed on it.
 """
 
 import argparse
@@ -63,6 +67,8 @@ def main():
     parser.add_argument("--work", default=os.path.join(
         here, "svim_tpu_torch", "_build", "profile"))
     parser.add_argument("--reads", type=int, default=8192)
+    parser.add_argument("--workload", default="bench",
+                        choices=("bench", "tiefree"))
     parser.add_argument("--edit_backend", default="wavefront")
     parser.add_argument("--incremental_cluster", default="auto",
                         choices=("auto", "off"))
@@ -84,20 +90,28 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    from svim_tpu_torch import cli, workloads
-    from svim_tpu_torch.ops import wavefront_kernel
+    from svim_tpu_torch import cli
+    from svim_tpu_torch.ops import linkage_kernel, wavefront_kernel
 
-    directory = os.path.join(args.work, "bench{0}".format(args.reads))
-    bam = os.path.join(directory, "bench.bam")
+    directory = os.path.join(args.work, "{0}{1}".format(args.workload,
+                                                        args.reads))
+    bam = os.path.join(directory, args.workload + ".bam")
     genome = os.path.join(directory, "genome.fa")
     if not (os.path.exists(bam) and os.path.exists(genome)):
         os.makedirs(directory, exist_ok=True)
-        workloads.bench_workload(directory, args.reads)
+        subprocess.run(
+            [sys.executable, "-c",
+             "import sys; sys.path.insert(0, sys.argv[1]); "
+             "from svim_tpu_torch import workloads; "
+             "getattr(workloads, sys.argv[2] + '_workload')(sys.argv[3], "
+             "int(sys.argv[4]))", here, args.workload, directory,
+             str(args.reads)], check=True)
 
     def run(tag):
         working_dir = os.path.join(directory, "wd_{0}_{1}".format(
             args.label or "run", tag))
         wavefront_kernel.LAUNCHES = 0
+        linkage_kernel.LAUNCHES = 0
         started = time.perf_counter()
         code = cli.main(["alignment", working_dir, bam, genome,
                          "--edit_backend", args.edit_backend, "--profile",
@@ -118,6 +132,7 @@ def main():
                          "reads_per_s": args.reads / (seconds["collect"]
                                                       + seconds["cluster"]),
                          "wavefront_launches": wavefront_kernel.LAUNCHES,
+                         "agglomerate_launches": linkage_kernel.LAUNCHES,
                          "reused_of_memoized": _reused(working_dir)})
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -151,13 +166,17 @@ def main():
             "calls": value[1], "own_s": value[2], "cumulative_s": value[3]}
             for key, value in ranked[:args.host_top]]
     print(json.dumps({
-        "label": args.label, "card": card, "reads": args.reads,
+        "label": args.label, "card": card, "workload": args.workload,
+        "reads": args.reads,
         "edit_backend": args.edit_backend,
         "incremental_cluster": args.incremental_cluster,
         "batch_reads": args.batch_reads, "untraced_runs": untraced,
         "traced_wall_s": traced_wall, "device_busy_s": busy,
         "wavefront_kernel_s": sum(seconds for name, seconds in by_name.items()
                                   if "wavefront" in name),
+        "agglomerate_kernel_s": sum(seconds for name, seconds
+                                    in by_name.items()
+                                    if "agglomerate" in name),
         "device_seconds_by_name": dict(top), "host_top": host_top}),
         flush=True)
 

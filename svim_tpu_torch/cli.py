@@ -396,12 +396,17 @@ def run_pipeline(options, device):
     if timer.enabled:
         # unrounded, for scripts that read the log (chip_smoke.py)
         from svim_tpu_torch.cluster.device_cluster import TELEMETRY
-        from svim_tpu_torch.ops import distance_kernel, wavefront_kernel
+        from svim_tpu_torch.ops import (
+            distance_kernel,
+            linkage_kernel,
+            wavefront_kernel,
+        )
 
         logging.info("Stage seconds: %s", json.dumps(timer.durations))
         logging.info("Kernel launches: %s", json.dumps({
             "wavefront_banded_distance": wavefront_kernel.LAUNCHES,
-            "span_distance_matrix": distance_kernel.LAUNCHES}))
+            "span_distance_matrix": distance_kernel.LAUNCHES,
+            "agglomerate": linkage_kernel.LAUNCHES}))
         logging.info("Cluster telemetry: %s", json.dumps(
             dict(TELEMETRY.as_dict(), eligible=TELEMETRY.eligible)))
         if options.distributed:

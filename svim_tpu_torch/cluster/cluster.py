@@ -621,3 +621,13 @@ def _consolidate_typed(clusters, partitions, type):
         return consolidate_clusters_bilocal(clusters)
     logging.error("Unknown parameter type={0} to function partition_and_cluster.".format(type))
     return None
+
+
+def partition_and_cluster(signatures, options, type, device):
+    """Full per-type clustering pipeline over a flat signature list
+    (SVIM_clustering.py:375-386), on a batcher of its own on `device`."""
+    partitions = form_partitions(signatures, options.partition_max_distance)
+    with FastaFile(options.genome) as reference:
+        clusters = clusters_from_partitions(partitions, reference, options,
+                                            device)
+    return _consolidate_typed(clusters, partitions, type)

@@ -78,17 +78,18 @@ def _decompress_window(data, blocks, prefix=b"") -> bytes:
     """Inflate a BGZF block range into a buffer that starts with `prefix`
     (the carried partial record from the previous window) — one small
     prefix copy instead of concatenating carry + the whole inflated
-    window."""
+    window.  The native inflate returns None for a window it cannot take
+    (a member it does not parse, a corrupt payload); only then does gzip
+    inflate it, and raise on corrupt data.  A native library that fails to
+    build or load raises here."""
+    from svim_tpu_torch import native
+
     start = blocks[0][0]
     end = blocks[-1][0] + blocks[-1][1]
     window = bytes(data[start:end])
-    try:
-        from svim_tpu_torch import native
-        out = native.bgzf_decompress_with_prefix(window, prefix)
-        if out is not None:
-            return out
-    except Exception:
-        pass
+    out = native.bgzf_decompress_with_prefix(window, prefix)
+    if out is not None:
+        return out
     return prefix + gzip.decompress(window)
 
 

@@ -11,8 +11,10 @@ Counterpart of svim_tpu/native (the same sources, with the `#include
 
 The library is built at first use into `svim_tpu_torch/_build/`
 (git-ignored), keyed by a hash of the sources and the flags like the CUDA
-kernels (ops/_build.py).  There is no Python stand-in for the scan session:
-`get_library` raises when g++ is missing or the build fails.
+kernels (ops/_build.py).  Nothing here has a Python stand-in: `get_library`
+raises when g++ is missing or the build fails and never returns None, so a
+None from a function below always speaks of its input (not BGZF, corrupt,
+nothing to do), never of the library.
 """
 
 from __future__ import annotations
@@ -210,7 +212,8 @@ def _buffer_arg(buffer):
 
 
 class aligner:
-    """Namespace mirroring the Python fallback API in combine.consensus."""
+    """Namespace of the alignment and edit-distance calls that
+    combine.consensus and cluster.accel make."""
 
     MATCH = 2.0
     MISMATCH = -4.0
@@ -229,8 +232,6 @@ class aligner:
         """Two-piece-affine global alignment; DPs over `full_dp_cells` run
         the banded corridor with band doubling (gotoh_align_auto)."""
         lib = get_library()
-        if lib is None:
-            raise RuntimeError("native library unavailable")
         if full_dp_cells is None:
             full_dp_cells = aligner.FULL_DP_CELLS_AUTO
         la, lb = len(a), len(b)
@@ -256,8 +257,6 @@ class aligner:
     def edit_distance(a: str, b: str) -> int:
         """Output-sensitive exact Levenshtein (banded + doubling)."""
         lib = get_library()
-        if lib is None:
-            raise RuntimeError("native library unavailable")
         a_bytes = a.encode()
         b_bytes = b.encode()
         return int(lib.edit_distance_fast(a_bytes, len(a_bytes),
@@ -273,8 +272,6 @@ class aligner:
         import numpy as np
 
         lib = get_library()
-        if lib is None:
-            raise RuntimeError("native library unavailable")
         if not pairs:
             return []
         if n_threads <= 0:
@@ -327,8 +324,6 @@ class aligner:
         import numpy as np
 
         lib = get_library()
-        if lib is None:
-            raise RuntimeError("native library unavailable")
         n_pairs = len(pair_a)
         if n_pairs == 0:
             return []
@@ -351,8 +346,6 @@ class aligner:
     def edit_distance_full(a: str, b: str) -> int:
         """Unbanded Myers bit-parallel recurrence (validation oracle)."""
         lib = get_library()
-        if lib is None:
-            raise RuntimeError("native library unavailable")
         a_bytes = a.encode()
         b_bytes = b.encode()
         return int(lib.myers_distance(a_bytes, len(a_bytes), b_bytes, len(b_bytes)))
@@ -379,10 +372,10 @@ def poa_consensus_native(sequences, max_cells: int = POA_MAX_CELLS,
     ones (long insertion clusters with many members — the reference handles
     10 kb haplotypes, SVIM_COMBINE.py:202) run a banded graph alignment with
     band doubling, so the former hard cell cap no longer forces the star-MSA
-    fallback.  Returns the consensus string, or None when the native library
-    is unavailable or even the banded DP exceeds `max_cells`."""
+    fallback.  Returns the consensus string, or None when there is no
+    sequence or even the banded DP exceeds `max_cells`."""
     lib = get_library()
-    if lib is None or not sequences:
+    if not sequences:
         return None
     blob = "".join(sequences).encode()
     lens = (ctypes.c_int64 * len(sequences))(*[len(s) for s in sequences])
@@ -401,10 +394,10 @@ def star_polish_native(sequences, center: str):
     """One consensus polish round: align every sequence to `center` and
     re-vote columns + insertion blocks, entirely in C++ (native twin of
     combine/consensus._star_consensus(center=...); differential test pins
-    byte equality).  Returns the refined consensus, or None when the native
-    library is unavailable."""
+    byte equality).  Returns the refined consensus, or None when there is
+    nothing to polish or the native call reports a failure."""
     lib = get_library()
-    if lib is None or not sequences or not center:
+    if not sequences or not center:
         return None
     blob = "".join(sequences).encode()
     lens = (ctypes.c_int64 * len(sequences))(*[len(s) for s in sequences])
@@ -427,12 +420,12 @@ def bam_carve_window(buffer: bytes, start: int, min_mapq: int, max_records: int)
     """Carve filtered record descriptors from a decompressed window.
 
     Returns (columns dict of numpy arrays sized to the record count,
-    consumed offset, exhausted flag) or None when the library is
-    unavailable."""
+    consumed offset, exhausted flag), or None when `max_records` is not
+    positive."""
     import numpy as np
 
     lib = get_library()
-    if lib is None or max_records <= 0:
+    if max_records <= 0:
         return None
     columns = {
         "rec_off": np.empty(max_records, dtype=np.int64),
@@ -517,8 +510,6 @@ def bam_scan_fused_window(compressed: bytes, prefix=b"", walk_start: int = -1,
     ..., counted=(n, max_ops, body_offset), body_offset=body_offset) on the
     SAME thread memcpys the rows from the cached offsets/compaction arena."""
     lib = get_library()
-    if lib is None:
-        return None
     if n_threads <= 0:
         n_threads = max(1, min(8, available_cores() or 1) - 1)
     total = lib.bgzf_uncompressed_size(compressed, len(compressed))
@@ -562,8 +553,6 @@ def bgzf_decompress_with_prefix(data: bytes, prefix=b"", n_threads: int = 0):
     workers.  mmap slices return real bytes, so downstream decode()/find()
     consumers are unaffected.  Returns the buffer or None."""
     lib = get_library()
-    if lib is None:
-        return None
     if n_threads <= 0:
         n_threads = min(8, available_cores() or 1)
     total = lib.bgzf_uncompressed_size(data, len(data))
@@ -587,11 +576,8 @@ def bgzf_decompress_with_prefix(data: bytes, prefix=b"", n_threads: int = 0):
 
 def bgzf_decompress_parallel(data: bytes, n_threads: int = 0):
     """Multithreaded BGZF inflate (htslib-style block parallelism).
-    Returns bytes, or None when the native library is unavailable or the
-    stream is not BGZF."""
+    Returns bytes, or None when the stream is not BGZF."""
     lib = get_library()
-    if lib is None:
-        return None
     if n_threads <= 0:
         n_threads = min(8, available_cores() or 1)
     total = lib.bgzf_uncompressed_size(data, len(data))
@@ -662,14 +648,12 @@ def bam_scan_fused(compressed: bytes, min_mapq: int, min_sv_size: int = 0,
     """Inflate a BGZF BAM stream AND count passing records in one fused
     native pass (the count walk chases the inflate frontier, so it costs no
     extra wall time).  Returns (data bytearray, (n, max_ops, body_offset)) or
-    None when the library is unavailable / the stream is not BGZF BAM.
+    None when the stream is not BGZF BAM.
 
     A following bamscan_native(data, ..., counted=...) on the SAME thread
     skips its bam_count pass, and bam_fill reuses the cached record offsets.
     """
     lib = get_library()
-    if lib is None:
-        return None
     if n_threads <= 0:
         n_threads = _scan_workers(reserve=1)
     total = lib.bgzf_uncompressed_size(compressed, len(compressed))
@@ -694,12 +678,12 @@ def cigar_compact_rows(buffer, cigar_off, n_cigar, min_sv_size: int,
                        bucket_size_fn):
     """Batch CIGAR compaction over raw BAM bytes: two native passes (counts,
     then fill into a bucket-padded batch).  Returns the (N, K) int32 array or
-    None when the library is unavailable or compaction would not shrink the
+    None when compaction is off or would not shrink the
     batch below the raw bucket."""
     import numpy as np
 
     lib = get_library()
-    if lib is None or min_sv_size <= 0:
+    if min_sv_size <= 0:
         return None
     n = len(cigar_off)
     if n == 0:
@@ -728,7 +712,7 @@ def bamscan_native(data: bytes, min_mapq: int, bucket_size_fn,
                    min_sv_size: int = 0, counted=None, n_threads: int = 0,
                    body_offset=None, size=None):
     """Scan uncompressed BAM bytes natively.  Returns the same tuple layout as
-    the Python scanner core, or None when the library is unavailable.
+    the record-based scanner core.
 
     size: usable byte count of `data` when it is a POOLED buffer whose
     capacity exceeds the stream (bam_scan_fused_window's out_size) — without
@@ -746,8 +730,6 @@ def bamscan_native(data: bytes, min_mapq: int, bucket_size_fn,
     import numpy as np
 
     lib = get_library()
-    if lib is None:
-        return None
     if size is None:
         size = len(data)
     if body_offset is None:
@@ -842,8 +824,6 @@ class BamScanSession:
     def __init__(self, compressed: bytes, min_mapq: int, min_sv_size: int = 0,
                  n_threads: int = 0, walk_start: int = -1, walk_end: int = -1):
         lib = get_library()
-        if lib is None:
-            raise RuntimeError("native library unavailable")
         total = lib.bgzf_uncompressed_size(compressed, len(compressed))
         if total <= 0:
             raise ValueError("not a BGZF BAM stream")

@@ -25,6 +25,10 @@ BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
+# every kernel source of the port: build(KERNEL_SOURCES) compiles them side
+# by side (chip_smoke.py does, so that its build costs one nvcc's time)
+KERNEL_SOURCES = ("wavefront", "span_distance", "agglomerate")
+
 _lock = threading.Lock()
 _libraries = {}
 BUILD_SECONDS = {}   # source name -> seconds spent in nvcc by this process

@@ -1,10 +1,26 @@
-"""Batched average-linkage agglomeration over padded partitions (PyTorch).
+"""Batched average-linkage agglomeration over padded partitions.
 
-Counterpart of svim_tpu/ops/linkage_kernel.py (plain PyTorch; a hand kernel
-for the agglomeration loop is later work).  Each partition is a fixed
-(P, P) float32 distance matrix (P in {32, 128}); the batch dimension is
-written out where the JAX package used vmap, and the P-1 argmin+update
-steps run as a Python loop of `max(valid count) - 1` steps.
+Counterpart of svim_tpu/ops/linkage_kernel.py.  Each partition is a fixed
+(P, P) float32 distance matrix (P in {32, 128}), given (matrix route) or
+built from integer coordinate columns (fused route), and P-1 dependent
+argmin+update steps turn it into a merge sequence.
+
+Three layers for each of the two entry points, on the pattern of
+ops/wavefront_kernel.py and ops/distance_kernel.py:
+  * `agglomerate_batched_plain`, `span_position_agglomerate_batched_plain`
+    - the plain PyTorch versions: the batch dimension written out where the
+    JAX package used vmap, the steps a Python loop of `max(valid count) -
+    1` rounds of torch ops.  They run on any device and equal the JAX
+    package's outputs bit for bit on the CPU.
+  * `agglomerate_batched_cuda`, `span_position_agglomerate_batched_cuda` -
+    the wrappers of the hand-written CUDA kernel (csrc/agglomerate.cu: one
+    CTA a partition, the matrix resident in shared memory for all its
+    steps, each partition running its own step count), bit-identical to the
+    plain versions, counted in `LAUNCHES`.
+  * `agglomerate_batched`, `span_position_agglomerate_batched` - the
+    dispatchers the CLUSTER stage calls: CPU tensors take the plain
+    version, CUDA tensors the kernel.  Nothing falls back: a kernel that
+    fails to build or to launch raises.
 
 Outputs match the JAX kernels: the merge sequence (slot pairs + heights)
 and the minimum relative tie gap, from which the host rebuilds scipy's Z
@@ -12,6 +28,8 @@ and cuts it with fcluster (device_cluster.labels_from_merges).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -30,6 +48,8 @@ BND_RECIPROCAL = float(np.float32(1.0) / np.float32(BND_NORM))
 KIND_SPAN_POSITION = 0   # DEL / INV / DUP_TAN  (SVIM_clustering.py:48-63)
 KIND_DUP_INT = 1         # source center + destination start + span (:78-86)
 KIND_BND = 2             # (|pos1 delta| + |pos2 delta|) / 3000 (:87-94)
+
+LAUNCHES = 0   # kernel launches by the two *_cuda wrappers
 
 
 def _scalar(value, like):
@@ -129,7 +149,7 @@ def _steps(valid) -> int:
     return max(int(valid.sum(dim=1).max()) - 1, 0)
 
 
-def agglomerate_batched(distances, valid):
+def agglomerate_batched_plain(distances, valid):
     """(B, P, P) float32 distances + (B, P) bool valid -> per-partition merge
     sequences (merge_lo, merge_hi, heights: (B, P-1)) and min relative tie
     gap (B,).  Invalid slots never participate."""
@@ -230,8 +250,9 @@ def _span_position_fused(starts, ends, dest, reads, valid, norm, threshold,
     return d, dropped, has_wall, dedup_ambiguous
 
 
-def span_position_agglomerate_batched(starts, ends, reads, valid, norm,
-                                      threshold, wall_same_read, dest, kind):
+def span_position_agglomerate_batched_plain(starts, ends, reads, valid, norm,
+                                            threshold, wall_same_read, dest,
+                                            kind):
     """(B, P) int32 coordinate batch -> per-partition merge sequences plus
     dedup/diagnostic outputs: (merges_lo, merges_hi, heights, min_gap,
     dropped, has_wall, dedup_ambiguous).
@@ -247,3 +268,170 @@ def span_position_agglomerate_batched(starts, ends, reads, valid, norm,
     merges_lo, merges_hi, heights, min_gap = _agglomerate(d, _steps(valid))
     return (merges_lo, merges_hi, heights, min_gap, dropped, has_wall,
             dedup_ambiguous)
+
+
+# --- the hand-written kernel (csrc/agglomerate.cu) ----------------------------
+
+_library = None
+
+
+def _kernel_library():
+    global _library
+    if _library is None:
+        from svim_tpu_torch.ops._build import load
+
+        library = load("agglomerate")
+        pointer = ctypes.c_void_p
+        library.agglomerate_max_slots.argtypes = []
+        library.agglomerate_max_slots.restype = ctypes.c_int
+        library.agglomerate_matrix.argtypes = (
+            [pointer, pointer, ctypes.c_int, ctypes.c_int] + [pointer] * 5)
+        library.agglomerate_matrix.restype = ctypes.c_int
+        library.agglomerate_fused.argtypes = (
+            [pointer] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                             ctypes.c_float] + [pointer] * 8)
+        library.agglomerate_fused.restype = ctypes.c_int
+        _library = library
+    return _library
+
+
+def _checked(tensors, device):
+    """Raises unless every (name, tensor, dtype, shape) is a contiguous
+    tensor of that dtype and shape on `device`."""
+    for name, tensor, dtype, shape in tensors:
+        if tensor.device != device:
+            raise ValueError("{0} is on {1}, expected {2}".format(
+                name, tensor.device, device))
+        if tensor.dtype != dtype or tuple(tensor.shape) != shape:
+            raise ValueError("{0} must be a {1} {2} tensor, got {3} {4}"
+                             .format(name, shape, dtype,
+                                     tuple(tensor.shape), tensor.dtype))
+        if not tensor.is_contiguous():
+            raise ValueError("{0} must be contiguous".format(name))
+
+
+def _merge_outputs(batch, p, device):
+    """Uninitialised (merges_lo, merges_hi, heights, min_gap): the kernel
+    writes every element."""
+    return (torch.empty((batch, p - 1), dtype=torch.int32, device=device),
+            torch.empty((batch, p - 1), dtype=torch.int32, device=device),
+            torch.empty((batch, p - 1), dtype=torch.float32, device=device),
+            torch.empty((batch,), dtype=torch.float32, device=device))
+
+
+def _check_slots(library, p):
+    if not 2 <= p <= library.agglomerate_max_slots():
+        raise ValueError("the agglomeration kernel takes 2 <= P <= {0} slots "
+                         "(a partition's matrix stays in one CTA's shared "
+                         "memory), got P={1}".format(
+                             library.agglomerate_max_slots(), p))
+
+
+def _launched(code):
+    global LAUNCHES
+    if code != 0:
+        raise RuntimeError("agglomeration kernel launch failed: CUDA error "
+                           "{0}".format(code))
+    LAUNCHES += 1
+
+
+def agglomerate_batched_cuda(distances, valid):
+    """agglomerate_batched on the card through csrc/agglomerate.cu.
+
+    distances: (B, P, P) float32 contiguous CUDA tensor; valid: (B, P) bool
+    on the same device.  Returns (merges_lo, merges_hi, heights, min_gap)
+    on that device, equal to agglomerate_batched_plain bit for bit.  One
+    launch, no host synchronisation."""
+    device = distances.device
+    if device.type != "cuda":
+        raise ValueError("agglomerate_batched_cuda needs CUDA tensors")
+    if distances.dim() != 3 or distances.shape[1] != distances.shape[2]:
+        raise ValueError("distances must be (B, P, P), got {0}".format(
+            tuple(distances.shape)))
+    batch, p, _ = distances.shape
+    _checked((("distances", distances, torch.float32, (batch, p, p)),
+              ("valid", valid, torch.bool, (batch, p))), device)
+    library = _kernel_library()
+    _check_slots(library, p)
+    outputs = _merge_outputs(batch, p, device)
+    if batch == 0:
+        return outputs
+    with torch.cuda.device(device):
+        _launched(library.agglomerate_matrix(
+            distances.data_ptr(), valid.data_ptr(), batch, p,
+            *(tensor.data_ptr() for tensor in outputs),
+            torch.cuda.current_stream(device).cuda_stream))
+    return outputs
+
+
+def span_position_agglomerate_batched_cuda(starts, ends, reads, valid, norm,
+                                           threshold, wall_same_read, dest,
+                                           kind):
+    """span_position_agglomerate_batched on the card through
+    csrc/agglomerate.cu: the distance matrices are built in shared memory
+    and never reach device memory.
+
+    starts, ends, reads, dest: (B, P) int32 contiguous CUDA tensors; valid:
+    (B, P) bool; wall_same_read: (B,) bool; kind: (B,) int32; norm and
+    threshold: numbers, rounded to float32.  Returns the seven outputs of
+    span_position_agglomerate_batched_plain, bit for bit.  One launch, no
+    host synchronisation."""
+    device = starts.device
+    if device.type != "cuda":
+        raise ValueError("span_position_agglomerate_batched_cuda needs CUDA "
+                         "tensors")
+    if starts.dim() != 2:
+        raise ValueError("starts must be (B, P), got {0}".format(
+            tuple(starts.shape)))
+    batch, p = starts.shape
+    _checked([(name, tensor, torch.int32, (batch, p)) for name, tensor in (
+        ("starts", starts), ("ends", ends), ("dest", dest), ("reads", reads))]
+        + [("valid", valid, torch.bool, (batch, p)),
+           ("wall_same_read", wall_same_read, torch.bool, (batch,)),
+           ("kind", kind, torch.int32, (batch,))], device)
+    library = _kernel_library()
+    _check_slots(library, p)
+    outputs = _merge_outputs(batch, p, device) + (
+        torch.empty((batch, p), dtype=torch.bool, device=device),
+        torch.empty((batch,), dtype=torch.bool, device=device),
+        torch.empty((batch,), dtype=torch.bool, device=device))
+    if batch == 0:
+        return outputs
+    with torch.cuda.device(device):
+        _launched(library.agglomerate_fused(
+            starts.data_ptr(), ends.data_ptr(), dest.data_ptr(),
+            reads.data_ptr(), valid.data_ptr(), wall_same_read.data_ptr(),
+            kind.data_ptr(), batch, p, float(norm), float(threshold),
+            *(tensor.data_ptr() for tensor in outputs),
+            torch.cuda.current_stream(device).cuda_stream))
+    return outputs
+
+
+def _route(tensor, plain, kernel):
+    if tensor.device.type == "cpu":
+        return plain
+    if tensor.device.type == "cuda":
+        return kernel
+    raise ValueError("no agglomeration kernel for device {0}".format(
+        tensor.device))
+
+
+def agglomerate_batched(distances, valid):
+    """Dispatcher of the matrix route: CPU tensors -> plain version, CUDA
+    tensors -> kernel (see agglomerate_batched_plain for the contract).
+    Distances of another float type are rounded to float32 first, on either
+    device."""
+    distances = distances.to(torch.float32)
+    return _route(distances, agglomerate_batched_plain,
+                  agglomerate_batched_cuda)(distances, valid)
+
+
+def span_position_agglomerate_batched(starts, ends, reads, valid, norm,
+                                      threshold, wall_same_read, dest, kind):
+    """Dispatcher of the fused route: CPU tensors -> plain version, CUDA
+    tensors -> kernel (see span_position_agglomerate_batched_plain for the
+    contract)."""
+    return _route(starts, span_position_agglomerate_batched_plain,
+                  span_position_agglomerate_batched_cuda)(
+        starts, ends, reads, valid, norm, threshold, wall_same_read, dest,
+        kind)

@@ -7,8 +7,12 @@
   of 3,000 CIGAR ops, DEL and INS loci at 24x coverage, split reads on 1 in
   12 background reads) at a given read count; the same bytes as
   `bench.make_workload` with SVIM_BENCH_READS set to that count.
+- `tiefree_workload`: the same kind of sample with loci whose reads never
+  share a position or a size, so that the device clustering labels most of
+  its partitions (on bench every partition has an exact distance tie and is
+  resolved on the host).
 
-Both write a coordinate-sorted BGZF BAM and a FASTA genome and return
+All three write a coordinate-sorted BGZF BAM and a FASTA genome and return
 (bam_path, genome_path).  Three rewrites of a BAM serve the port's other
 input paths:
 
@@ -147,8 +151,15 @@ def bench_workload(directory, reads):
                 rng.randint(1, 100000000), seq_len - 500, 500)
         add_read(rng.randint(0, genome_span), cigar, "A" * seq_len, tags)
 
+    return _write_workload(directory, "bench.bam", header, records,
+                           genome_span)
+
+
+def _write_workload(directory, bam_name, header, records, genome_span):
+    """The records as a coordinate-sorted BGZF BAM and a random genome FASTA
+    whose chr1 covers `genome_span`.  Returns (bam_path, genome_path)."""
     records.sort(key=lambda record: record.reference_start)
-    bam_path = os.path.join(directory, "bench.bam")
+    bam_path = os.path.join(directory, bam_name)
     bamio.write_bam(bam_path, header, records)
 
     genome_path = os.path.join(directory, "genome.fa")
@@ -162,6 +173,174 @@ def bench_workload(directory, reads):
             handle.write(row.tobytes() + b"\n")
         handle.write(b">chr2\n" + b"ACGT" * 2500 + b"\n")
     return bam_path, genome_path
+
+
+# tiefree_workload: reads a locus, and the few loci wide enough for the
+# 128-slot bucket of the device clustering
+TIEFREE_COVERAGE = (8, 16)
+TIEFREE_WIDE_LOCI = 3
+TIEFREE_WIDE_COVERAGE = (40, 100)
+TIEFREE_POSITION_JITTER = {"D": 120, "I": 20}   # bp each way, by SV op
+TIEFREE_SIZE_JITTER = 0.08   # of the locus's size, each way
+# the first wide locus of each type has TIEFREE_SEPARATED_COVERAGE reads; the
+# DEL one is the separated locus: its jitter, and the margins its merge
+# sequence must keep (four times the device clustering's float32
+# guard of 3e-4 between a step's best and second-best pair; every merge
+# height clear of the default --cluster_max_distance)
+TIEFREE_SEPARATED_COVERAGE = 40
+TIEFREE_SEPARATED_JITTER = (300, 0.15)
+TIEFREE_SEPARATED_GAP = 1.2e-3
+TIEFREE_SEPARATED_CUT = (0.5, 0.02)
+
+
+def _merge_margins(starts, spans, normalizer=900.0):
+    """Exact float64 average linkage over the span-position distances of
+    deletion signatures (|dcenter| / normalizer + |dspan| / max span), by
+    global argmin: (the smallest relative gap between a step's best pair
+    and its runner-up, the merge heights)."""
+    centers = (2 * starts + spans) // 2
+    d = (np.abs(centers[:, None] - centers[None, :]) / normalizer
+         + np.abs(spans[:, None] - spans[None, :])
+         / np.maximum(np.maximum(spans[:, None], spans[None, :]), 1))
+    n = len(starts)
+    np.fill_diagonal(d, np.inf)
+    sizes = np.ones(n)
+    heights = []
+    min_gap = np.inf
+    with np.errstate(invalid="ignore"):
+        for _ in range(n - 1):
+            lo, hi = sorted(divmod(int(np.argmin(d)), n))
+            best = d[lo, hi]
+            rest = d.copy()
+            rest[lo, hi] = rest[hi, lo] = np.inf
+            second = rest.min()
+            if np.isfinite(second):
+                min_gap = min(min_gap, (second - best) / max(best, 1.0))
+            row = (sizes[lo] * d[lo] + sizes[hi] * d[hi]) \
+                / (sizes[lo] + sizes[hi])
+            d[lo, :] = row
+            d[:, lo] = row
+            d[hi, :] = np.inf
+            d[:, hi] = np.inf
+            d[lo, lo] = np.inf
+            sizes[lo] += sizes[hi]
+            heights.append(best)
+    return min_gap, heights
+
+
+def _separated_offsets(rng, size):
+    """Position and size offsets of TIEFREE_SEPARATED_COVERAGE deletion
+    reads, redrawn until no two pairs are at one distance, every step of
+    their exact average linkage has a clear winner and every height is
+    clear of the cut: a partition of the 128-slot bucket whose device
+    labeling the float32 guard accepts (a random draw of that many reads
+    hardly ever is: its pair distances lie too close)."""
+    coverage = TIEFREE_SEPARATED_COVERAGE
+    shift, fraction = TIEFREE_SEPARATED_JITTER
+    reach = int(size * fraction)
+    cut, margin = TIEFREE_SEPARATED_CUT
+    while True:
+        shifts = rng.sample(range(-shift, shift + 1), coverage)
+        resizes = rng.sample(range(-reach, reach + 1), coverage)
+        min_gap, heights = _merge_margins(
+            np.asarray(shifts, dtype=np.int64),
+            size + np.asarray(resizes, dtype=np.int64))
+        if min_gap >= TIEFREE_SEPARATED_GAP and heights[-1] < cut - margin \
+                and all(abs(height - cut) > margin for height in heights):
+            return shifts, resizes
+
+
+def tiefree_workload(directory, reads=8192, wide_loci=TIEFREE_WIDE_LOCI):
+    """The bench workload's kind of sample (ONT-like reads, DEL and INS
+    loci, one of each per 85 reads, background reads with 1 in 12 split to
+    chr2), built so that the device labels most of its partitions: bench's
+    loci (24 reads within 3 bp of one size and 10 bp of one position)
+    always hold two pairs at the same float64 distance, which the CLUSTER
+    stage resolves on the host before any device work.
+
+    Here a locus has 8 to 16 reads whose positions (within
+    TIEFREE_POSITION_JITTER bp) and sizes (within TIEFREE_SIZE_JITTER of
+    the locus's size) are drawn without repeats, so no two reads share a
+    (start, span), exact distance ties are rare, and the gaps between
+    merge heights mostly clear the float32 guard; the jitter is small
+    enough that a locus stays one partition and one cluster under the
+    default --partition_max_distance and --cluster_max_distance.  The first
+    `wide_loci` loci of each type have 40 to 100 reads and fill the
+    128-slot bucket; so many reads lie too close for the float32 guard, so
+    the first deletion locus is drawn until its merges are separated
+    (_separated_offsets) and is the bucket's accepted labeling.
+
+    `wide_loci` is a knob for the CPU tests only; the workload proper is
+    the default.  A wide insertion locus is thousands of haplotype pairs,
+    too many for the plain wavefront loop on the CPU, so the tests' small
+    samples pass 0 or 1 (and with 0 the 128-slot bucket stays empty).
+    Writes tiefree.bam and genome.fa into `directory` and returns their
+    paths."""
+    n_loci = max(8, reads // 85)
+    genome_span = max(12_000_000, reads * 6_000)
+    rng = random.Random(4321)
+    header = AlignmentHeader.from_text(
+        "@HD\tVN:1.6\tSO:coordinate\n"
+        "@SQ\tSN:chr1\tLN:200000000\n@SQ\tSN:chr2\tLN:150000000\n")
+    records = []
+
+    def add_read(start, cigar, seq, tags=""):
+        line = "read{0}\t0\tchr1\t{1}\t60\t{2}\t*\t0\t0\t{3}\t*{4}".format(
+            len(records), start + 1, cigar, seq, tags)
+        records.append(parse_sam_line(line, header))
+
+    def locus(index, op, low, high):
+        """(position, size, per-read position and size offsets)."""
+        position = rng.randint(100_000, genome_span)
+        wide = index < wide_loci
+        # a wide locus needs as many distinct sizes as it has reads
+        size = rng.randint(3 * high // 4 if wide else low, high)
+        coverage = rng.randint(*(TIEFREE_WIDE_COVERAGE if wide
+                                 else TIEFREE_COVERAGE))
+        if index == 0 and wide:
+            # the fewest reads that fill the 128-slot bucket: the fewest
+            # pairs, so the best chance that no two are at one distance
+            coverage = TIEFREE_SEPARATED_COVERAGE
+        shift = max(TIEFREE_POSITION_JITTER[op], coverage // 2)
+        reach = max(int(size * TIEFREE_SIZE_JITTER), coverage)
+        return (position, size,
+                rng.sample(range(-shift, shift + 1), coverage),
+                rng.sample(range(-reach, reach + 1), coverage))
+
+    for index in range(n_loci):
+        position, size, shifts, resizes = locus(index, "D", 300, 2000)
+        if index == 0 and wide_loci:
+            shifts, resizes = _separated_offsets(rng, size)
+        for shift, resize in zip(shifts, resizes):
+            cigar, seq_len, _, _, ref_before = _noisy_cigar(
+                rng, sv=("D", size + resize))
+            add_read(position - ref_before + shift, cigar, "A" * seq_len)
+
+    for index in range(n_loci):
+        position, size, shifts, resizes = locus(index, "I", 400, 1200)
+        reach = max(abs(resize) for resize in resizes)
+        motif = "".join(rng.choice("ACGT") for _ in range(size + reach))
+        for shift, resize in zip(shifts, resizes):
+            noisy = list(motif[:size + resize])
+            for _ in range(rng.randint(0, 4)):
+                noisy[rng.randrange(len(noisy))] = rng.choice("ACGT")
+            insert = "".join(noisy)
+            cigar, seq_len, _, sv_pos, ref_before = _noisy_cigar(
+                rng, sv=("I", len(insert)))
+            seq = ("A" * sv_pos + insert
+                   + "A" * (seq_len - sv_pos - len(insert)))
+            add_read(position - ref_before + shift, cigar, seq)
+
+    for i in range(max(0, reads - len(records))):
+        cigar, seq_len, _, _, _ = _noisy_cigar(rng)
+        tags = ""
+        if i % 12 == 0:
+            tags = "\tSA:Z:chr2,{0},+,{1}S{2}M,60,0;".format(
+                rng.randint(1, 100000000), seq_len - 500, 500)
+        add_read(rng.randint(0, genome_span), cigar, "A" * seq_len, tags)
+
+    return _write_workload(directory, "tiefree.bam", header, records,
+                           genome_span)
 
 
 def reblock_stored(bam, out):
