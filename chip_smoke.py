@@ -48,9 +48,14 @@ Phases, each of which raises (non-zero exit) on failure:
      float64 host linkage, and for the seeded cases of agglomerate_cases
      (every kind with and without the wall, negative starts, zero spans,
      wrapping coordinates, 3 and 128 valid slots in one call, padding
-     partitions, exact ties, B = 8 and 1024); prints kernel and plain ms
-     at B = 1024 with full partitions at P = 128 and P = 32 beside the
-     bound;
+     partitions, exact ties, matrices that are not symmetric, valid counts
+     across the packing of 32-slot partitions four a CTA, norms around the
+     range of the build's written-out division, tiny distances, B = 8 and
+     1024); logs each kernel's registers and spills (cuobjdump) and prints
+     kernel and plain ms at B = 1024 with full partitions at P = 128 and
+     P = 32 beside the bound and beside the rescan design's ms (the
+     kernel's source at RESCAN_DESIGN_COMMIT, built in the same process
+     when git or an unpacked checkout of that commit has it);
   7. distance kernel vs plain version on the card: span_position_matrix_cuda
      against span_position_matrix_torch on seeded partitions at P in {32,
      128} and B in {8, 1024, 8192}, with and without the same-read wall,
@@ -82,6 +87,11 @@ Phases, each of which raises (non-zero exit) on failure:
      whatever the walker's lead allows), and the golden workload in chunks
      of 64; every VCF must hash to the pinned one; prints COLLECT and
      CLUSTER seconds beside phase 5's `off` runs;
+ 10b. every agglomeration call of the recorded tie-free runs (phase 5b,
+     both edit backends) and of the chunked mid-scan `wavefront` run of
+     phase 10 launched again on its own inputs and timed on the card
+     (B, P, the largest valid count, kernel ms beside the rescan design's
+     and the bound); these rows join the `kernels` line's `by_shape`;
  11. the other flags on the golden workload: --device_backend host must
      write the golden VCF with no kernel launch; --profile_trace (with
      --edit_backend wavefront) must write the golden VCF and Chrome traces
@@ -176,6 +186,12 @@ TIEFREE_DEVICE_BY_ROUTE = {"auto": {"fused": 74, "matrix": 59},
 DISTANCE_MAIN_SHAPE = (8192, 128)
 LINKAGE_OPS = ("span_position_agglomerate_batched", "agglomerate_batched",
                "ins_matrices_from_pairs")
+# the runs whose agglomeration calls are launched again and timed one by one
+# (phase 10b): tie-free with either edit backend, and mid-scan clustering
+# with the scan in chunks
+RECORDED_MIDSCAN_PATH = "incremental_wavefront_chunked"
+TIMED_CALL_PATHS = ("tiefree_auto", "tiefree_wavefront",
+                    RECORDED_MIDSCAN_PATH)
 
 
 def log(phase, message):
@@ -301,6 +317,26 @@ def _time_ms(function, repeats, warm_up=True):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        result = function()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / repeats, result
+
+
+def _device_ms(function, repeats):
+    """ms a call of `function` on the card: a spin kernel holds the stream
+    while the host enqueues the `repeats` calls, so that the events time
+    the card's work and not the host's launch overhead (a call with small
+    inputs takes less time on the card than in its Python wrapper)."""
+    import torch
+
+    function()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000 + 1_000_000 * repeats)
     start.record()
     for _ in range(repeats):
         result = function()
@@ -529,7 +565,8 @@ def _calls_per_class(vcf_path):
 class LinkageRecorder:
     """Stands in for the plain PyTorch linkage ops in device_cluster while
     the main path runs, and keeps each call's inputs and outputs on the
-    host so phase 6 can re-run them on the CPU."""
+    host so phase 6 can re-run them on the CPU.  Each call is filed under
+    the `label` the recorder holds when it is made (the path's name)."""
 
     def __init__(self):
         from svim_tpu_torch.cluster import device_cluster
@@ -538,6 +575,8 @@ class LinkageRecorder:
         self.originals = {name: getattr(device_cluster, name)
                           for name in LINKAGE_OPS}
         self.calls = []
+        self.labels = []
+        self.label = None
 
     def _wrap(self, name):
         original = self.originals[name]
@@ -546,8 +585,16 @@ class LinkageRecorder:
             outputs = original(*args, **kwargs)
             self.calls.append((name, _to_cpu(args), _to_cpu(kwargs),
                                _to_cpu(outputs), _devices(args)))
+            self.labels.append(self.label)
             return outputs
         return recorded
+
+    def of(self, labels):
+        """(label, op name, args, kwargs) of the calls filed under
+        `labels`, in the order they were made."""
+        return [(label, name, args, kwargs) for label, (name, args, kwargs,
+                                                        _, _)
+                in zip(self.labels, self.calls) if label in labels]
 
     def __enter__(self):
         for name in LINKAGE_OPS:
@@ -848,6 +895,7 @@ def phase_tiefree(card, recorder, makers):
             raise AssertionError(path + ": no partition fell to post_tie")
         if PATH_LAUNCHES[path]["agglomerate"] <= 0:
             raise AssertionError(path + " launched no agglomeration kernel")
+        recorder.label = path
         with recorder:
             working_dir = os.path.join(directory, "wd_recorded_" + backend)
             code = _run_port(["alignment", working_dir, bam, genome,
@@ -990,14 +1038,6 @@ def agglomerate_bound_ms(counts, pad, fused):
     return bytes_ms, "bytes"
 
 
-def agglomerate_scan_floor_ms(counts, pad):
-    """Not a bound of the function: the floor of the kernel's present design,
-    which rescans the whole P x P matrix in shared memory at each of a
-    partition's n - 1 steps, at the card's shared-memory load rate."""
-    loads = sum(max(int(count) - 1, 0) for count in counts) * pad * pad
-    return loads / SHARED_LOADS_PER_SECOND * 1e3
-
-
 def _fused_inputs(rng, batch, pad, kinds, walls, counts=None, wide=False):
     """Seeded fused-route inputs in the op's argument order (numpy): the
     coordinates of _distance_inputs (negative starts, zero and negative
@@ -1017,9 +1057,10 @@ def _fused_inputs(rng, batch, pad, kinds, walls, counts=None, wide=False):
                             (batch,)).copy())
 
 
-def _matrix_inputs(rng, batch, pad, counts, ties=False):
-    """Seeded symmetric (B, P, P) float32 matrices with `counts` valid slots
-    a partition; with `ties` the distances are a few multiples of 1/8, so
+def _matrix_inputs(rng, batch, pad, counts, ties=False, symmetric=True):
+    """Seeded (B, P, P) float32 matrices with `counts` valid slots a
+    partition, symmetric unless `symmetric` is false (the matrix entry takes
+    any matrix); with `ties` the distances are a few multiples of 1/8, so
     that most steps see several equal minima."""
     import numpy as np
 
@@ -1028,8 +1069,10 @@ def _matrix_inputs(rng, batch, pad, counts, ties=False):
             np.float32) / 8
     else:
         points = rng.random((batch, pad, pad), dtype=np.float32)
-    upper = np.triu(points, 1)
     valid = np.arange(pad)[None, :] < np.asarray(counts)[:, None]
+    if not symmetric:
+        return points, valid
+    upper = np.triu(points, 1)
     return upper + upper.transpose(0, 2, 1), valid
 
 
@@ -1041,8 +1084,11 @@ def agglomerate_cases(rng):
     mixed in one batch, coordinates from all of int32 (wrapping sums), 3
     and 128 valid slots in one call, padding partitions (0 and 1 valid
     slots), exact-tie matrices (the lowest flat index must win), float64
-    distances (rounded to float32 by the dispatcher), B = 8 and
-    B = 1024, and the two timed shapes with every partition full."""
+    distances (rounded to float32 by the dispatcher), matrices that are not
+    symmetric (with and without ties), valid counts across the packing of
+    32-slot partitions four a CTA (1, 2, 31, 32, a last CTA one quarter
+    full), B = 8 and B = 1024, and the two timed shapes with every
+    partition full."""
     import numpy as np
 
     fused = "span_position_agglomerate_batched"
@@ -1076,6 +1122,36 @@ def agglomerate_cases(rng):
                _matrix_inputs(rng, 1024, pad, counts, ties=True))
         yield ("B=1024 P={0}".format(pad), matrix,
                _matrix_inputs(rng, 1024, pad, counts))
+        # not symmetric: the row minima must follow each whole row; with
+        # few values a new cell (r, lo) takes a tied row minimum over
+        for ties in (False, True):
+            yield ("P={0} not symmetric{1}".format(pad, ", ties" * ties),
+                   matrix, _matrix_inputs(rng, 64, pad, rng.integers(
+                       0, pad + 1, size=64), ties=ties, symmetric=False))
+    # norms on, next to and outside the range in which the fused build
+    # divides by the norm without __fdiv_rn's range check, a negative one
+    for pad in (32, 128):
+        for norm in (2.0 ** -40, 2.0 ** 40, 1e-13, 3e12, -900.0):
+            arguments = list(_fused_inputs(rng, 8, pad, [0, 1] * 4,
+                                           [True, False] * 4))
+            arguments[4] = norm
+            yield ("P={0} norm {1!r}".format(pad, norm), fused,
+                   tuple(arguments))
+        # tiny and zero distances: averages and gaps whose quotients leave
+        # the normal range take __fdiv_rn
+        distances, valid = _matrix_inputs(rng, 8, pad, [pad, pad - 1, 9, 2] * 2)
+        distances[:4] *= np.float32(1e-37)
+        distances[4:] *= np.float32(1e-44 / 0.5)
+        yield ("P={0} tiny distances".format(pad), matrix,
+               (distances, valid))
+    # valid counts across the packing of 32-slot partitions, four a CTA:
+    # 1, 2, 31 and 32 slots, and a last CTA with one partition of four
+    packing = [1, 2, 31, 32, 32, 31, 2, 1, 17]
+    yield ("P=32 slots {0}".format(packing), matrix,
+           _matrix_inputs(rng, len(packing), 32, packing))
+    yield ("P=32 slots {0}".format(packing), fused,
+           _fused_inputs(rng, len(packing), 32, [0, 1, 2] * 3,
+                         [True, False] * 4 + [True], counts=packing))
     for batch, pad in AGGLOMERATE_SHAPES:
         full = np.full(batch, pad)
         yield ("timed", matrix, _matrix_inputs(rng, batch, pad, full))
@@ -1147,11 +1223,137 @@ def _kernel_against_plain(name, arguments, where):
     return got
 
 
-def phase_agglomerate():
+# the commit whose csrc/agglomerate.cu rescans the whole matrix at each step
+# (one CTA a partition, two block scans and four barriers a step): timed
+# beside the present kernel, in the same process, wherever its source can be
+# had (git, or that commit unpacked at RESCAN_DESIGN_CHECKOUT)
+RESCAN_DESIGN_COMMIT = "7e20e235f462e89dd6c131b4a8e6e9edb4518d94"
+RESCAN_DESIGN_CHECKOUT = os.path.join(ROOT, "_chipwork", "parent")
+AGGLOMERATE_SOURCE = "svim_tpu_torch/csrc/agglomerate.cu"
+
+
+def _rescan_design_source():
+    """The text of csrc/agglomerate.cu at RESCAN_DESIGN_COMMIT, or None."""
+    unpacked = os.path.join(RESCAN_DESIGN_CHECKOUT, AGGLOMERATE_SOURCE)
+    if os.path.exists(unpacked):
+        with open(unpacked) as handle:
+            return handle.read()
+    try:
+        shown = subprocess.run(
+            ["git", "-C", ROOT, "show",
+             RESCAN_DESIGN_COMMIT + ":" + AGGLOMERATE_SOURCE],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    return shown.stdout if shown.returncode == 0 else None
+
+
+def _resource_usage(library):
+    """Registers, spills and static shared memory of each kernel in a built
+    library (cuobjdump -res-usage), as text lines; [] without cuobjdump."""
+    from svim_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return []
+    listing = subprocess.run([tool, "-res-usage", library],
+                             capture_output=True, text=True).stdout
+    lines, function = [], None
+    for line in listing.splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            function = line[len("Function "):].rstrip(":")
+        elif line.startswith("REG:") and function:
+            lines.append("{0}: {1}".format(function, line))
+    return lines
+
+
+def rescan_design_library():
+    """The rescan design of the agglomeration kernel, built from its source
+    with the port's nvcc flags into SCRATCH and bound like the present one;
+    None when its source cannot be had."""
+    import ctypes
+
+    from svim_tpu_torch.ops import _build, linkage_kernel
+
+    source = _rescan_design_source()
+    if source is None:
+        return None
+    directory = os.path.join(SCRATCH, "rescan_design")
+    os.makedirs(directory, exist_ok=True)
+    source_path = os.path.join(directory, "agglomerate.cu")
+    library_path = os.path.join(directory, "agglomerate.so")
+    with open(source_path, "w") as handle:
+        handle.write(source)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", library_path,
+                    source_path], check=True, capture_output=True)
+    library = ctypes.CDLL(library_path)
+    present = linkage_kernel._kernel_library()
+    for name in ("agglomerate_max_slots", "agglomerate_matrix",
+                 "agglomerate_fused"):
+        getattr(library, name).argtypes = getattr(present, name).argtypes
+        getattr(library, name).restype = getattr(present, name).restype
+    library.path = library_path
+    return library
+
+
+def _through(library, function):
+    """`function()` with the agglomeration wrappers bound to `library`;
+    launches made so are not counted."""
+    from svim_tpu_torch.ops import linkage_kernel
+
+    saved, launches = linkage_kernel._library, linkage_kernel.LAUNCHES
+    linkage_kernel._library = library
+    try:
+        return function()
+    finally:
+        linkage_kernel._library = saved
+        linkage_kernel.LAUNCHES = launches
+
+
+def _time_against(name, tensors, rescan_design, repeats=10):
+    """Device ms of the kernel wrapper `name`_cuda on `tensors` and, when
+    `rescan_design` is a library, of the rescan design on the same inputs
+    in turns (rescan design, kernel, kernel, rescan design; each the mean of
+    its two turns).  The rescan design's outputs must equal the kernel's bit
+    for bit.  Returns (ms, rescan design ms or None)."""
+    from svim_tpu_torch.ops import linkage_kernel
+
+    kernel = getattr(linkage_kernel, name + "_cuda")
+    if rescan_design is None:
+        return _device_ms(lambda: kernel(*tensors), repeats)[0], None
+    first, old = _through(rescan_design, lambda: _device_ms(
+        lambda: kernel(*tensors), repeats))
+    second, new = _device_ms(lambda: kernel(*tensors), repeats)
+    third, _ = _device_ms(lambda: kernel(*tensors), repeats)
+    fourth, _ = _through(rescan_design, lambda: _device_ms(
+        lambda: kernel(*tensors), repeats))
+    for index, (a, b) in enumerate(zip(new, old)):
+        if not _bit_equal(a, b):
+            raise AssertionError("{0}: the rescan design differs from the "
+                                 "kernel in output {1}".format(name, index))
+    return (second + third) / 2, (first + fourth) / 2
+
+
+def phase_resources(rescan_design):
+    """Registers, spills and static shared memory of the agglomeration
+    kernels, present and rescan design (logged; not checked)."""
+    from svim_tpu_torch.ops import _build
+
+    libraries = {"present": _build.library_path("agglomerate")}
+    if rescan_design is not None:
+        libraries["rescan design"] = rescan_design.path
+    for which, path in libraries.items():
+        for line in _resource_usage(path) or ["cuobjdump not found"]:
+            log("agglomerate", "{0}: {1}".format(which, line))
+
+
+def phase_agglomerate(rescan_design):
     """The kernel half of phase 6 on seeded inputs: csrc/agglomerate.cu
     against the plain versions on the card (agglomerate_cases), and its
-    time at AGGLOMERATE_SHAPES beside the bound.  Returns {(op name, B, P):
-    (kernel ms, plain ms, bound ms, bound by)}."""
+    time at AGGLOMERATE_SHAPES beside the bound and beside the rescan
+    design's (`rescan_design`: a library or None).  Returns {(op name, B,
+    P): (kernel ms, plain ms, bound ms, bound by, rescan design ms)}."""
     import numpy as np
 
     from svim_tpu_torch.ops import linkage_kernel
@@ -1176,23 +1378,55 @@ def phase_agglomerate():
                                  "partition".format(where, merged))
         tensors = _on_card(arguments)
         plain = getattr(linkage_kernel, name + "_plain")
-        kernel = getattr(linkage_kernel, name + "_cuda")
         plain_ms, _ = _time_ms(lambda: plain(*tensors), 1, warm_up=False)
-        kernel_ms, _ = _time_ms(lambda: kernel(*tensors), 10)
+        kernel_ms, rescan_ms = _time_against(name, tensors, rescan_design)
         fused = name != "agglomerate_batched"
         counts = tensors[3 if fused else 1].sum(dim=1).tolist()
         bound_ms, bound_by = agglomerate_bound_ms(counts, pad, fused)
         timings[(name, batch, pad)] = (kernel_ms, plain_ms, bound_ms,
-                                       bound_by)
+                                       bound_by, rescan_ms)
         log("agglomerate", "{0} B={1} P={2}, every partition full: bit-equal;"
-            " kernel {3:.4f} ms, plain {4:.3f} ms, bound {5:.5f} ms by {6} "
-            "(kernel {7:.0f} times its bound; this design's full rescan a "
-            "step cannot go under {8:.4f} ms)".format(
-                name, batch, pad, kernel_ms, plain_ms, bound_ms, bound_by,
-                kernel_ms / bound_ms, agglomerate_scan_floor_ms(counts, pad)))
+            " kernel {3:.4f} ms (rescan design {4}), plain {5:.3f} ms, bound "
+            "{6:.5f} ms by {7} (kernel {8:.0f} times its bound)".format(
+                name, batch, pad, kernel_ms,
+                "not timed" if rescan_ms is None
+                else "{0:.4f} ms".format(rescan_ms), plain_ms, bound_ms,
+                bound_by, kernel_ms / bound_ms))
     log("agglomerate", "{0} seeded cases: the kernel equals its plain "
         "version on the card bit for bit".format(checked))
     return timings
+
+
+def phase_agglomerate_launches(calls, rescan_design):
+    """Every agglomeration call of the recorded runs in `calls` ((label,
+    op name, args, kwargs)) launched again on its own inputs and timed,
+    beside the rescan design and the bound: B, P, the largest valid count.
+    Returns {row label: (ms, None, bound ms, bound by, rescan design ms)}."""
+    rows = {}
+    numbers = {}
+    for label, name, args, kwargs in calls:
+        if name == "ins_matrices_from_pairs":
+            continue
+        tensors = _on_card(_positional(args, kwargs))
+        fused = name != "agglomerate_batched"
+        valid = tensors[3 if fused else 1]
+        batch, pad = valid.shape
+        counts = valid.sum(dim=1).tolist()
+        kernel_ms, rescan_ms = _time_against(name, tensors, rescan_design,
+                                             repeats=20)
+        bound_ms, bound_by = agglomerate_bound_ms(counts, pad, fused)
+        number = numbers[label] = numbers.get(label, -1) + 1
+        row = "{0} call {1}: {2} B={3} P={4} largest={5}".format(
+            label, number, "fused" if fused else "matrix", batch, pad,
+            int(max(counts)))
+        rows[row] = (kernel_ms, None, bound_ms, bound_by, rescan_ms)
+        log("agglomerate", "{0}: kernel {1:.4f} ms (rescan design {2}), "
+            "bound {3:.5f} ms by {4}".format(
+                row, kernel_ms, "not timed" if rescan_ms is None
+                else "{0:.4f} ms".format(rescan_ms), bound_ms, bound_by))
+    if not rows:
+        raise AssertionError("the recorded runs made no agglomeration call")
+    return rows
 
 
 def _positional(args, kwargs):
@@ -1650,20 +1884,26 @@ def _reused(working_dir):
 
 
 def phase_default_path(card, bench_bam, genome, off_seconds, golden_bam,
-                       golden_genome):
+                       golden_genome, recorder):
     """Phase 10: --incremental_cluster auto (the default) on the bench and
-    golden workloads."""
+    golden workloads; the agglomeration calls of the chunked `wavefront`
+    run go to `recorder`."""
+    import contextlib
+
     directory = os.path.dirname(bench_bam)
     for backend in ("wavefront", "auto"):
         for chunk in (512, 0):
             path = "incremental_{0}{1}".format(backend,
                                                "_chunked" if chunk else "")
             working_dir = os.path.join(directory, "wd_" + path)
-            launches = _drive(path, ["alignment", working_dir, bench_bam,
-                                     genome, "--edit_backend", backend,
-                                     "--profile", "--incremental_cluster",
-                                     "auto", "--batch_reads", "512"],
-                              chunk=chunk)
+            recorder.label = path
+            with recorder if path == RECORDED_MIDSCAN_PATH \
+                    else contextlib.nullcontext():
+                launches = _drive(path, ["alignment", working_dir, bench_bam,
+                                         genome, "--edit_backend", backend,
+                                         "--profile", "--incremental_cluster",
+                                         "auto", "--batch_reads", "512"],
+                                  chunk=chunk)
             seconds = _stage_seconds(working_dir)
             reused, memoized = _reused(working_dir)
             digest = _vcf_sha256(working_dir)
@@ -2164,12 +2404,16 @@ def run_phases(card, makers):
     bench_bam, bench_genome, off_seconds = phase_bench(card, recorder, makers)
     phase_tiefree(card, recorder, makers)
     phase_linkage(recorder)
-    agglomerate_timings = phase_agglomerate()
+    rescan_design = rescan_design_library()
+    phase_resources(rescan_design)
+    agglomerate_timings = phase_agglomerate(rescan_design)
     distance_timings, distance_err = phase_distance()
     phase_streaming(card, bench_bam, bench_genome, golden_bam, golden_genome)
     phase_inputs(golden_bam, golden_genome)
     phase_default_path(card, bench_bam, bench_genome, off_seconds,
-                       golden_bam, golden_genome)
+                       golden_bam, golden_genome, recorder)
+    launch_timings = phase_agglomerate_launches(
+        recorder.of(TIMED_CALL_PATHS), rescan_design)
     phase_flags(golden_bam, golden_genome)
     phase_reads(golden_bam, golden_genome)
     phase_distributed(card, bench_bam, bench_genome, off_seconds, golden_bam,
@@ -2191,8 +2435,11 @@ def run_phases(card, makers):
     distance_bound_ms, distance_bound_by = distance_bound_ms_of(
         *DISTANCE_MAIN_SHAPE)
     (agglomerate_ms, agglomerate_plain_ms, agglomerate_bound,
-     agglomerate_bound_by) = agglomerate_timings[
+     agglomerate_bound_by, _) = agglomerate_timings[
         ("span_position_agglomerate_batched",) + AGGLOMERATE_SHAPES[0]]
+    by_shape = {"{0} B={1} P={2}".format(*key): value
+                for key, value in agglomerate_timings.items()}
+    by_shape.update(launch_timings)
     # library_ms is null for all three: PyTorch has no call that computes a
     # banded Levenshtein distance, none for this pairwise distance with its
     # same-read wall (torch.cdist has neither the two quotients nor the
@@ -2228,9 +2475,9 @@ def run_phases(card, makers):
         "bound_by": agglomerate_bound_by, "library_ms": None,
         "shape": "fused entry, B={0},P={1}, every partition full".format(
             *AGGLOMERATE_SHAPES[0]),
-        "by_shape": {"{0} B={1} P={2}".format(*key): dict(zip(
-            ("ms", "plain_ms", "bound_ms", "bound_by"), value))
-            for key, value in agglomerate_timings.items()}}]}))
+        "by_shape": {key: dict(zip(("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "rescan_design_ms"), value))
+                     for key, value in by_shape.items()}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,10 +11,17 @@ Runs `svim_tpu_torch alignment --profile` on a workload of
 svim_tpu_torch/workloads.py (`bench`: every partition resolved on the host;
 `tiefree`: most partitions labelled by the device; made once under --work
 by this script's own checkout, reused by later calls): one warm-up run, `--runs` untraced runs whose stage seconds are
-host wall clock, then one run under torch.profiler whose device times are
-summed by kernel name (device busy = every kernel and copy on the card;
-the traced run's stage seconds are inflated by the tracing and are not
-reported).  With --host_top N one more run goes under cProfile and the N
+host wall clock, then one run under torch.profiler.  Of that run only the
+device's own events count (kernels, copies and memsets: rows of
+key_averages() whose device type is CUDA and that are no user annotation,
+the rule of PyTorch's own table; the CPU-op rows also carry the time of the
+kernels they launched and would count each twice): device busy is the
+union of their intervals, so that a copy running beside a kernel counts
+once, beside their plain sum and their sums by name.  The run's Chrome
+trace is written under --work and the union of its kernel, gpu_memcpy and
+gpu_memset events is reported beside device busy as a check; so is the
+sum over every row that the script took before (`all_rows_s`).  The traced
+run's stage seconds are inflated by the tracing and are not reported.  With --host_top N one more run goes under cProfile and the N
 functions with the largest cumulative host time are reported (inflated by
 the profiling; for shares, not for seconds).  --incremental_cluster and
 --batch_reads are passed to the port (its defaults: auto, 4096); each
@@ -58,6 +65,48 @@ def _reused(working_dir):
                 words = line.split("Incremental clustering: ", 1)[1].split()
                 return [int(words[0]), int(words[2])]
     return [0, 0]
+
+
+# the categories of a torch.profiler Chrome trace that occupy the card
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _self_device_us(event):
+    micros = getattr(event, "self_device_time_total", None)
+    return event.self_cuda_time_total if micros is None else micros
+
+
+def _on_device(event):
+    """A kernel, copy or memset row: run on the card, no user annotation."""
+    from torch.autograd import DeviceType
+
+    return (event.device_type == DeviceType.CUDA
+            and not getattr(event, "is_user_annotation", False))
+
+
+def _union_seconds(intervals):
+    """Length of the union of (start, end) intervals in microseconds, in
+    seconds."""
+    total = 0.0
+    reach = None
+    for start, end in sorted(intervals):
+        if reach is None or start > reach:
+            total += end - start
+            reach = end
+        elif end > reach:
+            total += end - reach
+            reach = end
+    return total / 1e6
+
+
+def device_intervals(chrome_trace):
+    """(start, end) in microseconds of every kernel, copy and memset event
+    of a Chrome trace that torch.profiler wrote."""
+    with open(chrome_trace) as handle:
+        events = json.load(handle)["traceEvents"]
+    return [(event["ts"], event["ts"] + event["dur"]) for event in events
+            if event.get("ph") == "X"
+            and event.get("cat") in DEVICE_CATEGORIES]
 
 
 def main():
@@ -137,17 +186,22 @@ def main():
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as trace:
-        _, traced_wall = run("traced")
+        working_dir, traced_wall = run("traced")
+    chrome_trace = os.path.join(working_dir, "profile_trace.json")
+    trace.export_chrome_trace(chrome_trace)
+    rows = trace.key_averages()
     by_name = {}
-    for event in trace.key_averages():
-        micros = getattr(event, "self_device_time_total", None)
-        if micros is None:
-            micros = event.self_cuda_time_total
-        if micros > 0:
-            by_name[event.key] = by_name.get(event.key, 0.0) + micros / 1e6
-    busy = sum(by_name.values())
+    for event in rows:
+        if _on_device(event):
+            by_name[event.key] = (by_name.get(event.key, 0.0)
+                                  + _self_device_us(event) / 1e6)
+    busy = _union_seconds([(event.time_range.start, event.time_range.end)
+                           for event in trace.events()
+                           if _on_device(event)])
     if busy <= 0:
         raise RuntimeError("the profiler recorded no device time")
+    trace_busy = _union_seconds(device_intervals(chrome_trace))
+    all_rows = sum(max(_self_device_us(event), 0) for event in rows) / 1e6
     top = sorted(by_name.items(), key=lambda item: -item[1])[:8]
     host_top = []
     if args.host_top:
@@ -172,6 +226,9 @@ def main():
         "incremental_cluster": args.incremental_cluster,
         "batch_reads": args.batch_reads, "untraced_runs": untraced,
         "traced_wall_s": traced_wall, "device_busy_s": busy,
+        "device_sum_s": sum(by_name.values()), "trace_busy_s": trace_busy,
+        "busy_over_trace": busy / trace_busy if trace_busy else None,
+        "all_rows_s": all_rows, "chrome_trace": chrome_trace,
         "wavefront_kernel_s": sum(seconds for name, seconds in by_name.items()
                                   if "wavefront" in name),
         "agglomerate_kernel_s": sum(seconds for name, seconds

@@ -13,10 +13,11 @@ ops/wavefront_kernel.py and ops/distance_kernel.py:
     1` rounds of torch ops.  They run on any device and equal the JAX
     package's outputs bit for bit on the CPU.
   * `agglomerate_batched_cuda`, `span_position_agglomerate_batched_cuda` -
-    the wrappers of the hand-written CUDA kernel (csrc/agglomerate.cu: one
-    CTA a partition, the matrix resident in shared memory for all its
-    steps, each partition running its own step count), bit-identical to the
-    plain versions, counted in `LAUNCHES`.
+    the wrappers of the hand-written CUDA kernel (csrc/agglomerate.cu: a
+    minimum kept a row, one CTA a partition with a thread a row, or a warp
+    a partition when P <= 32; the matrix resident in shared memory for all
+    its steps, each partition running its own step count), bit-identical
+    to the plain versions, counted in `LAUNCHES`.
   * `agglomerate_batched`, `span_position_agglomerate_batched` - the
     dispatchers the CLUSTER stage calls: CPU tensors take the plain
     version, CUDA tensors the kernel.  Nothing falls back: a kernel that

@@ -1,15 +1,20 @@
 """The agglomeration kernel (svim_tpu_torch/csrc/agglomerate.cu) on the CPU.
 
 A CUDA kernel cannot run here, so this file keeps a numpy model of the
-kernel's algorithm as the `.cu` writes it (`_model_*` below: a partition's
-own step count with the early exit, the thread-strided scan and the two
-reduction stages of the block argmin with the lowest flat index winning, the
-runner-up over every cell but the merged pair's two, the one fused
-multiply-add, the fused entry's staging, votes and masks) and holds it
+kernel's algorithm as the `.cu` writes it (`_model_*` below) and holds it
 bitwise to svim_tpu's agglomerate_batched and
 span_position_agglomerate_batched and to the port's plain versions, on
 seeded numpy inputs: both pad buckets, the three distance kinds, the wall on
-and off, ragged valid counts, padding partitions, exact ties.
+and off, ragged valid counts, padding partitions, exact ties, matrices that
+are not symmetric.  The model of the step loop keeps what the kernel keeps:
+a minimum a row (value, first column), the global argmin as the least of
+the row minima by value and then by flat index, the runner-up from the
+other rows' minima and rows lo and hi, the one fused multiply-add, and the
+rules by which a row's minimum follows the update (row hi dead, row lo
+reduced from its new cells in the next step's exchange, a row whose minimum
+sat in column lo or hi rescanned, any other row comparing its new cell
+(r, lo) with its minimum); a partition's own step count with the early
+exit; the fused entry's staging, votes and masks.
 
 Also here: the dispatch (CPU tensors take the plain version and never touch
 the build; a tensor on a card takes the kernel, and a loader that fails
@@ -36,35 +41,21 @@ NORM = 900.0
 THRESHOLD = 0.3
 
 
-def _threads_for(p):
-    """threads_for() of the .cu."""
-    return 256 if p <= 64 else 512
+def _lexmin(values, indices):
+    """The (value, index) pair that the kernel's reductions return: the
+    least value, and on equal values the least index.  The order is total,
+    so the shape of the shuffle tree and of the exchange between warps does
+    not change the result."""
+    values = np.asarray(values, dtype=F32)
+    indices = np.asarray(indices)
+    first = np.lexsort((indices, values))[0]
+    return values[first], int(indices[first])
 
 
-def _model_block_argmin(flat, threads):
-    """block_argmin(): every thread scans its cells tid, tid + T, ... and
-    keeps its first minimum; a warp's 32 threads, then the warps, reduce
-    (value, flat index) pairs by value and then by index."""
-    cells = len(flat)
-    rounds = -(-cells // threads)
-    padded = np.full(rounds * threads, np.inf, dtype=F32)
-    padded[:cells] = flat
-    table = padded.reshape(rounds, threads)
-    rows = np.argmin(table, axis=0)            # first minimum of a thread
-    value = table[rows, np.arange(threads)]
-    index = rows * threads + np.arange(threads)
-    idle = np.arange(threads) >= cells         # such a thread offers cell 0
-    value[idle] = flat[0]
-    index[idle] = 0
-
-    def reduce(value, index):
-        order = np.lexsort((index, value))     # by value, then by index
-        return value[order[0]], index[order[0]]
-
-    warp = [reduce(value[w:w + 32], index[w:w + 32])
-            for w in range(0, threads, 32)]
-    return reduce(np.array([v for v, _ in warp], dtype=F32),
-                  np.array([i for _, i in warp]))
+def _rescan(row):
+    """A row's minimum as the kernel's rescan finds it: (value, first
+    column)."""
+    return _lexmin(row, np.arange(len(row)))
 
 
 def _fma(a, b, c):
@@ -73,48 +64,94 @@ def _fma(a, b, c):
     return F32(np.float64(a) * np.float64(b) + np.float64(c))
 
 
-def _model_agglomerate(d, steps):
-    """agglomerate() of the .cu over one (P, P) float32 matrix."""
+def _model_agglomerate(d, steps, trace=None):
+    """agglomerate() of the .cu over one (P, P) float32 matrix.  With
+    `trace` (a list) the state after every step's exchange is appended:
+    the matrix, the row minima (values, columns) and the counts so far of
+    rescanned rows and of rows whose minimum moved to column lo on an equal
+    value."""
     p = d.shape[0]
     d = d.copy()
-    threads = _threads_for(p)
     merges_lo = np.full(p - 1, -1, dtype=np.int32)
     merges_hi = np.full(p - 1, -1, dtype=np.int32)
     heights = np.full(p - 1, BIG, dtype=F32)
     sizes = ((d < CUTOFF).any(axis=1) | (d < CUTOFF).any(axis=0)).astype(F32)
     min_gap = BIG
+    minima = [_rescan(d[r]) for r in range(p)]
+    value = np.array([v for v, _ in minima], dtype=F32)
+    column = np.array([c for _, c in minima])
+    counts = {"rescans": 0, "tie_takeovers": 0}
+    last_lo, merged, pending = -1, None, None
+    slots = np.arange(p)
     with np.errstate(over="ignore", invalid="ignore"):
-        for step in range(steps):
-            _found, flat = _model_block_argmin(d.reshape(-1), threads)
+        for step in range(steps + 1):
+            # the exchange: every row's minimum but last step's row lo, whose
+            # new cells stand in for it; row lo's own minimum from those
+            # cells; last step's runner-up
+            others = slots != last_lo
+            candidates = value[others]
+            flats = slots[others] * p + column[others]
+            if last_lo >= 0:
+                candidates = np.concatenate([candidates, merged])
+                flats = np.concatenate([flats, last_lo * p + slots])
+                value[last_lo], column[last_lo] = _lexmin(merged, slots)
+            _found, flat = _lexmin(candidates, flats)
+            if trace is not None:
+                trace.append(dict(counts, d=d.copy(), value=value.copy(),
+                                  column=column.copy()))
+            if pending is not None:
+                best, second = pending
+                gap = F32(second - best) / max(best, F32(1.0))
+                if second < CUTOFF:
+                    min_gap = min(min_gap, gap)
+            if step == steps:
+                break
             i, j = divmod(int(flat), p)
             lo, hi = min(i, j), max(i, j)
             best = d[lo, hi]
             if not best < CUTOFF:
                 break
-            masked = d.copy()
-            masked[lo, hi] = BIG
-            masked[hi, lo] = BIG
-            second = masked.min()
-            gap = F32(second - best) / max(best, F32(1.0))
-            if second < CUTOFF:
-                min_gap = min(min_gap, gap)
+            # rows lo and hi: each slot k's runner-up candidate and merged
+            # cell
             size_lo, size_hi = sizes[lo], sizes[hi]
             size_sum = F32(size_lo + size_hi)
+            second = BIG
             merged = np.full(p, BIG, dtype=F32)
             for k in range(p):
                 d_lo, d_hi = d[lo, k], d[hi, k]
+                if k not in (lo, hi):
+                    second = min(second, value[k])
+                if k != hi:
+                    second = min(second, d_lo)
+                if k != lo:
+                    second = min(second, d_hi)
                 keep_big = (d_lo >= CUTOFF or d_hi >= CUTOFF
                             or k == lo or k == hi)
                 if not keep_big:
                     merged[k] = _fma(size_lo, d_lo,
                                      F32(size_hi * d_hi)) / size_sum
+            pending = (best, second)
+            # the writes, then each row's minimum follows them
             d[lo, :] = merged
             d[:, lo] = merged
             d[hi, :] = BIG
             d[:, hi] = BIG
+            for k in range(p):
+                if k == hi:
+                    value[k], column[k] = BIG, 0
+                elif k == lo:
+                    continue
+                elif column[k] in (lo, hi):
+                    value[k], column[k] = _rescan(d[k])
+                    counts["rescans"] += 1
+                elif merged[k] < value[k] or (merged[k] == value[k]
+                                              and lo < column[k]):
+                    counts["tie_takeovers"] += int(merged[k] == value[k])
+                    value[k], column[k] = merged[k], lo
             sizes[lo] = size_sum
             sizes[hi] = 0.0
             merges_lo[step], merges_hi[step], heights[step] = lo, hi, best
+            last_lo = lo
     return merges_lo, merges_hi, heights, F32(min_gap)
 
 
@@ -320,8 +357,9 @@ def test_matrix_model_is_bitwise_jax_and_plain(pad, counts, ties):
 
 def test_lowest_flat_index_wins_an_exact_tie():
     """Four equal minima, the first of them at flat index 1 * P + 2: the
-    model's two reduction stages must return that cell whichever thread and
-    warp holds it, as jnp.argmin of the flattened matrix does."""
+    least row minimum by value and then by flat index must be that cell,
+    whichever warp holds its row, as jnp.argmin of the flattened matrix
+    returns."""
     for pad in (32, 128):
         matrix = np.full((1, pad, pad), 3.0e38, dtype=np.float32)
         count = pad - 1
@@ -335,9 +373,11 @@ def test_lowest_flat_index_wins_an_exact_tie():
         _assert_bitwise(model, jax_out, "model against svim_tpu")
         assert (model[0][0, 0], model[1][0, 0]) == (1, 2)
         assert model[3][0] == 0
-        flat = matrix[0].reshape(-1)
-        assert _model_block_argmin(flat, _threads_for(pad))[1] == pad + 2
-        assert int(np.argmin(flat)) == pad + 2
+        minima = [_rescan(row) for row in matrix[0]]
+        assert _lexmin([v for v, _ in minima],
+                       [r * pad + c for r, (_, c) in enumerate(minima)])[1] \
+            == pad + 2
+        assert int(np.argmin(matrix[0].reshape(-1))) == pad + 2
 
 
 def test_a_partition_runs_its_own_step_count():
@@ -476,3 +516,108 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take():
             _OnCard(kinds))
     with pytest.raises(ValueError, match=r"must be \(B, P, P\)"):
         torch_linkage.agglomerate_batched_cuda(_OnCard(valid), _OnCard(valid))
+
+
+def _asymmetric_matrices(seed, pad, counts, ties=False):
+    """Seeded matrices whose (r, c) and (c, r) differ: the matrix entry
+    takes any (B, P, P) matrix, and jnp.argmin runs over all of it."""
+    rng = np.random.default_rng(seed)
+    matrices = np.full((len(counts), pad, pad), 3.0e38, dtype=np.float32)
+    valid = np.zeros((len(counts), pad), dtype=bool)
+    for row, n in enumerate(counts):
+        if ties:
+            values = rng.integers(1, 6, size=(n, n)).astype(np.float32) / 8
+        else:
+            values = (rng.random((n, n)) * 1.4).astype(np.float32)
+        matrices[row, :n, :n] = values
+        valid[row, :n] = True
+    return matrices, valid
+
+
+def _traced(matrix, count):
+    """The model's trace over one partition of the matrix entry."""
+    pad = matrix.shape[0]
+    valid = np.arange(pad) < count
+    pair = valid[:, None] & valid[None, :] & ~np.eye(pad, dtype=bool)
+    trace = []
+    _model_agglomerate(np.where(pair, matrix, BIG).astype(F32), count - 1,
+                       trace)
+    return trace
+
+
+@pytest.mark.parametrize("pad,counts", [
+    (32, [2, 5, 32, 17, 0, 31]), (128, [3, 128, 40, 1, 100])])
+@pytest.mark.parametrize("ties", [False, True])
+def test_non_symmetric_matrices_through_the_matrix_entry(pad, counts, ties):
+    """Rows keep the input's asymmetry where the update does not reach:
+    the row minima must follow each full row, not the upper triangle."""
+    matrices, valid = _asymmetric_matrices(7 * pad + ties, pad, counts, ties)
+    assert not np.array_equal(matrices, matrices.transpose(0, 2, 1))
+    model = _model_matrix(matrices, valid)
+    jax_out = jax_linkage.agglomerate_batched(matrices, valid)
+    plain = torch_linkage.agglomerate_batched_plain(_t(matrices), _t(valid))
+    _assert_bitwise(model, jax_out, "model against svim_tpu")
+    _assert_bitwise(plain, jax_out, "plain against svim_tpu")
+    assert (model[0][np.asarray(counts) >= 2] >= 0).any()
+
+
+@pytest.mark.parametrize("pad,counts", [(32, [32, 24, 32, 17]),
+                                        (128, [128, 60])])
+def test_a_new_cell_in_column_lo_takes_a_tied_row_minimum(pad, counts):
+    """Few-valued matrices (multiples of 1/8): a merged cell (r, lo) can
+    equal row r's minimum at a higher column and must then take it over, or
+    the argmin drifts from jnp.argmin's first minimum.  Only a matrix that
+    is not symmetric gets there: in a symmetric one the merged cell averages
+    (r, lo) and (r, hi), both at least the row's minimum, so it equals the
+    minimum only where both do, and then the first minimum already lies at
+    or before column lo."""
+    matrices, valid = _asymmetric_matrices(40 + pad, pad, counts, ties=True)
+    takeovers = [_traced(matrix, count)[-1]["tie_takeovers"]
+                 for matrix, count in zip(matrices, counts)]
+    assert sum(takeovers) > 0
+    model = _model_matrix(matrices, valid)
+    _assert_bitwise(model, jax_linkage.agglomerate_batched(matrices, valid),
+                    "model against svim_tpu")
+    symmetric, valid = _matrices(40 + pad, pad, counts, ties=True)
+    assert all(_traced(matrix, count)[-1]["tie_takeovers"] == 0
+               for matrix, count in zip(symmetric, counts))
+
+
+@pytest.mark.parametrize("make,ties", [(_matrices, False), (_matrices, True),
+                                       (_asymmetric_matrices, False),
+                                       (_asymmetric_matrices, True)])
+def test_row_minima_equal_a_full_rescan_after_every_step(make, ties):
+    """The invariant the kernel rests on: after every step each row's kept
+    (value, column) is the first minimum of the whole row, dead rows and
+    padding slots included."""
+    pad = 32
+    counts = [32, 9, 2]
+    matrices, _valid = make(5 + ties, pad, counts, ties)
+    rescans = 0
+    for matrix, count in zip(matrices, counts):
+        trace = _traced(matrix, count)
+        assert len(trace) >= count - 1
+        for state in trace:
+            for r in range(pad):
+                assert (state["value"][r], state["column"][r]) \
+                    == _rescan(state["d"][r])
+        rescans += trace[-1]["rescans"]
+    assert rescans > 0
+
+
+def test_the_runner_up_ties_in_row_lo_or_hi_give_gap_zero():
+    """(lo, hi) ties with a cell of row lo, then of row hi: the runner-up
+    reads those rows without the pair's own cells, so the gap is exactly
+    0."""
+    pad = 32
+    for other in ((0, 2), (1, 2)):
+        matrix = np.full((1, pad, pad), 3.0e38, dtype=np.float32)
+        matrix[0, :4, :4] = 2.0
+        for i, j in ((0, 1), other):
+            matrix[0, i, j] = matrix[0, j, i] = 0.5
+        valid = np.arange(pad)[None, :] < 4
+        model = _model_matrix(matrix, valid)
+        _assert_bitwise(model, jax_linkage.agglomerate_batched(matrix, valid),
+                        "model against svim_tpu")
+        assert (model[0][0, 0], model[1][0, 0]) == (0, 1)
+        assert model[3][0] == 0

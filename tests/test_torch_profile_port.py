@@ -1,0 +1,92 @@
+"""The device-busy count of scripts/profile_port.py, on the CPU.
+
+The script's numbers come from a card, but what it counts is decided here:
+only the device's own events (kernels, copies, memsets; no CPU-op row, whose
+self device time is that of the kernels it launched, and no user
+annotation), and busy time as the union of their intervals, so that a copy
+beside a kernel counts once.
+"""
+
+import importlib.util
+import json
+import os
+from types import SimpleNamespace
+
+import pytest
+import torch
+from torch.autograd import DeviceType
+
+_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "scripts", "profile_port.py")
+
+
+@pytest.fixture(scope="module")
+def profile_port():
+    spec = importlib.util.spec_from_file_location("profile_port", _PATH)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("intervals,seconds", [
+    ([], 0.0),
+    ([(0, 10)], 10e-6),
+    ([(0, 10), (20, 25)], 15e-6),
+    ([(0, 10), (5, 12)], 12e-6),            # a copy beside a kernel
+    ([(5, 12), (0, 10), (1, 2), (12, 14)], 14e-6),
+])
+def test_busy_is_the_union_of_the_intervals(profile_port, intervals, seconds):
+    assert profile_port._union_seconds(intervals) == pytest.approx(seconds)
+
+
+def test_only_device_rows_count(profile_port):
+    def row(device_type, annotation=False):
+        return SimpleNamespace(device_type=device_type,
+                               is_user_annotation=annotation)
+
+    assert profile_port._on_device(row(DeviceType.CUDA))
+    assert not profile_port._on_device(row(DeviceType.CPU))
+    assert not profile_port._on_device(row(DeviceType.CUDA, True))
+    # a torch without the annotation flag: a CUDA row is a device row
+    assert profile_port._on_device(SimpleNamespace(
+        device_type=DeviceType.CUDA))
+
+
+def test_trace_intervals_are_kernels_copies_and_memsets(profile_port,
+                                                        tmp_path):
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "agglomerate", "ts": 100.0,
+         "dur": 5.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 103.0,
+         "dur": 4.0},
+        {"ph": "X", "cat": "gpu_memset", "name": "Memset", "ts": 120.0,
+         "dur": 1.0},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::copy_", "ts": 90.0,
+         "dur": 40.0},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 95.0, "dur": 3.0},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "cluster",
+         "ts": 99.0, "dur": 30.0},
+        {"ph": "i", "cat": "kernel", "name": "instant", "ts": 1.0},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    intervals = profile_port.device_intervals(str(path))
+    assert sorted(intervals) == [(100.0, 105.0), (103.0, 107.0),
+                                 (120.0, 121.0)]
+    assert profile_port._union_seconds(intervals) == pytest.approx(8e-6)
+
+
+def test_a_profiler_trace_without_a_card_has_no_device_interval(
+        profile_port, tmp_path):
+    """The trace torch.profiler writes parses, and a CPU-only run puts
+    nothing on the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as trace:
+        torch.ones(64).cumsum(0)
+    path = str(tmp_path / "trace.json")
+    trace.export_chrome_trace(path)
+    assert profile_port.device_intervals(path) == []
+    assert not any(profile_port._on_device(event)
+                   for event in trace.key_averages())
