@@ -6,8 +6,9 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. environment: a CUDA device is required; prints the card's name and
      power limit (nvidia-smi) and the torch / CUDA versions;
-  2. build: compiles csrc/wavefront.cu, csrc/span_distance.cu and
-     csrc/agglomerate.cu with nvcc (all three at once) and, beside them, the
+  2. build: compiles the five kernel sources, csrc/wavefront.cu,
+     span_distance.cu, agglomerate.cu, collect_scan.cu and
+     classify_segments.cu, with nvcc (all at once) and, beside them, the
      port's native host library (svim_tpu_torch/native: scan session, POA)
      with g++, all into svim_tpu_torch/_build;
   3. kernel vs plain version on the card: banded_distance_cuda against
@@ -119,6 +120,22 @@ Phases, each of which raises (non-zero exit) on failure:
      recorded inputs and must be equal, as must the two agglomeration ops on
      seeded partitions cut into 8; entry.entry() and
      entry.dryrun_multichip(8) run on the card.
+ 15. the COLLECT kernels: every call the main path made to
+     ops.cigar_kernel.collect_scan and ops.segments_kernel.
+     classify_groups_fused in phases 4, 5, 5b, 8, 9 and 14 (recorded as
+     clones on the card) runs again through csrc/collect_scan.cu and
+     csrc/classify_segments.cu and through the plain versions on the card:
+     bit-equal to each other and to the path's own outputs; so must the
+     seeded cases (collect_cases: every K bucket up to 8192 at thresholds 1
+     and 40, clip-only and clipped rows, zero-length ops, ops 3, 9 and 10,
+     K = 40,000, N = 1, an overflowing table whose re-run gives every
+     event, 8 shards with one overflowing merged as the whole batch;
+     classify_cases: S = 2, 64, 128, 256 with key ties, invalid slots in
+     the middle, gated and padding groups, every code, twins and
+     cross-contig pairs).  Both ops, and the 8-shard scan, must enqueue on
+     card tensors under torch.cuda.set_sync_debug_mode("error"); prints
+     kernel and plain ms beside the bound by bytes at the bench batch
+     shape and, for the scan, at N = 4096 with K = 128 and 8192.
 The script imports torch and the port, never jax or the JAX package: the
 inputs come from svim_tpu_torch.workloads.
 Then one JSON line describing the kernels, the card line, and the last
@@ -220,8 +237,10 @@ def phase_build():
     from svim_tpu_torch import native
     from svim_tpu_torch.ops import (
         _build,
+        cigar_kernel,
         distance_kernel,
         linkage_kernel,
+        segments_kernel,
         wavefront_kernel,
     )
 
@@ -235,21 +254,25 @@ def phase_build():
             host["error"] = error
         host["seconds"] = time.perf_counter() - started
 
-    # g++ compiles the host library while the three nvcc processes run
+    # g++ compiles the host library while the nvcc processes run
     thread = threading.Thread(target=build_host)
     thread.start()
     try:
         _build.build(_build.KERNEL_SOURCES)
         wavefront_kernel._kernel_library()
         distance_kernel._kernel_library()
+        cigar_kernel._kernel_library()
         slots = linkage_kernel._kernel_library().agglomerate_max_slots()
+        classify_slots = segments_kernel._kernel_library(
+            ).classify_max_slots()
         log("build", "{0} built (in parallel) and loaded in {1:.2f}s (nvcc "
-            "{2}); DPX add-min: {3}; agglomeration up to P = {4}".format(
+            "{2}); DPX add-min: {3}; agglomeration up to P = {4}; classify "
+            "up to S = {5}".format(
                 ", ".join(name + ".cu" for name in _build.KERNEL_SOURCES),
                 time.perf_counter() - started,
                 json.dumps({name: round(seconds, 2) for name, seconds
                             in _build.BUILD_SECONDS.items()}),
-                wavefront_kernel.uses_dpx(), slots))
+                wavefront_kernel.uses_dpx(), slots, classify_slots))
     finally:
         thread.join()
     if "error" in host:
@@ -633,7 +656,9 @@ def _telemetry():
 
 KERNEL_MODULES = {"wavefront_banded_distance": "wavefront_kernel",
                   "span_distance_matrix": "distance_kernel",
-                  "agglomerate": "linkage_kernel"}
+                  "agglomerate": "linkage_kernel",
+                  "collect_scan": "cigar_kernel",
+                  "classify_segments": "segments_kernel"}
 # launch counts of every kernel, per path the smoke drives
 PATH_LAUNCHES = {}
 
@@ -2219,11 +2244,12 @@ class ShardedCallRecorder:
         self.scan = self.mesh.collect_scan_sharded
         self.join = self.genotype_kernel.genotype_ref_support_device
 
-        def scan(num_shards, device, cigar_words, ref_start, min_sv_size):
+        def scan(num_shards, device, cigar_words, ref_start, min_sv_size,
+                 max_events):
             outputs = self.scan(num_shards, device, cigar_words, ref_start,
-                                min_sv_size)
+                                min_sv_size, max_events)
             self.scans.append((num_shards, device, cigar_words, ref_start,
-                               min_sv_size, outputs))
+                               min_sv_size, max_events, outputs))
             return outputs
 
         def join(jobs, per_tid, device, num_shards=1):
@@ -2293,13 +2319,13 @@ def phase_shards(bench_bam, bench_genome):
                 layout))
 
     cut_scans = 0
-    for (num_shards, device, words, ref_start, min_sv_size,
+    for (num_shards, device, words, ref_start, min_sv_size, max_events,
          got) in recorder.scans:
         if device.type != "cuda" or num_shards != shards:
             raise AssertionError("a COLLECT scan ran on {0} over {1} shards"
                                  .format(device, num_shards))
         want = mesh.collect_scan_sharded(1, device, words, ref_start,
-                                         min_sv_size)
+                                         min_sv_size, max_events)
         if len(got) != len(want) or not all(
                 a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
                 for a, b in zip(got, want)):
@@ -2370,7 +2396,9 @@ def phase_shards(bench_bam, bench_genome):
     outputs = function(*arguments)
     torch.cuda.synchronize()
     if any(value.device.type != "cuda" for value in arguments) \
-            or int(outputs[10]) != len(outputs[5]) or int(outputs[10]) <= 0:
+            or int((outputs[5] >= 0).sum()) != min(int(outputs[10]),
+                                                  len(outputs[5])) \
+            or int(outputs[10]) <= 0:
         raise AssertionError("entry.entry() did not run on the card")
     entry.dryrun_multichip(shards)
     log("shards", "--num_shards {0}: VCF hashes to svim_tpu's; {1!r}; "
@@ -2381,6 +2409,472 @@ def phase_shards(bench_bam, bench_genome):
             shards, layout, launches, len(recorder.scans), cut_scans,
             len(recorder.joins), cut_joins, ", ".join(checked),
             int(outputs[10])))
+
+
+# the two COLLECT ops as the main path calls them: (kernel name, module,
+# attribute); parallel/mesh.py calls ops.cigar_kernel.collect_scan by its own
+# name, collect/packed.py looks classify_groups_fused up at each call
+COLLECT_OPS = (("collect_scan", "svim_tpu_torch.parallel.mesh",
+                "collect_scan"),
+               ("classify_segments", "svim_tpu_torch.ops.segments_kernel",
+                "classify_groups_fused"))
+# each kernel's ops module, wrapper, plain version, source and the TPU
+# program it replaces
+COLLECT_FUNCTIONS = {
+    "collect_scan": ("cigar_kernel", "collect_scan_cuda",
+                     "collect_scan_plain",
+                     "svim_tpu_torch/csrc/collect_scan.cu",
+                     "svim_tpu/ops/cigar_kernel.py:137"),
+    "classify_segments": ("segments_kernel", "classify_groups_fused_cuda",
+                          "classify_groups_fused_plain",
+                          "svim_tpu_torch/csrc/classify_segments.cu",
+                          "svim_tpu/ops/segments_kernel.py:43")}
+# the phases whose COLLECT calls phase 15 checks again
+COLLECT_RECORDED = ("golden", "bench", "tiefree", "streaming", "inputs",
+                    "shards")
+
+
+def _clone(value):
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        return value.clone()
+    if isinstance(value, (tuple, list)):
+        return type(value)(_clone(item) for item in value)
+    if isinstance(value, dict):
+        return {key: _clone(item) for key, item in value.items()}
+    return value
+
+
+class CollectRecorder:
+    """While `recording(label)` is active, keeps a copy of the inputs and
+    outputs of every call the main path makes to the two COLLECT ops, filed
+    under `label`.  The copies are clones on the inputs' device, so
+    recording waits for nothing and the path runs as it would."""
+
+    def __init__(self):
+        self.calls = []   # (label, kernel name, args, kwargs, outputs)
+
+    def recording(self, label):
+        import contextlib
+        import importlib
+
+        @contextlib.contextmanager
+        def active():
+            patched = []
+            for kernel, module_name, attribute in COLLECT_OPS:
+                module = importlib.import_module(module_name)
+                original = getattr(module, attribute)
+
+                def recorded(*args, _original=original, _kernel=kernel,
+                             **kwargs):
+                    outputs = _original(*args, **kwargs)
+                    self.calls.append((label, _kernel, _clone(args),
+                                       _clone(kwargs), _clone(outputs)))
+                    return outputs
+                setattr(module, attribute, recorded)
+                patched.append((module, attribute, original))
+            try:
+                yield self
+            finally:
+                for module, attribute, original in patched:
+                    setattr(module, attribute, original)
+        return active()
+
+
+def _rows_of_ops(k, op_lists):
+    """(len(op_lists), k) int32 BAM words from explicit (op, length) lists,
+    each cut to k ops and padded with 0."""
+    import numpy as np
+
+    words = np.zeros((len(op_lists), k), dtype=np.int32)
+    for row, ops in enumerate(op_lists):
+        for col, (op, length) in enumerate(ops[:k]):
+            words[row, col] = (length << 4) | op
+    return words
+
+
+# rows the seeded COLLECT cases start with: only clips, leading and
+# trailing soft and hard clips, clips inside, zero-length ops (clip-like),
+# ops 3, 9 and 10, all zero-length, and runs of clips across the 32-op
+# chunks of the kernel's warps
+CLIP_ROWS = (
+    [(5, 10), (4, 20), (4, 0), (5, 0)],
+    [(5, 30), (4, 40), (0, 100), (2, 50), (0, 10), (4, 25), (5, 5)],
+    [(0, 100), (4, 60)],
+    [(4, 10), (0, 0), (4, 20), (0, 5), (4, 7), (1, 0)],
+    [(9, 1000), (1, 45), (10, 300), (3, 500), (2, 60), (9, 7), (10, 1)],
+    [(1, 0), (2, 0), (0, 0)],
+    [(0, 10), (4, 15), (5, 3), (0, 10)],
+    [(4, i + 1) for i in range(40)] + [(0, 50), (1, 41)] + [(4, 3)] * 40
+    + [(5, 9)],
+    [(5, 2)] * 33 + [(2, 40)] + [(5, 1)] * 70,
+    [],
+)
+
+
+def _random_cigar_rows(rng, n, k):
+    """(n, k) int32 words: every op code 0-10 (matches weighted), lengths
+    0-199 with 5% zero, each row of a random length padded with 0."""
+    import numpy as np
+
+    ops = rng.choice(np.array([0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10]),
+                     size=(n, k))
+    lens = rng.integers(0, 200, size=(n, k))
+    lens[rng.random((n, k)) < 0.05] = 0
+    words = ((lens << 4) | ops).astype(np.int32)
+    used = rng.integers(1, k + 1, size=n)
+    words[np.arange(k)[None, :] >= used[:, None]] = 0
+    return words
+
+
+def collect_cases(rng):
+    """Seeded inputs of the COLLECT scan: (label, words, ref_start,
+    min_sv_size, max_events, shards), numpy.  Every K bucket up to 8192
+    at thresholds 1 and 40, K = 40,000 (a row past 32,768 ops, K no
+    multiple of 32), N = 1, a table that overflows, and 8 shards with and
+    without one shard overflowing."""
+    import numpy as np
+
+    from svim_tpu_torch.ops.cigar_kernel import event_bound
+
+    def case(label, words, threshold, max_events=None, shards=1):
+        n = words.shape[0]
+        starts = rng.integers(-1000, 200_000_000, size=n).astype(np.int32)
+        return (label, words, starts, threshold,
+                event_bound(n) if max_events is None else max_events, shards)
+
+    for k in (32, 128, 512, 2048, 8192):
+        n = 64 if k < 8192 else 32
+        for threshold in (1, 40):
+            words = np.concatenate([_rows_of_ops(k, CLIP_ROWS),
+                                    _random_cigar_rows(rng, n, k)])
+            yield case("K={0} min_sv_size={1}".format(k, threshold), words,
+                       threshold)
+    long_rows = _random_cigar_rows(rng, 2, 40_000)
+    long_rows[0, 32_768:] = _random_cigar_rows(rng, 1, 40_000 - 32_768)[0]
+    yield case("K=40000", np.concatenate([_rows_of_ops(40_000, CLIP_ROWS),
+                                          long_rows]), 40)
+    yield case("N=1", _random_cigar_rows(rng, 1, 128), 40)
+    words = _random_cigar_rows(rng, 512, 128)
+    yield case("overflowing table", words, 1, max_events=1024)
+    heavy = _random_cigar_rows(rng, 512, 128)
+    # shard 3 of 8: every op an event, 8,192 of them
+    heavy[192:256] = np.where(np.arange(128) % 2 == 0, (100 << 4) | 2,
+                              (60 << 4) | 1).astype(np.int32)[None, :]
+    yield case("8 shards, shard 3 overflowing", heavy, 40, max_events=1024,
+               shards=8)
+    yield case("8 shards", words, 40, max_events=16384, shards=8)
+
+
+def classify_inputs(rng, groups, slots, rows=256):
+    """Seeded inputs of classify_groups_fused as numpy arrays, in its
+    positional order (the thresholds and max_segments last): slots on a
+    100-base grid so that (q_start, q_end) ties are common, invalid slots in
+    the middle of groups, a third of the slots gathered from packed rows,
+    half the groups behind a hard-clip gate, the last two groups padding,
+    15% of the segments on a second contig, and max_sv_size 1000 so that
+    the huge DEL, tandem and INV codes occur."""
+    import numpy as np
+
+    ref_id_all = (rng.random(rows) < 0.15).astype(np.int32)
+    ref_start_all = rng.integers(0, 12_000, rows).astype(np.int32)
+    ref_end_all = (ref_start_all + rng.integers(0, 2500, rows)).astype(
+        np.int32)
+    read_len = rng.integers(3000, 6000, rows).astype(np.int32)
+    qa_start = rng.integers(0, 1500, rows).astype(np.int32)
+    qa_end = np.minimum(read_len, qa_start + rng.integers(0, 3000, rows)
+                        ).astype(np.int32)
+    is_reverse_all = rng.random(rows) < 0.5
+    has_hard = rng.random(rows) < 0.3
+
+    counts = rng.integers(0, slots + 1, groups)
+    counts[-2:] = 0
+    valid = ((np.arange(slots)[None, :] < counts[:, None])
+             & (rng.random((groups, slots)) >= 0.1))
+    slot_row = np.where(valid & (rng.random((groups, slots)) < 0.3),
+                        rng.integers(0, rows, (groups, slots)), -1).astype(
+        np.int32)
+    q_start = rng.integers(0, 30, (groups, slots)) * 100
+    q_end = q_start + rng.integers(0, 20, (groups, slots)) * 100
+    ref_id = (rng.random((groups, slots)) < 0.15).astype(np.int32)
+    ref_start = rng.integers(0, 12_000, (groups, slots))
+    ref_end = ref_start + rng.integers(0, 2500, (groups, slots))
+    host = [np.where(valid, column, 0).astype(np.int32)
+            for column in (q_start, q_end, ref_id, ref_start, ref_end)]
+    is_reverse = valid & (rng.random((groups, slots)) < 0.5)
+    hard_gate = np.where(rng.random(groups) < 0.5,
+                         rng.integers(0, rows, groups), -1).astype(np.int32)
+    return (slot_row, *host, is_reverse, valid, hard_gate, ref_id_all,
+            ref_start_all, is_reverse_all, ref_end_all, read_len, qa_start,
+            qa_end, has_hard, 40, 1000, 100, 100, 64)
+
+
+def classify_cases(rng):
+    """(label, inputs) of the seeded classify cases: S = 2, 64, 128 and 256
+    (over 64 slots: the first 64 sorted segments are kept)."""
+    for groups, slots in ((256, 2), (64, 64), (32, 128), (8, 256)):
+        yield ("G={0} S={1}".format(groups, slots),
+               classify_inputs(rng, groups, slots))
+
+
+def _classify_call(inputs):
+    """classify_groups_fused's positional arguments and keywords from a
+    tuple of classify_inputs."""
+    return list(inputs[:-1]), {"max_segments": inputs[-1]}
+
+
+def collect_bound_ms(words_shape, max_events):
+    """The least time the card could take for a COLLECT scan: the words and
+    starts read once, the geometry, the event table and the count written
+    once, over the memory rate.  Returns (ms, "bytes")."""
+    n, k = words_shape
+    moved = 4 * n * k + 4 * n + 17 * n + 17 * max_events + 4
+    return moved / HBM_BYTES_PER_SECOND * 1e3, "bytes"
+
+
+def classify_bound_ms(args):
+    """The least time the card could take for a classify call on these
+    inputs: the group columns read once, for each slot with a packed row
+    its six row columns (25 bytes), for each gated group its flag, and the
+    twelve (G, S-1) outputs (42 bytes a pair) written once, over the memory
+    rate.  Returns (ms, "bytes")."""
+    slot_row, hard_gate = args[0], args[8]
+    groups, slots = slot_row.shape
+    moved = (groups * slots * (6 * 4 + 2) + 4 * groups
+             + 25 * int((slot_row >= 0).sum()) + int((hard_gate >= 0).sum())
+             + 42 * groups * max(slots - 1, 0))
+    return moved / HBM_BYTES_PER_SECOND * 1e3, "bytes"
+
+
+# what phase 15 has seen: calls compared and the largest difference
+COLLECT_CHECK = {"collect_scan": {"calls": 0, "max_abs_err": 0},
+                 "classify_segments": {"calls": 0, "max_abs_err": 0}}
+
+
+def _collect_module(kernel):
+    """(ops module, wrapper, plain version) of a COLLECT kernel."""
+    import importlib
+
+    module_name, cuda_name, plain_name = COLLECT_FUNCTIONS[kernel][:3]
+    module = importlib.import_module("svim_tpu_torch.ops." + module_name)
+    return module, getattr(module, cuda_name), getattr(module, plain_name)
+
+
+def _collect_against_plain(kernel, args, kwargs, where, recorded=None):
+    """One COLLECT op through its kernel and its plain version on the card:
+    every output bit-equal (and equal to `recorded`, the main path's own
+    outputs, when given).  Returns the kernel's outputs."""
+    import torch
+
+    module, cuda, plain = _collect_module(kernel)
+    args = _on_card(args)
+    kwargs = {key: value.cuda() if isinstance(value, torch.Tensor) else value
+              for key, value in kwargs.items()}
+    before = module.LAUNCHES
+    got = cuda(*args, **kwargs)
+    launched = module.LAUNCHES - before
+    want = plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    if launched != 1:
+        raise AssertionError("{0}: {1} launches of the {2} kernel".format(
+            where, launched, kernel))
+    check = COLLECT_CHECK[kernel]
+    check["calls"] += 1
+    references = [("plain version", want)]
+    if recorded is not None:
+        references.append(("main path's outputs", recorded))
+    for reference_name, reference in references:
+        if len(got) != len(reference):
+            raise AssertionError("{0}: {1} outputs against the {2}'s {3}"
+                                 .format(where, len(got), reference_name,
+                                         len(reference)))
+        for index, (a, b) in enumerate(zip(got, reference)):
+            b = b.cuda()
+            if a.shape == b.shape and a.numel():
+                check["max_abs_err"] = max(check["max_abs_err"], int(
+                    (a.long() - b.long()).abs().max()))
+            if not _bit_equal(a, b):
+                raise AssertionError("{0}: {1} kernel != {2} in output {3}"
+                                     .format(where, kernel, reference_name,
+                                             index))
+    return got
+
+
+def phase_collect_kernels(recorder):
+    """Phase 15: the two COLLECT kernels against their plain versions on
+    the card (bit-equal), on every call the main path made in the recorded
+    phases and on the seeded cases; the overflow re-run and the 8-shard
+    merge; the sync check; times beside the bound.  Returns {(kernel,
+    "bench batch" or "seeded", shape): (ms, plain ms, bound ms, bound
+    by)}."""
+    import numpy as np
+    import torch
+
+    from svim_tpu_torch.ops import cigar_kernel, segments_kernel
+    from svim_tpu_torch.ops.cigar_kernel import round_up_pow2
+    from svim_tpu_torch.parallel import mesh
+
+    by_label = {}
+    for label, kernel, args, kwargs, outputs in recorder.calls:
+        if any(isinstance(arg, torch.Tensor) and arg.device.type != "cuda"
+               for arg in args):
+            raise AssertionError("a {0} call of {1} ran off the card".format(
+                kernel, label))
+        _collect_against_plain(kernel, args, kwargs, "{0} call of {1}".format(
+            kernel, label), recorded=outputs)
+        by_label.setdefault(label, {}).setdefault(kernel, 0)
+        by_label[label][kernel] += 1
+    for label in COLLECT_RECORDED:
+        if not by_label.get(label, {}).get("collect_scan"):
+            raise AssertionError("phase {0} made no COLLECT scan".format(
+                label))
+    log("collect", "every recorded main-path call is bit-equal to the plain "
+        "version and to its own outputs: {0}".format(json.dumps(by_label)))
+
+    rng = np.random.default_rng(20261021)
+    device = torch.device("cuda")
+    for label, words, starts, threshold, max_events, shards in \
+            collect_cases(rng):
+        where = "collect_scan, " + label
+        got = _collect_against_plain("collect_scan",
+                                     (words, starts, threshold, max_events),
+                                     {}, where)
+        count = int(got[10])
+        if shards > 1:
+            args = _on_card((words, starts))
+            whole = mesh.collect_scan_sharded(1, device, *args, threshold,
+                                              max_events)
+            cut = mesh.collect_scan_sharded(shards, device, *args, threshold,
+                                            max_events)
+            if not all(_bit_equal(a, b) for a, b in zip(cut, whole)):
+                raise AssertionError(where + ": the merged shards differ "
+                                     "from the whole batch")
+            block = words.shape[0] // shards
+            shard_counts = [int(cigar_kernel.collect_scan(
+                args[0][i * block:(i + 1) * block],
+                args[1][i * block:(i + 1) * block], threshold,
+                max_events)[10]) for i in range(shards)]
+            label += " (shard counts {0})".format(shard_counts)
+        if count > max_events:
+            # the re-run the consumer makes, which must give every event
+            bound = round_up_pow2(count)
+            rerun = _collect_against_plain(
+                "collect_scan", (words, starts, threshold, bound), {},
+                where + ", re-run")
+            unbounded = cigar_kernel.collect_scan_plain(
+                *_on_card((words, starts)), threshold, 2 * bound)
+            if int(rerun[10]) != count or not all(
+                    torch.equal(bounded, full[:max_events])
+                    and torch.equal(full[:count], every[:count])
+                    for bounded, full, every in zip(
+                        got[5:10], rerun[5:10], unbounded[5:10])):
+                raise AssertionError(where + ": the bounded table is not the "
+                                     "re-run's prefix, or the re-run lost "
+                                     "events")
+        log("collect", "{0}: N={1} K={2} bound {3}: bit-equal, {4} events"
+            .format(label, words.shape[0], words.shape[1], max_events,
+                    count))
+
+    codes = set()
+    twins = cross = 0
+    for label, inputs in classify_cases(rng):
+        args, kwargs = _classify_call(inputs)
+        got = _collect_against_plain("classify_segments", args, kwargs,
+                                     "classify_segments, " + label)
+        codes |= set(got[0].unique().tolist())
+        twins += int(got[6].sum())
+        cross += int(((got[0] == 5) & (got[4] != got[11])).sum())
+        log("collect", "classify {0}: bit-equal; codes {1}".format(
+            label, sorted(set(got[0].unique().tolist()))))
+    if codes != {0, 1, 2, 3, 4, 5} or not twins or not cross:
+        raise AssertionError("the seeded classify cases reached codes {0}, "
+                             "{1} twins, {2} cross-contig pairs".format(
+                                 sorted(codes), twins, cross))
+
+    n = 4096
+    words = _random_cigar_rows(rng, n, 128)
+    starts = rng.integers(0, 200_000_000, size=n).astype(np.int32)
+    bound = cigar_kernel.event_bound(n)
+    scan_args = _on_card((words, starts))
+    classify_args, classify_kwargs = _classify_call(
+        classify_inputs(rng, 512, 8))
+    classify_args = _on_card(classify_args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cigar_kernel.collect_scan(*scan_args, 40, bound)
+        mesh.collect_scan_sharded(8, device, *scan_args, 40, bound)
+        segments_kernel.classify_groups_fused(*classify_args,
+                                              **classify_kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("collect", "sync check: collect_scan, collect_scan_sharded over 8 "
+        "shards and classify_groups_fused enqueued on card tensors under "
+        "torch.cuda.set_sync_debug_mode('error') without a host sync")
+
+    def largest(kernel):
+        calls = [(args, kwargs) for label, name, args, kwargs, _ in
+                 recorder.calls if label == "bench" and name == kernel]
+        return max(calls, key=lambda call: call[0][0].numel())
+
+    bench_scan, _ = largest("collect_scan")
+    bench_classify = largest("classify_segments")
+    timed = [("collect_scan", "bench batch", bench_scan, {}),
+             ("classify_segments", "bench batch", bench_classify[0],
+              bench_classify[1])]
+    for k in (128, 8192):
+        words = _random_cigar_rows(rng, n, k)
+        timed.append(("collect_scan", "seeded",
+                      (words, starts, 40, bound), {}))
+    timings = {}
+    for kernel, label, args, kwargs in timed:
+        module, cuda, plain = _collect_module(kernel)
+        tensors = _on_card(args)
+        launches = module.LAUNCHES
+        ms, _ = _device_ms(lambda: cuda(*tensors, **kwargs), 20)
+        module.LAUNCHES = launches
+        plain_ms, _ = _time_ms(lambda: plain(*tensors, **kwargs), 3)
+        if kernel == "collect_scan":
+            shape = "N={0},K={1},max_events={2}".format(
+                *tensors[0].shape, tensors[3])
+            bound_ms, bound_by = collect_bound_ms(tensors[0].shape,
+                                                  tensors[3])
+        else:
+            shape = "G={0},S={1}".format(*tensors[0].shape)
+            bound_ms, bound_by = classify_bound_ms(tensors)
+        timings[(kernel, label, shape)] = (ms, plain_ms, bound_ms, bound_by)
+        log("collect", "{0} at {1} ({2}): kernel {3:.4f} ms, plain {4:.3f} "
+            "ms, bound {5:.5f} ms by {6} (kernel {7:.1f} times its bound)"
+            .format(kernel, shape, label, ms, plain_ms, bound_ms, bound_by,
+                    ms / bound_ms))
+    for path in ("golden", "bench_wavefront", "bench_auto"):
+        for kernel in COLLECT_FUNCTIONS:
+            if PATH_LAUNCHES[path][kernel] <= 0:
+                raise AssertionError("{0} launched no {1} kernel".format(
+                    path, kernel))
+    return timings
+
+
+def collect_kernel_entry(kernel, timings, launches_by_path):
+    """The `kernels` line's entry of a COLLECT kernel: its numbers at the
+    bench batch shape, the other timed shapes under `by_shape`."""
+    (_, _, shape), (ms, plain_ms, bound_ms, bound_by) = next(
+        (key, value) for key, value in timings.items()
+        if key[0] == kernel and key[1] == "bench batch")
+    source, replaces = COLLECT_FUNCTIONS[kernel][3:]
+    return {"name": kernel, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": PATH_LAUNCHES["bench_wavefront"][kernel],
+            "launches_by_path": launches_by_path,
+            "max_abs_err": COLLECT_CHECK[kernel]["max_abs_err"],
+            "compared_calls": COLLECT_CHECK[kernel]["calls"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "shape": shape + " (bench batch)",
+            "by_shape": {"{0} ({1})".format(key[2], key[1]): dict(zip(
+                ("ms", "plain_ms", "bound_ms", "bound_by"), value))
+                for key, value in timings.items() if key[0] == kernel}}
 
 
 def main():
@@ -2399,17 +2893,24 @@ def run_phases(card, makers):
     phase_build()
     timings, max_abs_err = phase_kernels(kernel_shapes())
     recorder = LinkageRecorder()
-    with recorder:
+    collect_calls = CollectRecorder()
+    with recorder, collect_calls.recording("golden"):
         golden_bam, golden_genome = phase_golden()
-    bench_bam, bench_genome, off_seconds = phase_bench(card, recorder, makers)
-    phase_tiefree(card, recorder, makers)
+    with collect_calls.recording("bench"):
+        bench_bam, bench_genome, off_seconds = phase_bench(card, recorder,
+                                                          makers)
+    with collect_calls.recording("tiefree"):
+        phase_tiefree(card, recorder, makers)
     phase_linkage(recorder)
     rescan_design = rescan_design_library()
     phase_resources(rescan_design)
     agglomerate_timings = phase_agglomerate(rescan_design)
     distance_timings, distance_err = phase_distance()
-    phase_streaming(card, bench_bam, bench_genome, golden_bam, golden_genome)
-    phase_inputs(golden_bam, golden_genome)
+    with collect_calls.recording("streaming"):
+        phase_streaming(card, bench_bam, bench_genome, golden_bam,
+                        golden_genome)
+    with collect_calls.recording("inputs"):
+        phase_inputs(golden_bam, golden_genome)
     phase_default_path(card, bench_bam, bench_genome, off_seconds,
                        golden_bam, golden_genome, recorder)
     launch_timings = phase_agglomerate_launches(
@@ -2418,7 +2919,9 @@ def run_phases(card, makers):
     phase_reads(golden_bam, golden_genome)
     phase_distributed(card, bench_bam, bench_genome, off_seconds, golden_bam,
                       golden_genome)
-    phase_shards(bench_bam, bench_genome)
+    with collect_calls.recording("shards"):
+        phase_shards(bench_bam, bench_genome)
+    collect_timings = phase_collect_kernels(collect_calls)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     log("paths", "kernel launches per path: {0}".format(
@@ -2440,10 +2943,11 @@ def run_phases(card, makers):
     by_shape = {"{0} B={1} P={2}".format(*key): value
                 for key, value in agglomerate_timings.items()}
     by_shape.update(launch_timings)
-    # library_ms is null for all three: PyTorch has no call that computes a
+    # library_ms is null for all five: PyTorch has no call that computes a
     # banded Levenshtein distance, none for this pairwise distance with its
     # same-read wall (torch.cdist has neither the two quotients nor the
-    # wall), and no hierarchical clustering
+    # wall), no hierarchical clustering, and none for a CIGAR scan or the
+    # split-read decision chain
     print(json.dumps({"kernels": [{
         "name": "wavefront_banded_distance", "route": "cuda",
         "source": "svim_tpu_torch/csrc/wavefront.cu",
@@ -2477,7 +2981,9 @@ def run_phases(card, makers):
             *AGGLOMERATE_SHAPES[0]),
         "by_shape": {key: dict(zip(("ms", "plain_ms", "bound_ms",
                                     "bound_by", "rescan_design_ms"), value))
-                     for key, value in by_shape.items()}}]}))
+                     for key, value in by_shape.items()}}]
+        + [collect_kernel_entry(kernel, collect_timings, by_path(kernel))
+           for kernel in COLLECT_FUNCTIONS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

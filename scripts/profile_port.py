@@ -20,8 +20,12 @@ union of their intervals, so that a copy running beside a kernel counts
 once, beside their plain sum and their sums by name.  The run's Chrome
 trace is written under --work and the union of its kernel, gpu_memcpy and
 gpu_memset events is reported beside device busy as a check; so is the
-sum over every row that the script took before (`all_rows_s`).  The traced
-run's stage seconds are inflated by the tracing and are not reported.  With --host_top N one more run goes under cProfile and the N
+sum over every row that the script took before (`all_rows_s`).  The trace
+also says whether COLLECT's device passes (the kernels of
+csrc/collect_scan.cu and csrc/classify_segments.cu) ran while the host did
+other work: of their device time (`collect_pass_s`), the part during which
+a host thread sat in a CUDA runtime call that waits for the device
+(`collect_pass_waited_s`).  The traced run's stage seconds are inflated by the tracing and are not reported.  With --host_top N one more run goes under cProfile and the N
 functions with the largest cumulative host time are reported (inflated by
 the profiling; for shares, not for seconds).  --incremental_cluster and
 --batch_reads are passed to the port (its defaults: auto, 4096); each
@@ -99,6 +103,49 @@ def _union_seconds(intervals):
     return total / 1e6
 
 
+# kernel names of the COLLECT passes (csrc/collect_scan.cu,
+# csrc/classify_segments.cu)
+COLLECT_KERNELS = ("scan_rows", "scan_offsets", "write_events",
+                   "classify_groups")
+# CUDA runtime calls in which the host waits for the device
+WAITING_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                 "cudaEventSynchronize", "cudaMemcpy")
+
+
+def _covered_seconds(intervals, cover):
+    """Seconds of `intervals` ((start, end) in microseconds) that lie within
+    the union of `cover`."""
+    merged = []
+    for start, end in sorted(cover):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    total = 0.0
+    for start, end in intervals:
+        for low, high in merged:
+            total += max(0.0, min(end, high) - max(start, low))
+    return total / 1e6
+
+
+def collect_pass_overlap(chrome_trace):
+    """(device seconds of the COLLECT kernels, the part of them during which
+    the host waited in a runtime call) from a Chrome trace of torch.profiler;
+    the rest ran beside host work (the emit of an earlier batch, parsing)."""
+    with open(chrome_trace) as handle:
+        events = [event for event in json.load(handle)["traceEvents"]
+                  if event.get("ph") == "X"]
+    kernels = [(event["ts"], event["ts"] + event["dur"]) for event in events
+               if event.get("cat") == "kernel"
+               and any(name in event.get("name", "")
+                       for name in COLLECT_KERNELS)]
+    waits = [(event["ts"], event["ts"] + event["dur"]) for event in events
+             if event.get("cat") != "kernel"
+             and event.get("name") in WAITING_CALLS]
+    return (sum(end - start for start, end in kernels) / 1e6,
+            _covered_seconds(kernels, waits))
+
+
 def device_intervals(chrome_trace):
     """(start, end) in microseconds of every kernel, copy and memset event
     of a Chrome trace that torch.profiler wrote."""
@@ -140,7 +187,12 @@ def main():
     print(card, flush=True)
 
     from svim_tpu_torch import cli
-    from svim_tpu_torch.ops import linkage_kernel, wavefront_kernel
+    from svim_tpu_torch.ops import (
+        cigar_kernel,
+        linkage_kernel,
+        segments_kernel,
+        wavefront_kernel,
+    )
 
     directory = os.path.join(args.work, "{0}{1}".format(args.workload,
                                                         args.reads))
@@ -159,8 +211,11 @@ def main():
     def run(tag):
         working_dir = os.path.join(directory, "wd_{0}_{1}".format(
             args.label or "run", tag))
-        wavefront_kernel.LAUNCHES = 0
-        linkage_kernel.LAUNCHES = 0
+        # a --root from before the COLLECT kernels has no count there
+        for module in (wavefront_kernel, linkage_kernel, cigar_kernel,
+                       segments_kernel):
+            if hasattr(module, "LAUNCHES"):
+                module.LAUNCHES = 0
         started = time.perf_counter()
         code = cli.main(["alignment", working_dir, bam, genome,
                          "--edit_backend", args.edit_backend, "--profile",
@@ -182,6 +237,10 @@ def main():
                                                       + seconds["cluster"]),
                          "wavefront_launches": wavefront_kernel.LAUNCHES,
                          "agglomerate_launches": linkage_kernel.LAUNCHES,
+                         "collect_scan_launches": getattr(
+                             cigar_kernel, "LAUNCHES", None),
+                         "classify_launches": getattr(
+                             segments_kernel, "LAUNCHES", None),
                          "reused_of_memoized": _reused(working_dir)})
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -201,6 +260,7 @@ def main():
     if busy <= 0:
         raise RuntimeError("the profiler recorded no device time")
     trace_busy = _union_seconds(device_intervals(chrome_trace))
+    collect_pass_s, collect_pass_waited_s = collect_pass_overlap(chrome_trace)
     all_rows = sum(max(_self_device_us(event), 0) for event in rows) / 1e6
     top = sorted(by_name.items(), key=lambda item: -item[1])[:8]
     host_top = []
@@ -234,6 +294,8 @@ def main():
         "agglomerate_kernel_s": sum(seconds for name, seconds
                                     in by_name.items()
                                     if "agglomerate" in name),
+        "collect_pass_s": collect_pass_s,
+        "collect_pass_waited_s": collect_pass_waited_s,
         "device_seconds_by_name": dict(top), "host_top": host_top}),
         flush=True)
 

@@ -397,8 +397,10 @@ def run_pipeline(options, device):
         # unrounded, for scripts that read the log (chip_smoke.py)
         from svim_tpu_torch.cluster.device_cluster import TELEMETRY
         from svim_tpu_torch.ops import (
+            cigar_kernel,
             distance_kernel,
             linkage_kernel,
+            segments_kernel,
             wavefront_kernel,
         )
 
@@ -406,7 +408,9 @@ def run_pipeline(options, device):
         logging.info("Kernel launches: %s", json.dumps({
             "wavefront_banded_distance": wavefront_kernel.LAUNCHES,
             "span_distance_matrix": distance_kernel.LAUNCHES,
-            "agglomerate": linkage_kernel.LAUNCHES}))
+            "agglomerate": linkage_kernel.LAUNCHES,
+            "collect_scan": cigar_kernel.LAUNCHES,
+            "classify_segments": segments_kernel.LAUNCHES}))
         logging.info("Cluster telemetry: %s", json.dumps(
             dict(TELEMETRY.as_dict(), eligible=TELEMETRY.eligible)))
         if options.distributed:

@@ -612,7 +612,8 @@ def _signatures_from_grouped_packed(packed, group_sizes, name_table, options,
     per_row_sigs: Dict[int, List] = {}
     per_row_twins: Dict[int, List] = {}
 
-    collect_outputs = dispatch_collect_scan(packed, options, device)
+    rerun, collect_outputs, max_events = dispatch_collect_scan(
+        packed, options, device)
     group_rows: List[int] = []
     slot_rows: List[List[int]] = []
     row_base = 0
@@ -629,7 +630,7 @@ def _signatures_from_grouped_packed(packed, group_sizes, name_table, options,
             slot_rows=slot_rows)
     fetched_collect, fetched_classify = to_host((collect_outputs,
                                                  classify_outputs))
-    events = _consume_collect(packed, fetched_collect)
+    events = _consume_collect(packed, rerun, max_events, fetched_collect)
     _emit_indel_events(packed, events, getrname, options, per_row_sigs,
                        per_row_twins)
 
@@ -655,15 +656,25 @@ def _signatures_from_grouped_packed(packed, group_sizes, name_table, options,
 
 
 def dispatch_collect_scan(packed, options, device):
-    """Run the fused geometry+events pass on `device` (row-sharded under
-    --num_shards when the rows divide); returns its output tuple (tensors on
-    `device`) for _consume_collect."""
+    """Enqueue the fused geometry+events pass on `device` (row-sharded under
+    --num_shards when the rows divide) without waiting for it, as
+    svim_tpu's dispatch does: returns (rerun, result, max_events) for
+    _consume_collect, where `result` is the output tuple (tensors on
+    `device`, events in a table of max_events entries) and rerun(bound)
+    runs the pass again with a larger table."""
+    from svim_tpu_torch.ops.cigar_kernel import event_bound
     from svim_tpu_torch.parallel.mesh import collect_scan_sharded
 
     columns = _device_columns(packed, device)
-    return collect_scan_sharded(
-        getattr(options, "num_shards", 1), device, columns["cigar_words"],
-        columns["ref_start"], int(options.min_sv_size))
+
+    def rerun(max_events):
+        return collect_scan_sharded(
+            getattr(options, "num_shards", 1), device,
+            columns["cigar_words"], columns["ref_start"],
+            int(options.min_sv_size), max_events)
+
+    max_events = event_bound(packed.n)
+    return rerun, rerun(max_events), max_events
 
 
 def _device_columns(packed, device):
@@ -674,11 +685,20 @@ def _device_columns(packed, device):
     return packed.device_cigars
 
 
-def _consume_collect(packed, fetched):
-    """Consume a fetched COLLECT result: fill the geometry columns, return
-    (rows, pos_ref, pos_read, lengths, is_insertion) in (row, op) order."""
-    (ref_end, read_len, qa_start, qa_end, has_hard, rows, pos_ref,
-     pos_read, lengths, is_ins, count) = fetched
+def _consume_collect(packed, rerun, max_events, fetched):
+    """Consume a fetched COLLECT result (re-running with a larger event
+    bound when the true count overflowed the table), fill the geometry
+    columns, return (rows, pos_ref, pos_read, lengths, is_insertion) in
+    (row, op) order."""
+    from svim_tpu_torch.ops.cigar_kernel import round_up_pow2
+
+    while True:
+        (ref_end, read_len, qa_start, qa_end, has_hard, rows, pos_ref,
+         pos_read, lengths, is_ins, count) = fetched
+        if count <= max_events:
+            break
+        max_events = round_up_pow2(int(count))
+        fetched = to_host(rerun(max_events))
     packed.ref_end = np.asarray(ref_end)
     packed.read_len = np.asarray(read_len)
     packed.qa_start = np.asarray(qa_start)
@@ -707,16 +727,18 @@ class StagedCollectSoA:
         self.fallback_rows = fallback_rows
 
     def device_tree(self):
-        """(collect outputs, classify outputs or None) — fetch with one
+        """(collect result, classify outputs or None) — fetch with one
         to_host, then hand to consume_signatures_soa."""
-        return (self.dispatched, self.classify_outputs)
+        _rerun, result, _max_events = self.dispatched
+        return (result, self.classify_outputs)
 
 
 def stage_signatures_soa(packed, sa_tags, name_table, options, device,
                          dispatched=None):
-    """Run the COLLECT + classify passes for one packed batch on `device`
-    (`dispatched`: a COLLECT pass already run) and return the
-    StagedCollectSoA to consume later.  Returns None for an empty batch
+    """Enqueue the COLLECT + classify passes for one packed batch on
+    `device` (`dispatched`: a COLLECT pass already dispatched, as
+    dispatch_collect_scan returns it) and return the StagedCollectSoA to
+    consume later.  Returns None for an empty batch
     (after installing empty geometry columns)."""
     get_tid = name_table.get_tid
 
@@ -767,7 +789,7 @@ def stage_signatures_soa(packed, sa_tags, name_table, options, device,
     classify_outputs = None
     if group_rows:
         classify_outputs = _dispatch_classify_fused(
-            packed, group_rows, group_sa_segments, dispatched, options,
+            packed, group_rows, group_sa_segments, dispatched[1], options,
             device)
     return StagedCollectSoA(packed, dispatched, classify_outputs, group_rows,
                             group_sa_segments, fallback_rows)
@@ -804,7 +826,8 @@ def consume_signatures_soa(staged, fetched, name_table, options, state,
     (collect outputs, classify outputs or None)."""
     packed = staged.packed
     fetched_collect, fetched_classify = fetched
-    events = _consume_collect(packed, fetched_collect)
+    rerun, _result, max_events = staged.dispatched
+    events = _consume_collect(packed, rerun, max_events, fetched_collect)
     _emit_indel_events_soa(packed, events, _getrname(name_table), options,
                            state.builders, state.contigs_pool,
                            state.reads_pool, state.twin_rows,
@@ -861,7 +884,8 @@ def signatures_from_packed(packed, sa_tags, name_table, options, device):
     fetched_collect, fetched_classify = to_host(staged.device_tree())
     per_row_sigs: Dict[int, List] = {}
     per_row_twins: Dict[int, List] = {}
-    events = _consume_collect(packed, fetched_collect)
+    rerun, _result, max_events = staged.dispatched
+    events = _consume_collect(packed, rerun, max_events, fetched_collect)
     _emit_indel_events(packed, events, _getrname(name_table), options,
                        per_row_sigs, per_row_twins)
     split_sigs, split_twins = _split_read_signatures(

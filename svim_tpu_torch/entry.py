@@ -16,17 +16,19 @@ from svim_tpu_torch.utils.device import select_device
 
 def entry():
     """(fn, example_args): the flagship forward step, the fused COLLECT pass
-    (geometry + CIGAR indel scan + event compaction) over a packed read
-    batch; the example tensors live on the selected device."""
-    from svim_tpu_torch.ops.cigar_kernel import collect_scan
+    (geometry + CIGAR indel scan + event compaction into a table of 1024
+    entries, the first bound of svim_tpu's dispatch for these 64 rows, with
+    the true count) over a packed read batch; the example tensors live on
+    the selected device."""
+    from svim_tpu_torch.ops.cigar_kernel import collect_scan, event_bound
 
     device = select_device()
+    n, k = 64, 128
 
     def fn(cigar_words, ref_start):
-        return collect_scan(cigar_words, ref_start, 40)
+        return collect_scan(cigar_words, ref_start, 40, event_bound(n))
 
     rng = np.random.default_rng(0)
-    n, k = 64, 128
     ops = rng.integers(0, 3, size=(n, k), dtype=np.int32)
     lens = rng.integers(1, 100, size=(n, k), dtype=np.int32)
     cigar_words = (lens << 4) | ops

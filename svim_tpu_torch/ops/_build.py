@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # every kernel source of the port: build(KERNEL_SOURCES) compiles them side
 # by side (chip_smoke.py does, so that its build costs one nvcc's time)
-KERNEL_SOURCES = ("wavefront", "span_distance", "agglomerate")
+KERNEL_SOURCES = ("wavefront", "span_distance", "agglomerate", "collect_scan",
+                  "classify_segments")
 
 _lock = threading.Lock()
 _libraries = {}
@@ -101,3 +102,27 @@ def load(name: str) -> ctypes.CDLL:
             library = ctypes.CDLL(library_path(name))
             _libraries[name] = library
         return library
+
+
+def check_tensors(tensors, device) -> None:
+    """Raises unless every (name, tensor, dtype, shape) is a contiguous
+    tensor of that dtype and shape on `device`: what a kernel's wrapper
+    checks before it hands pointers to the kernel."""
+    for name, tensor, dtype, shape in tensors:
+        if tensor.device != device:
+            raise ValueError("{0} is on {1}, expected {2}".format(
+                name, tensor.device, device))
+        if tensor.dtype != dtype or tuple(tensor.shape) != shape:
+            raise ValueError("{0} must be a {1} {2} tensor, got {3} {4}"
+                             .format(name, shape, dtype,
+                                     tuple(tensor.shape), tensor.dtype))
+        if not tensor.is_contiguous():
+            raise ValueError("{0} must be contiguous".format(name))
+
+
+def check_launch(kernel: str, code: int) -> None:
+    """Raises when a kernel's C entry point returned a CUDA error code (a
+    refused launch never runs, and no later synchronisation reports it)."""
+    if code != 0:
+        raise RuntimeError("{0} kernel launch failed: CUDA error {1}".format(
+            kernel, code))

@@ -29,6 +29,8 @@ import ctypes
 
 import torch
 
+from svim_tpu_torch.ops._build import check_launch
+
 BIG = 99999.0
 
 LAUNCHES = 0   # kernel launches by span_position_matrix_cuda
@@ -132,9 +134,7 @@ def span_position_matrix_cuda(starts, ends, read_ids, valid,
             valid.data_ptr(), out.data_ptr(), batch, p,
             float(position_distance_normalizer), int(bool(wall_same_read)),
             VARIANTS[variant], torch.cuda.current_stream(device).cuda_stream)
-    if code != 0:
-        raise RuntimeError("span distance kernel launch failed: CUDA error "
-                           "{0}".format(code))
+    check_launch("span distance", code)
     LAUNCHES += 1
     return out
 

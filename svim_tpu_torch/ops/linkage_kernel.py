@@ -35,6 +35,8 @@ import ctypes
 import numpy as np
 import torch
 
+from svim_tpu_torch.ops._build import check_launch, check_tensors
+
 BIG = 3.0e38
 # merges with height >= CUTOFF are padding (no real pair left)
 MERGE_CUTOFF = 1.0e30
@@ -296,21 +298,6 @@ def _kernel_library():
     return _library
 
 
-def _checked(tensors, device):
-    """Raises unless every (name, tensor, dtype, shape) is a contiguous
-    tensor of that dtype and shape on `device`."""
-    for name, tensor, dtype, shape in tensors:
-        if tensor.device != device:
-            raise ValueError("{0} is on {1}, expected {2}".format(
-                name, tensor.device, device))
-        if tensor.dtype != dtype or tuple(tensor.shape) != shape:
-            raise ValueError("{0} must be a {1} {2} tensor, got {3} {4}"
-                             .format(name, shape, dtype,
-                                     tuple(tensor.shape), tensor.dtype))
-        if not tensor.is_contiguous():
-            raise ValueError("{0} must be contiguous".format(name))
-
-
 def _merge_outputs(batch, p, device):
     """Uninitialised (merges_lo, merges_hi, heights, min_gap): the kernel
     writes every element."""
@@ -330,9 +317,7 @@ def _check_slots(library, p):
 
 def _launched(code):
     global LAUNCHES
-    if code != 0:
-        raise RuntimeError("agglomeration kernel launch failed: CUDA error "
-                           "{0}".format(code))
+    check_launch("agglomeration", code)
     LAUNCHES += 1
 
 
@@ -350,8 +335,8 @@ def agglomerate_batched_cuda(distances, valid):
         raise ValueError("distances must be (B, P, P), got {0}".format(
             tuple(distances.shape)))
     batch, p, _ = distances.shape
-    _checked((("distances", distances, torch.float32, (batch, p, p)),
-              ("valid", valid, torch.bool, (batch, p))), device)
+    check_tensors((("distances", distances, torch.float32, (batch, p, p)),
+                   ("valid", valid, torch.bool, (batch, p))), device)
     library = _kernel_library()
     _check_slots(library, p)
     outputs = _merge_outputs(batch, p, device)
@@ -385,8 +370,10 @@ def span_position_agglomerate_batched_cuda(starts, ends, reads, valid, norm,
         raise ValueError("starts must be (B, P), got {0}".format(
             tuple(starts.shape)))
     batch, p = starts.shape
-    _checked([(name, tensor, torch.int32, (batch, p)) for name, tensor in (
-        ("starts", starts), ("ends", ends), ("dest", dest), ("reads", reads))]
+    check_tensors(
+        [(name, tensor, torch.int32, (batch, p)) for name, tensor in (
+            ("starts", starts), ("ends", ends), ("dest", dest),
+            ("reads", reads))]
         + [("valid", valid, torch.bool, (batch, p)),
            ("wall_same_read", wall_same_read, torch.bool, (batch,)),
            ("kind", kind, torch.int32, (batch,))], device)

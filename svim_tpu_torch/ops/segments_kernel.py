@@ -2,27 +2,46 @@
 
 Counterpart of svim_tpu/ops/segments_kernel.py::classify_groups_fused and
 _classify_core: gather slot geometry from the COLLECT outputs, sort each
-group's segments along the read with two stable argsorts, and classify
-every adjacent pair into INS / DEL / INV / tandem-dup / BND evidence as
-branchless masked selects.  Event encoding is the JAX module's.
+group's segments along the read, and classify every adjacent pair into
+INS / DEL / INV / tandem-dup / BND evidence.  Event encoding is the JAX
+module's.
+
+Three layers, on the pattern of ops/linkage_kernel.py:
+  * `classify_groups_fused_plain` - the plain PyTorch version: two stable
+    argsorts and branchless masked selects; it equals the JAX program on
+    the CPU.
+  * `classify_groups_fused_cuda` - the wrapper of the hand-written CUDA
+    kernel (csrc/classify_segments.cu: a CTA a group, a rank sort in shared
+    memory, a thread a pair running the decision chain), equal to the plain
+    version bit for bit, one launch without a host synchronisation;
+    counted in `LAUNCHES`.
+  * `classify_groups_fused` - the dispatcher: CPU tensors take the plain
+    version, CUDA tensors the kernel.  Nothing falls back.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from svim_tpu_torch.ops._build import check_launch, check_tensors
+
+LAUNCHES = 0   # launches by classify_groups_fused_cuda
 
 LEFT_FWD, LEFT_REV, RIGHT_FWD, RIGHT_REV = 0, 1, 2, 3
 INT32_MAX = 2**31 - 1
 
 
-def classify_groups_fused(slot_row, q_start_h, q_end_h, ref_id_h, ref_start_h,
-                          ref_end_h, is_reverse_h, valid, hard_gate_row,
-                          ref_id_all, ref_start_all, is_reverse_all,
-                          ref_end_dev, read_len_dev, qa_start_dev, qa_end_dev,
-                          has_hard_dev, min_sv_size: int, max_sv_size: int,
-                          segment_gap_tolerance: int,
-                          segment_overlap_tolerance: int,
-                          max_segments: int = 64):
+def classify_groups_fused_plain(slot_row, q_start_h, q_end_h, ref_id_h,
+                                ref_start_h, ref_end_h, is_reverse_h, valid,
+                                hard_gate_row, ref_id_all, ref_start_all,
+                                is_reverse_all, ref_end_dev, read_len_dev,
+                                qa_start_dev, qa_end_dev, has_hard_dev,
+                                min_sv_size: int, max_sv_size: int,
+                                segment_gap_tolerance: int,
+                                segment_overlap_tolerance: int,
+                                max_segments: int = 64):
     """Sort per-group segments and classify adjacent pairs.
 
     slot_row: (G, S) packed row per slot, -1 where the *_h arrays supply
@@ -213,3 +232,118 @@ def _classify_core(q_start, q_end, ref_id, ref_start, ref_end, is_reverse,
     return (state["code"], state["p1"], state["p2"], state["aux"], contig2,
             qpos, state["twin_mask"], state["twin_p1"], state["twin_p2"],
             state["twin_aux"])
+
+
+_library = None
+
+
+def _kernel_library():
+    global _library
+    if _library is None:
+        from svim_tpu_torch.ops._build import load
+
+        library = load("classify_segments")
+        pointer = ctypes.c_void_p
+        library.classify_max_slots.argtypes = []
+        library.classify_max_slots.restype = ctypes.c_int
+        library.classify_segments.argtypes = (
+            [pointer] * 17 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 4
+            + [pointer] * 13)
+        library.classify_segments.restype = ctypes.c_int
+        _library = library
+    return _library
+
+
+def classify_groups_fused_cuda(slot_row, q_start_h, q_end_h, ref_id_h,
+                               ref_start_h, ref_end_h, is_reverse_h, valid,
+                               hard_gate_row, ref_id_all, ref_start_all,
+                               is_reverse_all, ref_end_dev, read_len_dev,
+                               qa_start_dev, qa_end_dev, has_hard_dev,
+                               min_sv_size: int, max_sv_size: int,
+                               segment_gap_tolerance: int,
+                               segment_overlap_tolerance: int,
+                               max_segments: int = 64):
+    """classify_groups_fused on the card through csrc/classify_segments.cu.
+
+    The (G, S) and (G,) group columns and the (N,) row columns are
+    contiguous CUDA tensors of one device (int32; bool for the strands,
+    `valid` and the hard-clip flags).  Returns the twelve outputs of
+    classify_groups_fused_plain, bit for bit.  One launch on the current
+    stream, no host synchronisation; none when G = 0 or S < 2."""
+    global LAUNCHES
+    device = slot_row.device
+    if device.type != "cuda":
+        raise ValueError("classify_groups_fused_cuda needs CUDA tensors")
+    if slot_row.dim() != 2:
+        raise ValueError("slot_row must be (G, S), got {0}".format(
+            tuple(slot_row.shape)))
+    groups, slots = slot_row.shape
+    rows = ref_id_all.shape[0]
+    group_columns = (("slot_row", slot_row), ("q_start_h", q_start_h),
+                     ("q_end_h", q_end_h), ("ref_id_h", ref_id_h),
+                     ("ref_start_h", ref_start_h), ("ref_end_h", ref_end_h))
+    row_columns = (("ref_id_all", ref_id_all),
+                   ("ref_start_all", ref_start_all),
+                   ("ref_end_dev", ref_end_dev),
+                   ("read_len_dev", read_len_dev),
+                   ("qa_start_dev", qa_start_dev),
+                   ("qa_end_dev", qa_end_dev))
+    check_tensors(
+        [(name, tensor, torch.int32, (groups, slots))
+         for name, tensor in group_columns]
+        + [("is_reverse_h", is_reverse_h, torch.bool, (groups, slots)),
+           ("valid", valid, torch.bool, (groups, slots)),
+           ("hard_gate_row", hard_gate_row, torch.int32, (groups,)),
+           ("is_reverse_all", is_reverse_all, torch.bool, (rows,)),
+           ("has_hard_dev", has_hard_dev, torch.bool, (rows,))]
+        + [(name, tensor, torch.int32, (rows,))
+           for name, tensor in row_columns], device)
+    for name, value in (("min_sv_size", min_sv_size),
+                        ("max_sv_size", max_sv_size),
+                        ("segment_gap_tolerance", segment_gap_tolerance),
+                        ("segment_overlap_tolerance",
+                         segment_overlap_tolerance),
+                        ("max_segments", max_segments)):
+        if not -2**31 < value < 2**31:
+            raise ValueError("{0} = {1} is outside int32".format(name, value))
+    library = _kernel_library()
+    if slots > library.classify_max_slots():
+        raise ValueError("the classify kernel takes S <= {0} slots (a group "
+                         "sorts in one CTA's shared memory), got S={1}"
+                         .format(library.classify_max_slots(), slots))
+    pairs = max(slots - 1, 0)
+    # code, p1, p2, aux, contig2, qpos, twin_mask, twin_p1, twin_p2,
+    # twin_aux, the sorted strand and ref_id
+    dtypes = [torch.int32] * 6 + [torch.bool] + [torch.int32] * 3 + [
+        torch.bool, torch.int32]
+    outputs = tuple(torch.empty((groups, pairs), dtype=dtype, device=device)
+                    for dtype in dtypes)
+    if groups == 0 or slots < 2:
+        return outputs
+    with torch.cuda.device(device):
+        check_launch("classify_segments", library.classify_segments(
+            *(tensor.data_ptr() for tensor in (
+                slot_row, q_start_h, q_end_h, ref_id_h, ref_start_h,
+                ref_end_h, is_reverse_h, valid, hard_gate_row, ref_id_all,
+                ref_start_all, is_reverse_all, ref_end_dev, read_len_dev,
+                qa_start_dev, qa_end_dev, has_hard_dev)),
+            groups, slots, int(max_segments), int(min_sv_size),
+            int(max_sv_size), int(segment_gap_tolerance),
+            int(segment_overlap_tolerance),
+            *(tensor.data_ptr() for tensor in outputs),
+            torch.cuda.current_stream(device).cuda_stream))
+    LAUNCHES += 1
+    return outputs
+
+
+def classify_groups_fused(*args, **kwargs):
+    """Dispatcher: CPU tensors -> classify_groups_fused_plain, CUDA tensors
+    -> classify_groups_fused_cuda (same arguments and outputs; see the plain
+    version)."""
+    slot_row = args[0] if args else kwargs["slot_row"]
+    if slot_row.device.type == "cpu":
+        return classify_groups_fused_plain(*args, **kwargs)
+    if slot_row.device.type == "cuda":
+        return classify_groups_fused_cuda(*args, **kwargs)
+    raise ValueError("no classify kernel for device {0}".format(
+        slot_row.device))

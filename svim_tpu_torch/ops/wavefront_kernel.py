@@ -26,6 +26,8 @@ import ctypes
 import numpy as np
 import torch
 
+from svim_tpu_torch.ops._build import check_launch
+
 INF = 1 << 20
 
 LAUNCHES = 0   # kernel launches by banded_distance_cuda (chip_smoke reads it)
@@ -246,9 +248,7 @@ def banded_distance_cuda(a_codes, a_lens, b_codes, b_lens, band: int,
                 0, stream)
         else:
             raise ValueError("unknown variant {0!r}".format(variant))
-    if code != 0:
-        raise RuntimeError("wavefront kernel launch failed: CUDA error "
-                           "{0}".format(code))
+    check_launch("wavefront", code)
     LAUNCHES += 1
     return out
 

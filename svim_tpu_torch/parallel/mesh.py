@@ -28,7 +28,11 @@ import logging
 import numpy as np
 import torch
 
-from svim_tpu_torch.ops.cigar_kernel import collect_scan
+from svim_tpu_torch.ops.cigar_kernel import (
+    collect_scan,
+    event_bound,
+    round_up_pow2,
+)
 
 
 def shard_devices(num_shards: int, device: torch.device):
@@ -80,35 +84,72 @@ def gather_shards(outputs, device: torch.device):
 
 
 def collect_scan_sharded(num_shards: int, device: torch.device, cigar_words,
-                         ref_start, min_sv_size: int):
-    """ops.cigar_kernel.collect_scan over row shards: each shard compacts its
-    own events in (row, op) order; the merge adds the shard's row offset and
-    concatenates in shard order, so the outputs equal the unsharded scan's."""
+                         ref_start, min_sv_size: int, max_events: int):
+    """ops.cigar_kernel.collect_scan over row shards, with the unsharded
+    scan's outputs: geometry in row order, the first max_events events of
+    the whole batch in global (row, op) order with global rows, and the
+    batch's true count.  Each shard fills a table of max_events entries;
+    merge_event_tables joins them by their counts on `device`, without
+    waiting for them."""
     shards = shard_batch(num_shards, device, cigar_words, ref_start)
-    parts = [collect_scan(words, starts, min_sv_size)
+    parts = [collect_scan(words, starts, min_sv_size, max_events)
              for words, starts in shards]
     if len(parts) == 1:
         return parts[0]
-    block = shards[0][0].shape[0]
     geometry = gather_shards([part[:5] for part in parts], device)
-    rows = torch.cat([(part[5] + index * block).to(device)
-                      for index, part in enumerate(parts)])
-    events = gather_shards([part[6:10] for part in parts], device)
-    count = torch.stack([part[10] for part in parts]).sum().to(torch.int32)
-    return geometry + (rows.to(torch.int32),) + events + (count,)
+    return geometry + merge_event_tables(
+        [part[5:] for part in parts], shards[0][0].shape[0], max_events,
+        device)
+
+
+def merge_event_tables(tables, block: int, max_events: int,
+                       device: torch.device):
+    """Per-shard event tables (rows, pos_ref, pos_read, lengths,
+    is_insertion, count) of shards of `block` rows each, in shard order ->
+    one table of max_events entries and the summed count, as the unsharded
+    scan gives them.  Entry i of the merged table is entry i - (events of
+    the shards before s) of shard s, the shard whose events cover i; rows
+    gain s * block.  That entry lies within shard s's table whenever i <
+    max_events, so the merged table keeps the whole batch's first
+    max_events events even when one shard overflowed.  Torch ops of fixed
+    shapes: nothing waits for the device."""
+    counts = torch.stack([table[5].to(device) for table in tables])
+    ends = torch.cumsum(counts, 0, dtype=torch.int32)
+    index = torch.arange(max_events, dtype=torch.int32, device=device)
+    shard = torch.searchsorted(ends, index, right=True)
+    present = shard < len(tables)
+    shard = shard.clamp(max=len(tables) - 1)
+    local = index.long() - (ends - counts).long().index_select(0, shard)
+    flat = torch.where(present, shard * max_events + local,
+                       torch.zeros_like(local))
+    columns = [torch.cat([table[column].to(device) for table in tables])
+               .index_select(0, flat) for column in range(5)]
+    rows = torch.where(present, columns[0] + (shard * block).to(torch.int32),
+                       -1)
+    merged = (rows,) + tuple(torch.where(present, column,
+                                         torch.zeros_like(column))
+                             for column in columns[1:])
+    return merged + (ends[-1],)
 
 
 def _local_collect(device, cigar_words, ref_start, ref_end, loci,
                    min_sv_size: int):
     """One shard's COLLECT on `device`: (starts, lengths, is_ins, local rows,
-    per-locus depth), events in (row, op) order."""
+    per-locus depth), events in (row, op) order.  The event table starts at
+    the dispatch's bound and grows until the true count fits."""
     words = _put(cigar_words, device)
     starts = _put(ref_start, device).to(torch.int32)
     ends = _put(ref_end, device).to(torch.int32)
     loci = _put(loci, device).to(torch.int32)
-    (_ref_end, _read_len, _qa_start, _qa_end, _has_hard, rows, pos_ref,
-     _pos_read, lengths, is_ins, _count) = collect_scan(words, starts,
-                                                        min_sv_size)
+    max_events = event_bound(words.shape[0])
+    while True:
+        outputs = collect_scan(words, starts, min_sv_size, max_events)
+        count = int(outputs[10])
+        if count <= max_events:
+            break
+        max_events = round_up_pow2(count)
+    rows, pos_ref, _pos_read, lengths, is_ins = (
+        column[:count] for column in outputs[5:10])
     overlaps = ((starts[None, :] < loci[:, 1][:, None])
                 & (ends[None, :] > loci[:, 0][:, None]))
     depth = overlaps.sum(dim=1, dtype=torch.int32)
@@ -127,8 +168,8 @@ def run_collect_step(devices, cigar_words, ref_start, ref_end, loci,
     Returns numpy arrays (starts, lengths, is_ins, rows, depth, counts):
     the events of all shards in global row order with GLOBAL row indices,
     the per-locus alignment depth summed over shards, and the true number
-    of events per shard.  Tensor shapes are dynamic, so there is no event
-    table to overflow.  Under a process group with W > 1 ranks, rank r
+    of events per shard (each shard's table grows until its count fits, so
+    no event is dropped).  Under a process group with W > 1 ranks, rank r
     computes shards [r * len(devices) / W, (r + 1) * len(devices) / W) and
     the tables are exchanged, so every rank returns the same arrays."""
     from svim_tpu_torch.parallel.multihost import (

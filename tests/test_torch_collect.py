@@ -50,11 +50,12 @@ def _random_packed(seed, n=96, k=48):
 def test_collect_scan_equals_jax(seed, min_sv_size):
     packed = _random_packed(seed)
     columns = packed_to_torch(packed, CPU)
-    got = to_host(torch_cigar.collect_scan(columns["cigar_words"],
-                                           columns["ref_start"], min_sv_size))
     max_events = 1
     while max_events < packed.cigar_words.size:
         max_events *= 2
+    got = to_host(torch_cigar.collect_scan(columns["cigar_words"],
+                                           columns["ref_start"], min_sv_size,
+                                           max_events))
     want = jax.device_get(jax_cigar.collect_scan(
         packed.cigar_words, packed.ref_start, np.int32(min_sv_size),
         max_events))
@@ -64,9 +65,12 @@ def test_collect_scan_equals_jax(seed, min_sv_size):
         np.testing.assert_array_equal(got_column, want_column)
         assert got_column.dtype == want_column.dtype
     for got_column, want_column in zip(got[5:10], want[5:10]):
-        np.testing.assert_array_equal(got_column, want_column[:count])
+        assert got_column.shape == want_column.shape == (max_events,)
+        np.testing.assert_array_equal(got_column[:count],
+                                      want_column[:count])
     rows = got[5]
-    assert (np.diff(rows) >= 0).all()   # (row, op) order
+    assert (np.diff(rows[:count]) >= 0).all()   # (row, op) order
+    assert (rows[count:] == -1).all()
 
 
 def _classes_bam(tmp_path):
@@ -107,7 +111,8 @@ def test_collect_and_classify_equal_jax_on_a_bam(tmp_path):
     for got, want in zip(port_collect[:5], jax_collect[:5]):
         np.testing.assert_array_equal(got, want)
     for got, want in zip(port_collect[5:10], jax_collect[5:10]):
-        np.testing.assert_array_equal(got, want[:count])
+        assert got.shape == want.shape   # the same event bound
+        np.testing.assert_array_equal(got[:count], want[:count])
     assert port_stage.group_rows == jax_stage.group_rows
     assert len(port_stage.group_rows) >= 20
     assert len(port_classify) == len(jax_classify) == 12

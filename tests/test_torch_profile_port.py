@@ -90,3 +90,34 @@ def test_a_profiler_trace_without_a_card_has_no_device_interval(
     assert profile_port.device_intervals(path) == []
     assert not any(profile_port._on_device(event)
                    for event in trace.key_averages())
+
+
+def test_collect_pass_overlap_counts_the_host_waiting_beside_it(
+        profile_port, tmp_path):
+    """Of the COLLECT kernels' device time, the part during which the host
+    sat in a runtime call that waits for the device; other kernels, launch
+    calls and CPU ops do not count."""
+    events = [
+        {"ph": "X", "cat": "kernel", "ts": 100.0, "dur": 10.0,
+         "name": "(anonymous namespace)::scan_rows(int const*, int)"},
+        {"ph": "X", "cat": "kernel", "ts": 120.0, "dur": 4.0,
+         "name": "(anonymous namespace)::write_events(int const*)"},
+        {"ph": "X", "cat": "kernel", "ts": 200.0, "dur": 6.0,
+         "name": "(anonymous namespace)::classify_groups(int const*)"},
+        {"ph": "X", "cat": "kernel", "ts": 100.0, "dur": 50.0,
+         "name": "agglomerate_fused"},
+        {"ph": "X", "cat": "cuda_runtime", "ts": 104.0, "dur": 18.0,
+         "name": "cudaStreamSynchronize"},
+        {"ph": "X", "cat": "cuda_runtime", "ts": 108.0, "dur": 4.0,
+         "name": "cudaMemcpy"},
+        {"ph": "X", "cat": "cuda_runtime", "ts": 200.0, "dur": 6.0,
+         "name": "cudaLaunchKernel"},
+        {"ph": "X", "cat": "cpu_op", "ts": 90.0, "dur": 200.0,
+         "name": "aten::copy_"},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    total, waited = profile_port.collect_pass_overlap(str(path))
+    assert total == pytest.approx(20e-6)
+    # scan_rows 104-110, write_events 120-122; classify ran beside no wait
+    assert waited == pytest.approx(8e-6)
