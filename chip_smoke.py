@@ -56,7 +56,8 @@ Phases, each of which raises (non-zero exit) on failure:
      kernel and plain ms at B = 1024 with full partitions at P = 128 and
      P = 32 beside the bound and beside the rescan design's ms (the
      kernel's source at RESCAN_DESIGN_COMMIT, built in the same process
-     when git or an unpacked checkout of that commit has it);
+     when git or that commit's files unpacked under _chipwork/<commit>
+     have it);
   7. distance kernel vs plain version on the card: span_position_matrix_cuda
      against span_position_matrix_torch on seeded partitions at P in {32,
      128} and B in {8, 1024, 8192}, with and without the same-read wall,
@@ -130,12 +131,21 @@ Phases, each of which raises (non-zero exit) on failure:
      and 40, clip-only and clipped rows, zero-length ops, ops 3, 9 and 10,
      K = 40,000, N = 1, an overflowing table whose re-run gives every
      event, 8 shards with one overflowing merged as the whole batch;
-     classify_cases: S = 2, 64, 128, 256 with key ties, invalid slots in
-     the middle, gated and padding groups, every code, twins and
-     cross-contig pairs).  Both ops, and the 8-shard scan, must enqueue on
-     card tensors under torch.cuda.set_sync_debug_mode("error"); prints
-     kernel and plain ms beside the bound by bytes at the bench batch
-     shape and, for the scan, at N = 4096 with K = 128 and 8192.
+     K = 1001, K = 8192 at N = 1,000, rows past what the scan's grid
+     stages in shared memory at K = 32; classify_cases: S = 2, 64, 128, 256 with key
+     ties, invalid slots in the middle, gated and padding groups, every
+     code, twins and cross-contig pairs, the warp route at S = 3, 4, 5, 7,
+     8, 16, 32 and a max_segments cut inside a warp's segment).  Both ops,
+     and the 8-shard scan, must enqueue on card tensors under
+     torch.cuda.set_sync_debug_mode("error") (and, in phase 2b, a process
+     started after the build, a call of either must run one device kernel:
+     torch.profiler, KERNELS_PER_CALL); prints the launch floor (an empty
+     kernel; an empty cooperative grid meeting at one barrier) and kernel
+     and plain ms beside the bound by bytes and beside the first designs
+     (their sources at COLLECT_DESIGN_COMMIT, built in the same process,
+     timed in turns, outputs bit-equal) at the bench batch shapes, for the
+     scan at N = 4096 with K = 128, 512, 1024, 2048 and 8192 and for the
+     classify at G = 512, S = 8.
 The script imports torch and the port, never jax or the JAX package: the
 inputs come from svim_tpu_torch.workloads.
 Then one JSON line describing the kernels, the card line, and the last
@@ -284,6 +294,60 @@ def phase_build():
                                  + directory)
     log("build", "native host library (svim_tpu_torch/native, g++) ready "
         "after {0:.2f}s".format(host["seconds"]))
+
+
+def start_kernels_a_call():
+    """Phase 2b, started beside the later phases: kernels_a_call() in a
+    process of its own, whose torch.profiler session is the process's
+    first (a second session in one process was seen to miss kernels that
+    ctypes launched: phase 15's missed the scan kernel after phase 11's
+    traces, and phase 11's the wavefront kernel after an earlier session).
+    Returns the process for finish_kernels_a_call()."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "import chip_smoke; chip_smoke.kernels_a_call()", ROOT],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_kernels_a_call(process):
+    """Waits for phase 2b's process, prints its lines, raises unless it
+    passed."""
+    output, _ = process.communicate()
+    sys.stdout.write(output)
+    if process.returncode != 0:
+        raise AssertionError("phase 2b (one device kernel a COLLECT call) "
+                             "failed with exit code {0}".format(
+                                 process.returncode))
+
+
+def kernels_a_call():
+    """Phase 2b: a call of each COLLECT kernel's wrapper at the bench
+    batch's shapes (N = 4096, K = 32; G = 256, S = 2) runs one device
+    kernel (the module's KERNELS_PER_CALL), counted in the Chrome trace of
+    torch.profiler."""
+    import numpy as np
+
+    rng = np.random.default_rng(20261017)
+    scan_args = _on_card((_random_cigar_rows(rng, 4096, 32),
+                          np.zeros(4096, np.int32))) + [40, 16384]
+    classify_args, classify_kwargs = _classify_call(
+        classify_inputs(rng, 256, 2))
+    for kernel, args, kwargs in (
+            ("collect_scan", scan_args, {}),
+            ("classify_segments", _on_card(classify_args), classify_kwargs)):
+        module, cuda, _ = _collect_module(kernel)
+        launches = module.LAUNCHES
+        cuda(*args, **kwargs)
+        names = _device_kernels(lambda: cuda(*args, **kwargs))
+        if module.LAUNCHES - launches != 2 or module.KERNELS_PER_CALL != 1 \
+                or len(names) != module.KERNELS_PER_CALL:
+            raise AssertionError("{0}: {1} device kernels a call ({2}), {3} "
+                                 "counted launches".format(
+                                     kernel, len(names), names,
+                                     module.LAUNCHES - launches))
+        module.LAUNCHES = launches
+        log("collect", "{0} at the bench batch's shape: one device kernel a "
+            "call ({1})".format(kernel, names[0]))
 
 
 def _pairs(rng, batch, length):
@@ -1251,23 +1315,27 @@ def _kernel_against_plain(name, arguments, where):
 # the commit whose csrc/agglomerate.cu rescans the whole matrix at each step
 # (one CTA a partition, two block scans and four barriers a step): timed
 # beside the present kernel, in the same process, wherever its source can be
-# had (git, or that commit unpacked at RESCAN_DESIGN_CHECKOUT)
+# had (see _source_at)
 RESCAN_DESIGN_COMMIT = "7e20e235f462e89dd6c131b4a8e6e9edb4518d94"
-RESCAN_DESIGN_CHECKOUT = os.path.join(ROOT, "_chipwork", "parent")
 AGGLOMERATE_SOURCE = "svim_tpu_torch/csrc/agglomerate.cu"
+# where the sources of earlier designs are looked up first: each commit's
+# files unpacked under _chipwork/<commit>/ (git-ignored; a copy of the
+# repository without .git has no other way to them), e.g.
+#   git archive <commit> <path> | tar -x -C _chipwork/<commit>
+DESIGNS_DIR = os.path.join(ROOT, "_chipwork")
 
 
-def _rescan_design_source():
-    """The text of csrc/agglomerate.cu at RESCAN_DESIGN_COMMIT, or None."""
-    unpacked = os.path.join(RESCAN_DESIGN_CHECKOUT, AGGLOMERATE_SOURCE)
+def _source_at(commit, path):
+    """The text of `path` at `commit`: from _chipwork/<commit>/<path>, else
+    from git; None where neither has it."""
+    unpacked = os.path.join(DESIGNS_DIR, commit, path)
     if os.path.exists(unpacked):
         with open(unpacked) as handle:
             return handle.read()
     try:
-        shown = subprocess.run(
-            ["git", "-C", ROOT, "show",
-             RESCAN_DESIGN_COMMIT + ":" + AGGLOMERATE_SOURCE],
-            capture_output=True, text=True, timeout=60)
+        shown = subprocess.run(["git", "-C", ROOT, "show",
+                                commit + ":" + path],
+                               capture_output=True, text=True, timeout=60)
     except (OSError, subprocess.TimeoutExpired):
         return None
     return shown.stdout if shown.returncode == 0 else None
@@ -1301,7 +1369,7 @@ def rescan_design_library():
 
     from svim_tpu_torch.ops import _build, linkage_kernel
 
-    source = _rescan_design_source()
+    source = _source_at(RESCAN_DESIGN_COMMIT, AGGLOMERATE_SOURCE)
     if source is None:
         return None
     directory = os.path.join(SCRATCH, "rescan_design")
@@ -2532,8 +2600,10 @@ def collect_cases(rng):
     """Seeded inputs of the COLLECT scan: (label, words, ref_start,
     min_sv_size, max_events, shards), numpy.  Every K bucket up to 8192
     at thresholds 1 and 40, K = 40,000 (a row past 32,768 ops, K no
-    multiple of 32), N = 1, a table that overflows, and 8 shards with and
-    without one shard overflowing."""
+    multiple of 32), N = 1, a table that overflows, 8 shards with and
+    without one shard overflowing, K = 1001, K = 8192 at N = 1,000, and
+    rows past what the scan kernel's grid stages in shared memory at K =
+    32."""
     import numpy as np
 
     from svim_tpu_torch.ops.cigar_kernel import event_bound
@@ -2565,6 +2635,19 @@ def collect_cases(rng):
     yield case("8 shards, shard 3 overflowing", heavy, 40, max_events=1024,
                shards=8)
     yield case("8 shards", words, 40, max_events=16384, shards=8)
+    # K no multiple of 4 (the scan kernel's runs load a word at a time);
+    # 1,000 rows of 8,192 ops, each copied into the buffer of a 256-thread
+    # team (the table overflows; K = 40,000 above is past what the buffers
+    # hold and is read from device memory); and 230,000 rows of 32, more
+    # than a 132-CTA grid stages for its warps (1,742-1,743 a CTA, 1,422
+    # staged in 200 KB with the padding, and rows past a CTA's first 1,024)
+    yield case("K=1001", np.concatenate([_rows_of_ops(1001, CLIP_ROWS),
+                                         _random_cigar_rows(rng, 40, 1001)]),
+               40)
+    yield case("K=8192 N=1000",
+               _random_cigar_rows(rng, 1000, 8192), 40)
+    yield case("rows past the staging, K=32",
+               _random_cigar_rows(rng, 230_000, 32), 40)
 
 
 def classify_inputs(rng, groups, slots, rows=256):
@@ -2612,10 +2695,17 @@ def classify_inputs(rng, groups, slots, rows=256):
 
 def classify_cases(rng):
     """(label, inputs) of the seeded classify cases: S = 2, 64, 128 and 256
-    (over 64 slots: the first 64 sorted segments are kept)."""
-    for groups, slots in ((256, 2), (64, 64), (32, 128), (8, 256)):
+    (over 64 slots: the first 64 sorted segments are kept), then the warp
+    route's slot counts, S = 4, 8, 16 and 32, and S = 3, 5 and 7 (idle lanes
+    past the last whole segment of a warp; G no multiple of 32 / S), and S
+    = 16 with max_segments 5 (the cut inside a warp's segment)."""
+    for groups, slots in ((256, 2), (64, 64), (32, 128), (8, 256),
+                          (512, 4), (512, 8), (256, 16), (128, 32),
+                          (301, 3), (203, 5), (97, 7)):
         yield ("G={0} S={1}".format(groups, slots),
                classify_inputs(rng, groups, slots))
+    yield ("G=256 S=16 max_segments=5",
+           classify_inputs(rng, 256, 16)[:-1] + (5,))
 
 
 def _classify_call(inputs):
@@ -2701,13 +2791,198 @@ def _collect_against_plain(kernel, args, kwargs, where, recorded=None):
     return got
 
 
+# the commit of COLLECT's first kernel designs (csrc/collect_scan.cu in
+# three launches, csrc/classify_segments.cu a CTA a group): built beside the
+# present ones in phase 15 and timed with them in turns on the same inputs
+COLLECT_DESIGN_COMMIT = "e2927607131560984aa83b247e176f68ae3fc41e"
+# the launch floor: an empty kernel of one CTA, and an empty cooperative
+# kernel whose grid meets at one barrier (the scan kernel's launch shape)
+EMPTY_KERNELS = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+__global__ void empty_kernel() {}
+
+__global__ void empty_grid_barrier() {
+  cooperative_groups::this_grid().sync();
+}
+
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int empty_cooperative_launch(int blocks, int threads,
+                                        void* stream) {
+  void* arguments[1] = {nullptr};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      (void*)empty_grid_barrier, dim3(blocks), dim3(threads), arguments, 0,
+      static_cast<cudaStream_t>(stream)));
+}
+"""
+
+
+class _FirstScanDesign:
+    """The first design's scan library as ops.cigar_kernel's wrapper calls
+    it: its scratch was two words a row."""
+
+    def __init__(self, library):
+        self.collect_scan = library.collect_scan
+        self.path = library.path
+
+    @staticmethod
+    def collect_scan_scratch_words(n):
+        return 2 * n
+
+
+def collect_design_libraries():
+    """{"collect_scan", "classify_segments": the first designs (their
+    sources at COLLECT_DESIGN_COMMIT, see _source_at; None where a source
+    cannot be had), "empty": the floor's kernels}, built in parallel with
+    the port's nvcc flags into SCRATCH and bound like the present ones."""
+    import ctypes
+
+    from svim_tpu_torch.ops import _build
+
+    directory = os.path.join(SCRATCH, "collect_designs")
+    os.makedirs(directory, exist_ok=True)
+    sources = {"empty": EMPTY_KERNELS}
+    for kernel, entry in COLLECT_FUNCTIONS.items():
+        source = _source_at(COLLECT_DESIGN_COMMIT, entry[3])
+        if source is not None:
+            sources[kernel] = source
+    jobs = {}
+    for name, source in sources.items():
+        source_path = os.path.join(directory, name + ".cu")
+        with open(source_path, "w") as handle:
+            handle.write(source)
+        library_path = os.path.join(directory, name + ".so")
+        jobs[name] = (library_path, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", library_path,
+             source_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libraries = dict.fromkeys(COLLECT_FUNCTIONS)
+    for name, (library_path, process) in jobs.items():
+        output, _ = process.communicate()
+        if process.returncode != 0:
+            raise RuntimeError("nvcc failed for {0}:\n{1}".format(name,
+                                                                  output))
+        libraries[name] = ctypes.CDLL(library_path)
+        libraries[name].path = library_path
+    empty = libraries["empty"]
+    empty.empty_launch.argtypes = [ctypes.c_void_p]
+    empty.empty_cooperative_launch.argtypes = [ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p]
+    for kernel, functions in (("collect_scan", ("collect_scan",)),
+                              ("classify_segments", ("classify_max_slots",
+                                                     "classify_segments"))):
+        library = libraries[kernel]
+        if library is None:
+            continue
+        present = _collect_module(kernel)[0]._kernel_library()
+        for name in functions:
+            getattr(library, name).argtypes = getattr(present, name).argtypes
+            getattr(library, name).restype = getattr(present, name).restype
+    if libraries["collect_scan"] is not None:
+        libraries["collect_scan"] = _FirstScanDesign(
+            libraries["collect_scan"])
+    return libraries
+
+
+def _through_first_design(kernel, library, function):
+    """`function()` with the wrapper of COLLECT kernel `kernel` bound to
+    `library`; launches made so are not counted."""
+    module = _collect_module(kernel)[0]
+    saved, launches = module._library, module.LAUNCHES
+    module._library = library
+    try:
+        return function()
+    finally:
+        module._library = saved
+        module.LAUNCHES = launches
+
+
+def _time_collect_designs(kernel, tensors, kwargs, first_design,
+                          repeats=20):
+    """Device ms of COLLECT kernel `kernel` on `tensors` and, when
+    `first_design` is a library, of the first design on the same inputs in
+    turns (first design, kernel, kernel, first design; each the mean of its
+    two turns), whose outputs must equal the kernel's bit for bit.  Returns
+    (ms, first design ms or None)."""
+    module, cuda, _ = _collect_module(kernel)
+    launches = module.LAUNCHES
+
+    def call():
+        return cuda(*tensors, **kwargs)
+
+    try:
+        if first_design is None:
+            return _device_ms(call, repeats)[0], None
+        first, old = _through_first_design(
+            kernel, first_design, lambda: _device_ms(call, repeats))
+        second, new = _device_ms(call, repeats)
+        third, _ = _device_ms(call, repeats)
+        fourth, _ = _through_first_design(
+            kernel, first_design, lambda: _device_ms(call, repeats))
+    finally:
+        module.LAUNCHES = launches
+    for index, (a, b) in enumerate(zip(new, old)):
+        if not _bit_equal(a, b):
+            raise AssertionError("{0}: the first design differs from the "
+                                 "kernel in output {1}".format(kernel, index))
+    return (second + third) / 2, (first + fourth) / 2
+
+
+def collect_launch_floor(empty, repeats=20):
+    """Device ms (under _device_ms) of an empty kernel of one CTA and of an
+    empty cooperative kernel of one 1024-thread CTA a SM meeting at one grid
+    barrier."""
+    import torch
+
+    from svim_tpu_torch.ops._build import check_launch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    empty_ms, _ = _device_ms(lambda: check_launch(
+        "empty", empty.empty_launch(stream)), repeats)
+    barrier_ms, _ = _device_ms(lambda: check_launch(
+        "empty cooperative", empty.empty_cooperative_launch(sms, 1024,
+                                                            stream)),
+        repeats)
+    return {"empty_kernel_ms": empty_ms, "empty_grid_barrier_ms": barrier_ms,
+            "grid_barrier_ctas": sms}
+
+
+def _device_kernels(function):
+    """Names of the device kernels, copies and memsets one call of
+    `function` ran, from the Chrome trace of torch.profiler (its event list
+    leaves out kernels that no PyTorch op launched, as ctypes launches
+    are)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as trace:
+        function()
+        torch.cuda.synchronize()
+    path = os.path.join(SCRATCH, "one_call_trace.json")
+    trace.export_chrome_trace(path)
+    with open(path) as handle:
+        events = json.load(handle)["traceEvents"]
+    return [event["name"] for event in events if event.get("ph") == "X"
+            and event.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
 def phase_collect_kernels(recorder):
     """Phase 15: the two COLLECT kernels against their plain versions on
     the card (bit-equal), on every call the main path made in the recorded
     phases and on the seeded cases; the overflow re-run and the 8-shard
-    merge; the sync check; times beside the bound.  Returns {(kernel,
-    "bench batch" or "seeded", shape): (ms, plain ms, bound ms, bound
-    by)}."""
+    merge; the sync check; times beside the bound, the launch floor and the
+    first designs
+    (COLLECT_DESIGN_COMMIT) in turns.  Returns ({(kernel, "bench batch" or
+    "seeded", shape): (ms, plain ms, bound ms, bound by, first design ms or
+    None)}, the floor)."""
     import numpy as np
     import torch
 
@@ -2715,6 +2990,7 @@ def phase_collect_kernels(recorder):
     from svim_tpu_torch.ops.cigar_kernel import round_up_pow2
     from svim_tpu_torch.parallel import mesh
 
+    started = time.perf_counter()
     by_label = {}
     for label, kernel, args, kwargs, outputs in recorder.calls:
         if any(isinstance(arg, torch.Tensor) and arg.device.type != "cuda"
@@ -2821,10 +3097,23 @@ def phase_collect_kernels(recorder):
 
     bench_scan, _ = largest("collect_scan")
     bench_classify = largest("classify_segments")
+    designs = collect_design_libraries()
+    floor = collect_launch_floor(designs["empty"])
+    log("collect", "launch floor: an empty kernel {0:.4f} ms, an empty "
+        "cooperative kernel of {1} CTAs of 1024 threads meeting at one grid "
+        "barrier {2:.4f} ms (device ms, stream held)".format(
+            floor["empty_kernel_ms"], floor["grid_barrier_ctas"],
+            floor["empty_grid_barrier_ms"]))
+    for kernel in COLLECT_FUNCTIONS:
+        if designs[kernel] is None:
+            log("collect", "{0}: the first design's source at {1} is not "
+                "here (no git, nothing under _chipwork/{1}): not timed"
+                .format(kernel, COLLECT_DESIGN_COMMIT))
     timed = [("collect_scan", "bench batch", bench_scan, {}),
              ("classify_segments", "bench batch", bench_classify[0],
-              bench_classify[1])]
-    for k in (128, 8192):
+              bench_classify[1]),
+             ("classify_segments", "seeded", classify_args, classify_kwargs)]
+    for k in (128, 512, 1024, 2048, 8192):
         words = _random_cigar_rows(rng, n, k)
         timed.append(("collect_scan", "seeded",
                       (words, starts, 40, bound), {}))
@@ -2832,9 +3121,8 @@ def phase_collect_kernels(recorder):
     for kernel, label, args, kwargs in timed:
         module, cuda, plain = _collect_module(kernel)
         tensors = _on_card(args)
-        launches = module.LAUNCHES
-        ms, _ = _device_ms(lambda: cuda(*tensors, **kwargs), 20)
-        module.LAUNCHES = launches
+        ms, first_ms = _time_collect_designs(kernel, tensors, kwargs,
+                                             designs[kernel])
         plain_ms, _ = _time_ms(lambda: plain(*tensors, **kwargs), 3)
         if kernel == "collect_scan":
             shape = "N={0},K={1},max_events={2}".format(
@@ -2844,23 +3132,29 @@ def phase_collect_kernels(recorder):
         else:
             shape = "G={0},S={1}".format(*tensors[0].shape)
             bound_ms, bound_by = classify_bound_ms(tensors)
-        timings[(kernel, label, shape)] = (ms, plain_ms, bound_ms, bound_by)
-        log("collect", "{0} at {1} ({2}): kernel {3:.4f} ms, plain {4:.3f} "
-            "ms, bound {5:.5f} ms by {6} (kernel {7:.1f} times its bound)"
-            .format(kernel, shape, label, ms, plain_ms, bound_ms, bound_by,
-                    ms / bound_ms))
+        timings[(kernel, label, shape)] = (ms, plain_ms, bound_ms, bound_by,
+                                           first_ms)
+        log("collect", "{0} at {1} ({2}): kernel {3:.4f} ms, first design "
+            "{8} ms, plain {4:.3f} ms, bound {5:.5f} ms by {6} (kernel "
+            "{7:.1f} times its bound)".format(
+                kernel, shape, label, ms, plain_ms, bound_ms, bound_by,
+                ms / bound_ms, "not timed" if first_ms is None
+                else "{0:.4f}".format(first_ms)))
     for path in ("golden", "bench_wavefront", "bench_auto"):
         for kernel in COLLECT_FUNCTIONS:
             if PATH_LAUNCHES[path][kernel] <= 0:
                 raise AssertionError("{0} launched no {1} kernel".format(
                     path, kernel))
-    return timings
+    log("collect", "phase 15 took {0:.1f} s".format(
+        time.perf_counter() - started))
+    return timings, floor
 
 
-def collect_kernel_entry(kernel, timings, launches_by_path):
+def collect_kernel_entry(kernel, timings, floor, launches_by_path):
     """The `kernels` line's entry of a COLLECT kernel: its numbers at the
-    bench batch shape, the other timed shapes under `by_shape`."""
-    (_, _, shape), (ms, plain_ms, bound_ms, bound_by) = next(
+    bench batch shape, every timed shape under `by_shape` with the first
+    design's ms beside, and the launch floor."""
+    (_, _, shape), (ms, plain_ms, bound_ms, bound_by, _) = next(
         (key, value) for key, value in timings.items()
         if key[0] == kernel and key[1] == "bench batch")
     source, replaces = COLLECT_FUNCTIONS[kernel][3:]
@@ -2872,9 +3166,14 @@ def collect_kernel_entry(kernel, timings, launches_by_path):
             "compared_calls": COLLECT_CHECK[kernel]["calls"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "shape": shape + " (bench batch)",
+            "kernels_per_call": _collect_module(kernel)[0].KERNELS_PER_CALL,
+            "first_design": "{0} at {1}".format(source,
+                                                COLLECT_DESIGN_COMMIT[:7]),
             "by_shape": {"{0} ({1})".format(key[2], key[1]): dict(zip(
-                ("ms", "plain_ms", "bound_ms", "bound_by"), value))
-                for key, value in timings.items() if key[0] == kernel}}
+                ("ms", "plain_ms", "bound_ms", "bound_by",
+                 "first_design_ms"), value))
+                for key, value in timings.items() if key[0] == kernel},
+            "floor_ms": floor}
 
 
 def main():
@@ -2890,7 +3189,17 @@ def main():
 
 
 def run_phases(card, makers):
+    started = time.perf_counter()
     phase_build()
+    kernels_a_call_process = start_kernels_a_call()
+    try:
+        run_later_phases(card, makers, started, kernels_a_call_process)
+    finally:
+        kernels_a_call_process.kill()
+        kernels_a_call_process.wait()
+
+
+def run_later_phases(card, makers, started, kernels_a_call_process):
     timings, max_abs_err = phase_kernels(kernel_shapes())
     recorder = LinkageRecorder()
     collect_calls = CollectRecorder()
@@ -2921,11 +3230,14 @@ def run_phases(card, makers):
                       golden_genome)
     with collect_calls.recording("shards"):
         phase_shards(bench_bam, bench_genome)
-    collect_timings = phase_collect_kernels(collect_calls)
+    collect_timings, collect_floor = phase_collect_kernels(collect_calls)
+    finish_kernels_a_call(kernels_a_call_process)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     log("paths", "kernel launches per path: {0}".format(
         json.dumps(PATH_LAUNCHES)))
+    log("time", "phases 2-15 took {0:.1f} s".format(
+        time.perf_counter() - started))
 
     import torch
 
@@ -2982,7 +3294,8 @@ def run_phases(card, makers):
         "by_shape": {key: dict(zip(("ms", "plain_ms", "bound_ms",
                                     "bound_by", "rescan_design_ms"), value))
                      for key, value in by_shape.items()}}]
-        + [collect_kernel_entry(kernel, collect_timings, by_path(kernel))
+        + [collect_kernel_entry(kernel, collect_timings, collect_floor,
+                                by_path(kernel))
            for kernel in COLLECT_FUNCTIONS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

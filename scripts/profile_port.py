@@ -25,7 +25,11 @@ also says whether COLLECT's device passes (the kernels of
 csrc/collect_scan.cu and csrc/classify_segments.cu) ran while the host did
 other work: of their device time (`collect_pass_s`), the part during which
 a host thread sat in a CUDA runtime call that waits for the device
-(`collect_pass_waited_s`).  The traced run's stage seconds are inflated by the tracing and are not reported.  With --host_top N one more run goes under cProfile and the N
+(`collect_pass_waited_s`), and how many kernels each pass launched in
+the traced run beside the calls of its wrapper (`collect_kernels`: one a
+call since the scan's second design).  The traced run's stage seconds
+are inflated by the tracing and are not reported.  With --host_top N one
+more run goes under cProfile and the N
 functions with the largest cumulative host time are reported (inflated by
 the profiling; for shares, not for seconds).  --incremental_cluster and
 --batch_reads are passed to the port (its defaults: auto, 4096); each
@@ -103,10 +107,14 @@ def _union_seconds(intervals):
     return total / 1e6
 
 
-# kernel names of the COLLECT passes (csrc/collect_scan.cu,
-# csrc/classify_segments.cu)
-COLLECT_KERNELS = ("scan_rows", "scan_offsets", "write_events",
-                   "classify_groups")
+# kernel names of the COLLECT passes: csrc/collect_scan.cu's one kernel
+# (scan_and_compact) and csrc/classify_segments.cu's two routes
+# (classify_groups, classify_groups_warp); then the three kernels of the
+# scan's first design (commit e292760), so that a --root that old reads too
+SCAN_KERNELS = ("scan_and_compact", "scan_rows", "scan_offsets",
+                "write_events")
+CLASSIFY_KERNELS = ("classify_groups",)
+COLLECT_KERNELS = SCAN_KERNELS + CLASSIFY_KERNELS
 # CUDA runtime calls in which the host waits for the device
 WAITING_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                  "cudaEventSynchronize", "cudaMemcpy")
@@ -144,6 +152,19 @@ def collect_pass_overlap(chrome_trace):
              and event.get("name") in WAITING_CALLS]
     return (sum(end - start for start, end in kernels) / 1e6,
             _covered_seconds(kernels, waits))
+
+
+def collect_kernel_counts(chrome_trace):
+    """{"scan": kernel events of the COLLECT scan, "classify": of the
+    classify pass} in a Chrome trace of torch.profiler."""
+    with open(chrome_trace) as handle:
+        names = [event.get("name", "") for event in
+                 json.load(handle)["traceEvents"]
+                 if event.get("ph") == "X" and event.get("cat") == "kernel"]
+    return {part: sum(any(kernel in name for kernel in kernels)
+                      for name in names)
+            for part, kernels in (("scan", SCAN_KERNELS),
+                                  ("classify", CLASSIFY_KERNELS))}
 
 
 def device_intervals(chrome_trace):
@@ -261,6 +282,19 @@ def main():
         raise RuntimeError("the profiler recorded no device time")
     trace_busy = _union_seconds(device_intervals(chrome_trace))
     collect_pass_s, collect_pass_waited_s = collect_pass_overlap(chrome_trace)
+    # device kernels of COLLECT in the traced run beside the wrappers'
+    # calls, held to each wrapper's KERNELS_PER_CALL where it has one
+    collect_kernels = collect_kernel_counts(chrome_trace)
+    for part, module in (("scan", cigar_kernel),
+                         ("classify", segments_kernel)):
+        calls = getattr(module, "LAUNCHES", None)
+        collect_kernels[part + "_calls"] = calls
+        expected = getattr(module, "KERNELS_PER_CALL", None)
+        if expected is not None and collect_kernels[part] != expected * calls:
+            raise RuntimeError("{0}: {1} kernels in the trace for {2} calls "
+                               "of {3} a call".format(
+                                   part, collect_kernels[part], calls,
+                                   expected))
     all_rows = sum(max(_self_device_us(event), 0) for event in rows) / 1e6
     top = sorted(by_name.items(), key=lambda item: -item[1])[:8]
     host_top = []
@@ -296,6 +330,7 @@ def main():
                                     if "agglomerate" in name),
         "collect_pass_s": collect_pass_s,
         "collect_pass_waited_s": collect_pass_waited_s,
+        "collect_kernels": collect_kernels,
         "device_seconds_by_name": dict(top), "host_top": host_top}),
         flush=True)
 

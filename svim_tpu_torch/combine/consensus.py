@@ -9,8 +9,8 @@ Status codes: 0 success, 1 skipped (too long), 2 failed, 3 no match,
 
 The consensus itself is a star MSA over a two-piece-affine global aligner
 (SPOA's algorithm=1 scoring: m=2, n=-4, g=-4, e=-2, q=-24, c=-1).  The
-aligner dispatches to the native C++ kernel (svim_tpu_torch/native) when available
-and falls back to a pure-Python Gotoh DP.
+aligner is the native C++ kernel (svim_tpu_torch/native); the pure-Python
+Gotoh DP takes only an input the native call refuses.
 """
 
 from __future__ import annotations
@@ -55,14 +55,15 @@ def align_global(a: str, b: str, full_dp_cells: int = FULL_DP_CELLS_AUTO):
         return "-" * len(b), b
     if len(b) == 0:
         return a, "-" * len(a)
+    from svim_tpu_torch.native import aligner
+
     try:
-        from svim_tpu_torch.native import aligner, get_library
-        if get_library() is not None:
-            return aligner.align_global(a, b, full_dp_cells=full_dp_cells)
-    except MemoryError:
-        raise
-    except Exception:
-        pass
+        return aligner.align_global(a, b, full_dp_cells=full_dp_cells)
+    except RuntimeError as error:
+        # the native aligner's refusal of an input (a non-zero status);
+        # a library that fails to build or load raises through
+        if error.args != (aligner.REFUSED,):
+            raise
     return _align_global_py_auto(a, b, full_dp_cells)
 
 
@@ -417,7 +418,7 @@ def poa_consensus(sequences, refine_rounds=2):
 
     Seed: true partial-order alignment over the native graph aligner
     (svim_tpu_torch/native/poa.cpp — SPOA's role), falling back to a star MSA when
-    the native library is unavailable or the DP exceeds its budget.  The seed
+    the DP exceeds its budget (a library that fails to build raises).  The seed
     is then polished by `refine_rounds` vote rounds: every sequence re-aligns
     to the consensus and columns are re-voted, which cleans residual
     heaviest-path artifacts (measured: residual error 0-0.5% at 5-15% read
@@ -444,11 +445,10 @@ def poa_consensus(sequences, refine_rounds=2):
             # alignment votes)
     consensus = None
     if len(sequences) > 1:
-        try:
-            from svim_tpu_torch.native import poa_consensus_native
-            consensus = poa_consensus_native(sequences)
-        except Exception:
-            consensus = None
+        from svim_tpu_torch.native import poa_consensus_native
+
+        # None: the banded DP exceeds its budget (the star MSA takes it)
+        consensus = poa_consensus_native(sequences)
     if consensus is None:
         consensus = _star_consensus(sequences)
     for _ in range(refine_rounds):
@@ -463,7 +463,7 @@ def poa_consensus(sequences, refine_rounds=2):
 
 def _polish_round(sequences, center):
     """One vote-polish round: native C++ (alignments + column voting in one
-    call) when available, Python oracle otherwise — byte-identical results
+    call), the Python oracle where it returns None — byte-identical results
     (tests/test_consensus.py pins the differential).
 
     Pairs over the align_global DP budget keep the pre-existing contract
@@ -473,13 +473,11 @@ def _polish_round(sequences, center):
     if (len(center) + 1) * (largest + 1) > MAX_DP_CELLS_NATIVE:
         raise MemoryError("alignment DP too large: {0}x{1}".format(
             len(center), largest))
-    try:
-        from svim_tpu_torch.native import star_polish_native
-        refined = star_polish_native(sequences, center)
-        if refined is not None:
-            return refined
-    except Exception:
-        pass
+    from svim_tpu_torch.native import star_polish_native
+
+    refined = star_polish_native(sequences, center)
+    if refined is not None:
+        return refined
     return _star_consensus(sequences, center=center)
 
 

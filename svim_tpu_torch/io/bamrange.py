@@ -61,14 +61,14 @@ def bgzf_block_offsets(compressed: bytes) -> List[int]:
 
 
 def _inflate(compressed: bytes) -> bytes:
-    """Inflate a concatenation of whole BGZF blocks."""
-    try:
-        from svim_tpu_torch import native
-        data = native.bgzf_decompress_parallel(compressed)
-        if data is not None:
-            return bytes(data)
-    except Exception:
-        pass
+    """Inflate a concatenation of whole BGZF blocks.  The native inflate
+    returns None for a stream it does not take; only then does gzip inflate
+    it.  A native library that fails to build or load raises here."""
+    from svim_tpu_torch import native
+
+    data = native.bgzf_decompress_parallel(compressed)
+    if data is not None:
+        return bytes(data)
     return gzip.decompress(compressed)
 
 

@@ -226,6 +226,9 @@ class aligner:
     # MAX_DP_CELLS_NATIVE and svimnative.cpp kGotoh*Cells
     FULL_DP_CELLS_AUTO = 16_384
     MAX_CELLS = 256_000_000
+    # the message of align_global's RuntimeError when the native call
+    # refuses its input (a non-zero status other than the DP budget's)
+    REFUSED = "gotoh_align failed"
 
     @staticmethod
     def align_global(a: str, b: str, full_dp_cells: int = None):
@@ -249,7 +252,7 @@ class aligner:
             raise MemoryError(
                 "alignment DP too large: {0}x{1}".format(la, lb))
         if status != 0:
-            raise RuntimeError("gotoh_align failed")
+            raise RuntimeError(aligner.REFUSED)
         n = out_len.value
         return out_a.raw[:n].decode(), out_b.raw[:n].decode()
 

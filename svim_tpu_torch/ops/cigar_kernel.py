@@ -14,10 +14,10 @@ Three layers, on the pattern of ops/linkage_kernel.py:
     sums, a `torch.nonzero`, which waits for the device); it equals the
     JAX program on the CPU.
   * `collect_scan_cuda` - the wrapper of the hand-written CUDA kernel
-    (csrc/collect_scan.cu: a warp a row, an exclusive scan of the rows'
-    event counts, a write pass in (row, op) order), equal to the plain
-    version bit for bit, enqueued without a host synchronisation; counted
-    in `LAUNCHES`.
+    (csrc/collect_scan.cu: one cooperative launch of a persistent grid,
+    the rows' geometry and event counts, one grid barrier, then the events
+    in (row, op) order), equal to the plain version bit for bit, enqueued
+    without a host synchronisation; counted in `LAUNCHES`.
   * `collect_scan` - the dispatcher: CPU tensors take the plain version,
     CUDA tensors the kernel.  Nothing falls back.
 """
@@ -31,6 +31,7 @@ import torch
 from svim_tpu_torch.ops._build import check_launch, check_tensors
 
 LAUNCHES = 0   # calls of collect_scan_cuda that launched the kernel
+KERNELS_PER_CALL = 1   # device kernels such a call launches
 
 
 def round_up_pow2(value: int) -> int:
@@ -159,6 +160,8 @@ def _kernel_library():
             [pointer, pointer, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int] + [pointer] * 12)
         library.collect_scan.restype = ctypes.c_int
+        library.collect_scan_scratch_words.argtypes = [ctypes.c_int]
+        library.collect_scan_scratch_words.restype = ctypes.c_int
         _library = library
     return _library
 
@@ -169,9 +172,8 @@ def collect_scan_cuda(cigar_words, ref_start, min_sv_size: int,
 
     cigar_words: (N, K) int32 contiguous CUDA tensor; ref_start: (N,) int32
     on the same device.  Returns the outputs of collect_scan_plain, bit for
-    bit, on that device.  Three launches on the current stream (rows, the
-    scan of their event counts, the write), no host synchronisation; none
-    when N = 0."""
+    bit, on that device.  One launch on the current stream
+    (KERNELS_PER_CALL), no host synchronisation; none when N = 0."""
     global LAUNCHES
     device = cigar_words.device
     if device.type != "cuda":
@@ -196,8 +198,9 @@ def collect_scan_cuda(cigar_words, ref_start, min_sv_size: int,
                                device=device) for _ in range(4)) + (
         torch.empty((max_events,), dtype=torch.bool, device=device),)
     count = torch.empty((), dtype=torch.int32, device=device)
-    # each row's event count, then its first event's place in the table
-    scratch = torch.empty((2, n), dtype=torch.int32, device=device)
+    # each row's event count, then each CTA's total (written before read)
+    scratch = torch.empty((library.collect_scan_scratch_words(n),),
+                          dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         check_launch("collect_scan", library.collect_scan(
             cigar_words.data_ptr(), ref_start.data_ptr(), n, k,

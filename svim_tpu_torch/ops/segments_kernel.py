@@ -11,10 +11,11 @@ Three layers, on the pattern of ops/linkage_kernel.py:
     argsorts and branchless masked selects; it equals the JAX program on
     the CPU.
   * `classify_groups_fused_cuda` - the wrapper of the hand-written CUDA
-    kernel (csrc/classify_segments.cu: a CTA a group, a rank sort in shared
-    memory, a thread a pair running the decision chain), equal to the plain
-    version bit for bit, one launch without a host synchronisation;
-    counted in `LAUNCHES`.
+    kernel (csrc/classify_segments.cu: at S <= 32 a warp takes 32 / S
+    groups, a lane a slot, and sorts by ranks exchanged by shuffles; above
+    that a CTA a group sorts in shared memory; then a lane a pair runs the
+    decision chain), equal to the plain version bit for bit, one launch
+    without a host synchronisation; counted in `LAUNCHES`.
   * `classify_groups_fused` - the dispatcher: CPU tensors take the plain
     version, CUDA tensors the kernel.  Nothing falls back.
 """
@@ -28,6 +29,7 @@ import torch
 from svim_tpu_torch.ops._build import check_launch, check_tensors
 
 LAUNCHES = 0   # launches by classify_groups_fused_cuda
+KERNELS_PER_CALL = 1   # device kernels such a launch is
 
 LEFT_FWD, LEFT_REV, RIGHT_FWD, RIGHT_REV = 0, 1, 2, 3
 INT32_MAX = 2**31 - 1

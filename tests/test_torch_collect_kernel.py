@@ -2,10 +2,13 @@
 CPU: the event-bounded CIGAR scan (collect_scan_plain at svim_tpu's
 max_events, the dispatch's re-run on overflow, the 8-shard merge), the
 split-read classify (classify_groups_fused_plain), numpy models of the two
-CUDA kernels' algorithms (csrc/collect_scan.cu: 32-op chunks of a warp,
-ballots of the non-clip ops and the events, a scan of the row counts;
-csrc/classify_segments.cu: the rank sort), and the dispatchers (CPU
-tensors never build; a failing build raises, nothing falls back).
+CUDA kernels' algorithms (csrc/collect_scan.cu: a grid of CTAs over blocks
+of rows, staged or re-read, a team a row over runs of consecutive ops (a
+warp up to 1024 ops, 128 threads to 4096, 256 above), CTA totals summed
+after the barrier, the fill cut across the CTAs;
+csrc/classify_segments.cu: the rank sort of the CTA route and the
+segmented warp route), and the dispatchers (CPU tensors never build; a
+failing build raises, nothing falls back).
 
 Everything is integers: the tolerance is exact equality.  The seeded cases
 of chip_smoke.py's phase 15 (collect_cases, classify_inputs) are the ones
@@ -97,96 +100,205 @@ def test_collect_scan_plain_equals_jax_at_its_bound(k, threshold):
     assert _assert_scan_equals_jax(words, starts, threshold, small) == count
 
 
-def _model_collect_scan(words, starts, threshold, max_events):
-    """numpy model of csrc/collect_scan.cu: pass 1 a row's 32-op chunks
-    (sums, a ballot of the non-clip ops whose first and last bound the
-    leading and trailing soft clips, the event count), pass 2 an exclusive
-    scan of the row counts, pass 3 the events at their row's place plus the
-    events before them in the row, then the fill.  uint32 sums."""
+U32 = np.uint32
+THREADS = 1024          # csrc/collect_scan.cu kThreads: rows a chunk
+STAGE_WORDS = 51200     # kStageBytes / 4, the padding included
+
+
+def _team_size(k):
+    """Threads a row (csrc/collect_scan.cu team_size): a warp up to K =
+    1024 (kWarpK), 128 up to 4096 (kMidK), 256 above."""
+    return 32 if k <= 1024 else 128 if k <= 4096 else 256
+
+
+def _decoded(words, threshold):
+    """What each word adds (csrc/collect_scan.cu `decode`), as uint32 and
+    bool arrays of the words' shape; a padding word 0 adds nothing."""
+    words = np.asarray(words, dtype=np.int32)
+    op = words & 0xF
+    length = words >> 4
+    ulen = length.astype(U32)
+    zero = U32(0)
+    match = (op == 0) | (op == 7) | (op == 8)
+    soft = (op == 4) & (length > 0)
+    hard = (op == 5) & (length > 0)
+    ref_advance = np.where(match | (op == 2) | (op == 9), ulen, zero)
+    return {
+        "ref": ref_advance + np.where(op == 3, ulen, zero),
+        "ref_advance": ref_advance,
+        "query": np.where(match | (op == 1) | (op == 4) | (op == 10), ulen,
+                          zero),
+        "hard": np.where(hard, ulen, zero), "hard_clip": hard,
+        "soft": np.where(soft, ulen, zero), "length": length,
+        "nonclip": ~(soft | (op == 5) | (length == 0)),
+        "event": ((op == 1) | (op == 2)) & (length >= threshold),
+        "insertion": op == 1}
+
+
+def _runs(row_words, team):
+    """The row cut into `team` runs of consecutive ops, padded with 0:
+    (team, length) words, and the run length."""
+    k = len(row_words)
+    length = -(-k // team)
+    padded = np.zeros(team * length, np.int32)
+    padded[:k] = row_words
+    return padded.reshape(team, length), length
+
+
+def _team_row_counts(row_words, threshold, team):
+    """A team a row: a thread's sums over its run, team sums, the first and
+    last non-clip op as a min and a max over the runs, then the soft clips
+    of the runs before (after) the run that holds it plus those before
+    (after) it in that run.  Returns (ref sum, query sum, hard sum, leading
+    soft, trailing soft, any hard, events)."""
+    runs, length = _runs(row_words, team)
+    w = _decoded(runs, threshold)
+    nonclip = w["nonclip"]
+    has = nonclip.any(axis=1)
+    first = np.where(has, np.argmax(nonclip, axis=1), 0) \
+        + np.arange(team) * length
+    last = np.where(has, runs.shape[1] - 1 - np.argmax(nonclip[:, ::-1],
+                                                       axis=1), 0) \
+        + np.arange(team) * length
+    k = len(row_words)
+    row_first = first[has].min() if has.any() else k
+    row_last = last[has].max() if has.any() else -1
+    soft = w["soft"]
+    before = np.where(np.cumsum(nonclip, axis=1) == 0, soft, U32(0)).sum(
+        axis=1, dtype=U32)
+    after = np.where(np.cumsum(nonclip[:, ::-1], axis=1)[:, ::-1] == 0, soft,
+                     U32(0)).sum(axis=1, dtype=U32)
+    total = soft.sum(axis=1, dtype=U32)
+    rank = np.arange(team)
+    first_run = team if row_first == k else row_first // length
+    last_run = team if row_last < 0 else row_last // length
+    leading = np.where(rank < first_run, total,
+                       np.where(rank == first_run, before, U32(0))).sum(
+        dtype=U32)
+    trailing = np.where(rank > last_run, total,
+                        np.where(rank == last_run, after, U32(0))).sum(
+        dtype=U32)
+    return (w["ref"].sum(dtype=U32), w["query"].sum(dtype=U32),
+            w["hard"].sum(dtype=U32), leading, trailing,
+            bool(w["hard_clip"].any()), int(w["event"].sum()))
+
+
+def _team_row_events(row_words, threshold, place, max_events, team):
+    """A team a row: a team exclusive scan of the runs' event counts; each
+    thread walks its run from its place.  Yields (table index, op index)."""
+    runs, length = _runs(row_words, team)
+    events = _decoded(runs, threshold)["event"]
+    counts = events.sum(axis=1)
+    starts = place + np.concatenate([[0], np.cumsum(counts)[:-1]])
+    for thread in np.flatnonzero(counts):
+        at = int(starts[thread])
+        for column in np.flatnonzero(events[thread]):
+            if at >= max_events:
+                break
+            yield at, thread * length + column
+            at += 1
+
+
+def _places(counts, carry):
+    """A chunk's rows' places: `carry` plus their exclusive prefix, None for
+    a row without events."""
+    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    return [None if count == 0 else carry + int(offset)
+            for count, offset in zip(counts, offsets)]
+
+
+def _model_collect_scan(words, starts, threshold, max_events, ctas=132,
+                        stage_words=STAGE_WORDS, chunk_rows=THREADS,
+                        trace=None):
+    """numpy model of csrc/collect_scan.cu: `ctas` CTAs, each a contiguous
+    block of rows whose first rows are staged when a warp takes a row (32
+    words of every 36 of `stage_words`; wider teams copy each row when they
+    take it, which gives the same words); phase A a team a row
+    (_team_size) over runs of
+    consecutive ops, the first `chunk_rows`
+    rows' places relative to the CTA worked out before the barrier and the
+    later rows' counts kept in scratch, each CTA's total; after the barrier
+    a CTA's first place is the sum of the totals before it; phase B the
+    later rows' counts scanned in chunks of `chunk_rows`, the events written
+    a team a row; the fill cut across the CTAs.  Every table entry must be
+    written exactly once.  `trace`, a dict, receives the rows staged and
+    re-read.  uint32 sums."""
     n, k = words.shape
-    u32 = np.uint32
-    geometry = np.zeros((4, n), dtype=u32)
+    ctas = min(ctas, n) if n else 0
+    team = _team_size(k)
+    geometry = np.zeros((4, n), dtype=U32)
     hard_any = np.zeros(n, dtype=bool)
     row_events = np.zeros(n, dtype=np.int64)
-    for row in range(n):
-        ref_sum = query_sum = hard_sum = u32(0)
-        leading = trailing = u32(0)
-        seen = False
-        for base in range(0, k, 32):
-            lane = np.arange(32)
-            inside = base + lane < k
-            word = np.where(inside, words[row, np.minimum(base + lane, k - 1)],
-                            0).astype(np.int32)
-            op = word & 0xF
-            length = word >> 4
-            ulen = length.astype(u32)
-            match = (op == 0) | (op == 7) | (op == 8)
-            ref_c = inside & (match | (op == 2) | (op == 3) | (op == 9))
-            query_c = inside & (match | (op == 1) | (op == 4) | (op == 10))
-            soft = inside & (op == 4) & (length > 0)
-            hard = inside & (op == 5) & (length > 0)
-            nonclip = inside & ~(soft | (op == 5) | (length == 0))
-            event = inside & ((op == 1) | (op == 2)) & (length >= threshold)
-            ref_sum += ulen[ref_c].sum(dtype=u32)
-            query_sum += ulen[query_c].sum(dtype=u32)
-            hard_sum += ulen[hard].sum(dtype=u32)
-            hard_any[row] |= hard.any()
-            row_events[row] += event.sum()
-            lanes = np.flatnonzero(nonclip)
-            if lanes.size == 0:
-                if seen:
-                    trailing += ulen[soft].sum(dtype=u32)
-                else:
-                    leading += ulen[soft].sum(dtype=u32)
-            else:
-                if not seen:
-                    leading += ulen[soft & (lane < lanes[0])].sum(dtype=u32)
-                trailing = ulen[soft & (lane > lanes[-1])].sum(dtype=u32)
-                seen = True
-        geometry[:, row] = (u32(starts[row]) + ref_sum, query_sum + hard_sum,
-                            leading, query_sum - trailing)
-    offsets = np.concatenate([[0], np.cumsum(row_events)[:-1]])
-    count = int(row_events.sum())
+    blocks = [(b * n // ctas, (b + 1) * n // ctas) for b in range(ctas)]
+    staged = np.zeros(n, dtype=bool)
+    totals, first_places = [], []
+    for first, end in blocks:   # phase A
+        rows = end - first
+        capacity = stage_words // 36 * 32   # only warps stage rows
+        staged[first:first + (min(rows, capacity // k)
+                              if k and team == 32 else 0)] = True
+        for row in range(first, end):
+            ref, query, hard, leading, trailing, any_hard, events = \
+                _team_row_counts(words[row], threshold, team)
+            geometry[:, row] = (U32(starts[row]) + ref, query + hard,
+                                leading, query - trailing)
+            hard_any[row] = any_hard
+            row_events[row] = events
+        # the first chunk's places relative to the CTA's first
+        first_places.append(_places(
+            row_events[first:min(end, first + chunk_rows)], 0))
+        totals.append(int(row_events[first:end].sum()))
+    count = sum(totals)   # the barrier: every total is written
+    kept = min(count, max_events)
     table = [np.full(max_events, -1, np.int32)] + [
         np.zeros(max_events, np.int32) for _ in range(3)] + [
         np.zeros(max_events, bool)]
-    for row in range(n):
-        place = int(offsets[row])
-        ref_before = read_before = u32(0)
-        for base in range(0, k, 32):
-            if place >= max_events:
+    written = np.zeros(max_events, dtype=np.int64)
+    for b, (first, end) in enumerate(blocks):   # phase B
+        carry = sum(totals[:b])
+        for i in range(kept + b * THREADS, max_events, ctas * THREADS):
+            written[i:i + THREADS] += 1   # the fill (the table starts so)
+        for chunk in range(first, end, chunk_rows):
+            if carry >= max_events:
                 break
-            lane = np.arange(32)
-            inside = base + lane < k
-            word = np.where(inside, words[row, np.minimum(base + lane, k - 1)],
-                            0).astype(np.int32)
-            op = word & 0xF
-            length = word >> 4
-            ulen = length.astype(u32)
-            match = (op == 0) | (op == 7) | (op == 8)
-            ref_advance = np.where(inside & (match | (op == 2) | (op == 9)),
-                                   ulen, u32(0))
-            read_advance = np.where(
-                inside & (match | (op == 1) | (op == 4) | (op == 10)), ulen,
-                u32(0))
-            ref_at = ref_before + np.cumsum(ref_advance, dtype=u32) \
-                - ref_advance
-            read_at = read_before + np.cumsum(read_advance, dtype=u32) \
-                - read_advance
-            event = inside & ((op == 1) | (op == 2)) & (length >= threshold)
-            for offset, at_lane in enumerate(np.flatnonzero(event)):
-                at = place + offset
-                if at < max_events:
+            counts = row_events[chunk:min(end, chunk + chunk_rows)]
+            places = [None if place is None else carry + place
+                      for place in first_places[b]] if chunk == first \
+                else _places(counts, carry)
+            for row, place in zip(range(chunk, end), places):
+                if place is None or place >= max_events:
+                    continue
+                w = _decoded(words[row], threshold)
+                ref_at = np.cumsum(w["ref_advance"], dtype=U32) \
+                    - w["ref_advance"]
+                read_at = np.cumsum(w["query"], dtype=U32) - w["query"]
+                for at, op_index in _team_row_events(
+                        words[row], threshold, place, max_events, team):
+                    written[at] += 1
                     table[0][at] = row
-                    table[1][at] = ref_at[at_lane].astype(np.int32)
-                    table[2][at] = read_at[at_lane].astype(np.int32)
-                    table[3][at] = length[at_lane]
-                    table[4][at] = op[at_lane] == 1
-            place += int(event.sum())
-            ref_before += ref_advance.sum(dtype=u32)
-            read_before += read_advance.sum(dtype=u32)
+                    table[1][at] = ref_at[op_index].astype(np.int32)
+                    table[2][at] = read_at[op_index].astype(np.int32)
+                    table[3][at] = w["length"][op_index]
+                    table[4][at] = w["insertion"][op_index]
+            carry += int(counts.sum())
+    assert (written == 1).all(), "table entries written {0} times".format(
+        sorted(set(written.tolist())))
+    if trace is not None:
+        trace["staged"] = int(staged.sum())
+        trace["re-read"] = int((~staged).sum())
     return (tuple(geometry.astype(np.int32)) + (hard_any,) + tuple(table)
             + (np.int32(count),))
+
+
+def _model_sized(words, starts):
+    """A seeded case cut to what the model walks in Python in a moment: its
+    first 14 rows (the clip rows and a few random ones) at K >= 2048, its
+    first 600 rows of a batch larger than 4,096."""
+    if words.shape[1] >= 2048:
+        return words[:14], starts[:14]
+    if words.shape[0] > 4096:
+        return words[:600], starts[:600]
+    return words, starts
 
 
 def test_the_collect_kernel_model_equals_the_plain_version():
@@ -197,10 +309,7 @@ def test_the_collect_kernel_model_equals_the_plain_version():
     seen = []
     for label, words, starts, threshold, max_events, _shards in \
             SMOKE.collect_cases(rng):
-        if words.shape[1] >= 2048:
-            # the model walks a row's chunks in Python: keep the case's
-            # first rows (the clip rows) and a few random ones
-            words, starts = words[:14], starts[:14]
+        words, starts = _model_sized(words, starts)
         want = to_host(cigar_kernel.collect_scan_plain(
             _t(words), _t(starts), threshold, max_events))
         got = _model_collect_scan(words, starts, threshold, max_events)
@@ -212,6 +321,45 @@ def test_the_collect_kernel_model_equals_the_plain_version():
         seen.append((label, int(want[10]) > max_events))
     assert ("overflowing table", True) in seen
     assert ("8 shards, shard 3 overflowing", True) in seen
+
+
+GRIDS = {"1 CTA": (1, STAGE_WORDS, THREADS),
+         "1 CTA, chunks of 64 rows": (1, STAGE_WORDS, 64),
+         "7 CTAs": (7, STAGE_WORDS, THREADS),
+         "132 CTAs": (132, STAGE_WORDS, THREADS),
+         "a CTA a row": (None, STAGE_WORDS, THREADS),
+         "7 CTAs, 512 words staged": (7, 512, THREADS)}
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_the_collect_kernel_model_at_several_grids(grid):
+    """The kernel's model at several grid sizes, staging budgets and chunk
+    sizes (a CTA a row: as many CTAs as rows; chunks of 64 rows: the rows
+    past a CTA's first chunk placed after the barrier) on the smoke's seeded
+    cases, bit for bit against collect_scan_plain and, at K <= 128,
+    svim_tpu's jit program; the small budget re-reads rows at every team
+    size."""
+    ctas, stage_words, chunk_rows = GRIDS[grid]
+    rng = np.random.default_rng(20261021)
+    trace, re_read = {}, []
+    for label, words, starts, threshold, max_events, _shards in \
+            SMOKE.collect_cases(rng):
+        words, starts = _model_sized(words, starts)
+        want = to_host(cigar_kernel.collect_scan_plain(
+            _t(words), _t(starts), threshold, max_events))
+        got = _model_collect_scan(words, starts, threshold, max_events,
+                                  ctas=ctas or len(words),
+                                  stage_words=stage_words,
+                                  chunk_rows=chunk_rows, trace=trace)
+        for index, (a, b) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(a, b, err_msg="{0}, output {1}"
+                                          .format(label, index))
+        if words.shape[1] <= 128:
+            _assert_scan_equals_jax(words, starts, threshold, max_events)
+        if trace["re-read"]:
+            re_read.append(words.shape[1])
+    if stage_words == 512:
+        assert {_team_size(k) for k in re_read} == {32, 128, 256}
 
 
 def test_the_collect_cases_cover_the_clip_rules():
@@ -308,7 +456,8 @@ def _jax_classify(inputs):
         *arrays, *scalars, max_segments=inputs[21]))
 
 
-@pytest.mark.parametrize("groups,slots", [(256, 2), (64, 64), (32, 128)])
+@pytest.mark.parametrize("groups,slots", [(256, 2), (64, 64), (32, 128),
+                                          (512, 8), (97, 7), (128, 32)])
 def test_classify_plain_equals_jax(groups, slots):
     """Key ties, invalid slots in the middle, gated and padding groups,
     slots from packed rows; over 64 slots the first 64 sorted are kept."""
@@ -367,6 +516,76 @@ def _rank_sort(start, end, valid):
     order = np.empty_like(rank)
     order[rank] = index
     return order
+
+
+def _warp_rank_sort(start, end, valid):
+    """numpy model of the classify kernel's warp route (S <= 32): a warp of
+    32 lanes takes 32 // S groups, lane = segment * S + slot; a lane's rank
+    is counted over S shuffles of its segment's keys (invalid slots keyed
+    INT32_MAX, ties to the lower slot); the lane at sorted place i takes
+    the slot whose rank is i (S more shuffles); the lane of pair i takes
+    its next segment from lane + 1.  Lanes past the warp's last whole
+    segment and those of groups past G run every shuffle and write nothing.
+    Returns ((G, S) slot at each sorted place, (G, S - 1) slot of each
+    pair's next segment)."""
+    groups, slots = start.shape
+    per_warp = 32 // slots
+    big = np.int64(2**31 - 1)
+    order = np.full((groups, slots), -1)
+    following = np.full((groups, slots - 1), -1)
+    lane = np.arange(32)
+    segment = lane // slots
+    slot = lane - segment * slots
+    first_lane = segment * slots
+    for warp in range(-(-groups // per_warp)):
+        group = warp * per_warp + segment
+        active = (segment < per_warp) & (group < groups)
+        row = np.where(active, group, 0)
+        mine = active & valid[row, slot]
+        key_start = np.where(mine, start[row, slot], big)
+        key_end = np.where(mine, end[row, slot], big)
+        rank = np.zeros(32, dtype=np.int64)
+        for j in range(slots):
+            source = (first_lane + j) % 32   # __shfl_sync wraps the lane
+            other_start, other_end = key_start[source], key_end[source]
+            rank += ((other_start < key_start)
+                     | ((other_start == key_start)
+                        & ((other_end < key_end)
+                           | ((other_end == key_end) & (j < slot)))))
+        held = np.zeros(32, dtype=np.int64)
+        for j in range(slots):
+            held = np.where(rank[(first_lane + j) % 32] == slot, j, held)
+        after = held[(lane + 1) % 32]
+        for at in np.flatnonzero(active):
+            order[group[at], slot[at]] = held[at]
+            if slot[at] < slots - 1:
+                following[group[at], slot[at]] = after[at]
+    return order, following
+
+
+@pytest.mark.parametrize("slots", [2, 3, 4, 5, 7, 8, 16, 32])
+def test_warp_route_sort_equals_two_stable_argsorts(slots):
+    """The warp route's segmented rank sort gives each group the
+    permutation of the two stable argsorts (ties on a 100-base grid,
+    invalid slots in the middle, padding groups with no valid slot, G no
+    multiple of the groups a warp), and each pair the next sorted slot."""
+    rng = np.random.default_rng(100 + slots)
+    groups = 3 * (32 // slots) + 5
+    start = rng.integers(0, 6, (groups, slots)).astype(np.int32) * 100
+    end = start + rng.integers(0, 4, (groups, slots)).astype(np.int32) * 100
+    valid = rng.random((groups, slots)) < 0.8
+    valid[-2:] = False
+    order, following = _warp_rank_sort(start, end, valid)
+    big = np.int32(2**31 - 1)
+    for g in range(groups):
+        first = np.argsort(np.where(valid[g], end[g], big), kind="stable")
+        second = np.argsort(np.where(valid[g], start[g], big)[first],
+                            kind="stable")
+        np.testing.assert_array_equal(order[g], first[second])
+        np.testing.assert_array_equal(order[g], _rank_sort(
+            start[g], end[g], valid[g]))
+        np.testing.assert_array_equal(following[g], order[g][1:])
+    assert not (order < 0).any()
 
 
 @pytest.mark.parametrize("slots", [2, 7, 64, 128, 300])

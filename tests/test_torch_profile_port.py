@@ -121,3 +121,36 @@ def test_collect_pass_overlap_counts_the_host_waiting_beside_it(
     assert total == pytest.approx(20e-6)
     # scan_rows 104-110, write_events 120-122; classify ran beside no wait
     assert waited == pytest.approx(8e-6)
+
+
+def test_collect_kernel_counts_name_both_scan_designs(profile_port,
+                                                      tmp_path):
+    """The one kernel of the scan's present design and the three of its
+    first design count as scan kernels, both classify routes as classify
+    kernels; launch calls and other kernels do not count."""
+    events = [
+        {"ph": "X", "cat": "kernel", "ts": 100.0, "dur": 3.0,
+         "name": "(anonymous namespace)::scan_and_compact(Params)"},
+        {"ph": "X", "cat": "kernel", "ts": 110.0, "dur": 3.0,
+         "name": "(anonymous namespace)::scan_and_compact(Params)"},
+        {"ph": "X", "cat": "kernel", "ts": 120.0, "dur": 2.0,
+         "name": "(anonymous namespace)::classify_groups_warp(Columns)"},
+        {"ph": "X", "cat": "kernel", "ts": 130.0, "dur": 2.0,
+         "name": "(anonymous namespace)::classify_groups(Columns)"},
+        {"ph": "X", "cat": "kernel", "ts": 140.0, "dur": 9.0,
+         "name": "agglomerate_fused"},
+        {"ph": "X", "cat": "cuda_runtime", "ts": 99.0, "dur": 1.0,
+         "name": "cudaLaunchCooperativeKernel"},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert profile_port.collect_kernel_counts(str(path)) == {
+        "scan": 2, "classify": 2}
+    total, waited = profile_port.collect_pass_overlap(str(path))
+    assert total == pytest.approx(10e-6) and waited == 0
+    old = [dict(event, name=name) for event, name in zip(events, (
+        "scan_rows(int const*)", "scan_offsets(int const*)",
+        "write_events(int const*)"))]
+    path.write_text(json.dumps({"traceEvents": old}))
+    assert profile_port.collect_kernel_counts(str(path)) == {
+        "scan": 3, "classify": 0}
