@@ -6,11 +6,17 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. environment: a CUDA device is required; prints the card's name and
      power limit (nvidia-smi) and the torch / CUDA versions;
-  2. build: compiles the five kernel sources, csrc/wavefront.cu,
-     span_distance.cu, agglomerate.cu, collect_scan.cu and
-     classify_segments.cu, with nvcc (all at once) and, beside them, the
-     port's native host library (svim_tpu_torch/native: scan session, POA)
-     with g++, all into svim_tpu_torch/_build;
+  2. build: compiles the seven kernel sources, csrc/wavefront.cu,
+     span_distance.cu, agglomerate.cu, collect_scan.cu,
+     classify_segments.cu, genotype_support.cu and ins_matrices.cu, with
+     nvcc (all at once) and, beside them, the port's native host library
+     (svim_tpu_torch/native: scan session, POA) with g++, all into
+     svim_tpu_torch/_build;
+  2b. in a process of its own, started after the build: one wrapper call
+     of the COLLECT, GENOTYPE and INS matrix kernels at the bench's shapes
+     runs the device kernels its design says (torch.profiler: one a call,
+     the INS matrices two), and the GENOTYPE and INS calls enqueue under
+     torch.cuda.set_sync_debug_mode("error");
   3. kernel vs plain version on the card: banded_distance_cuda against
      banded_distance_torch on seeded inputs (half near-identical pairs, half
      random) at the main path's shapes and at one case per code path of the
@@ -44,7 +50,15 @@ Phases, each of which raises (non-zero exit) on failure:
      the card) is re-run on the CPU and must agree, and is run through
      the kernel (csrc/agglomerate.cu) and through the plain version on the
      card: merges, heights, min_gap, dropped, has_wall and dedup_ambiguous
-     must be equal bit for bit on every row; the same for seeded tie-free
+     must be equal bit for bit on every row; every INS matrix call goes
+     through csrc/ins_matrices.cu and the plain version on the card,
+     bit-equal to each other, to the run's own matrices and to the CPU's
+     on every cell off the diagonal, and the agglomeration call that took
+     them gives bit-equal outputs on either; so do the seeded cases of
+     ins_matrix_cases (P = 32 and 128, padding pairs only, spans 0 and past
+     2^24, wrapping starts, norms around 1), and the kernel is timed beside
+     its plain version and bound at the bench's largest call and at
+     INS_TIMED_SHAPES; the same for seeded tie-free
      partitions, whose labels built from the card's merges must equal exact
      float64 host linkage, and for the seeded cases of agglomerate_cases
      (every kind with and without the wall, negative starts, zero spans,
@@ -146,6 +160,23 @@ Phases, each of which raises (non-zero exit) on failure:
      timed in turns, outputs bit-equal) at the bench batch shapes, for the
      scan at N = 4096 with K = 128, 512, 1024, 2048 and 8192 and for the
      classify at G = 512, S = 8.
+ 16. GENOTYPE's join: every call the main path made to
+     ops.genotype_kernel.genotype_support_batched in phases 4, 5, 5b, 8
+     and 14 (recorded as clones on the card; phase 9's SAM text genotypes
+     by host region queries and its queryname input skips genotyping, as
+     in svim_tpu) runs again through
+     csrc/genotype_support.cu and through the plain version on the card:
+     equal to each other and to the path's own counts; so must the seeded
+     cases (genotype_cases: the cap at 499, 500 and 501 qualifying rows,
+     width 0, 1 and 8192, S = 8, 64 and 8192, past the shared-memory stage,
+     repeated and INT_MAX support ids, INT_MAX and INT_MIN table ids,
+     wrapping margins, both types in a call, C = 1 and 4096); the join
+     enqueues under torch.cuda.set_sync_debug_mode("error"); prints kernel
+     and plain ms beside the bound at the bench's join and at C = 4096,
+     slice_len = 8192, S = 64, and the host seconds of the bench's and the
+     tie-free run's whole join through the kernel and through the plain
+     version on the card; golden and both bench runs launch the kernel
+     once.
 The script imports torch and the port, never jax or the JAX package: the
 inputs come from svim_tpu_torch.workloads.
 Then one JSON line describing the kernels, the card line, and the last
@@ -249,6 +280,7 @@ def phase_build():
         _build,
         cigar_kernel,
         distance_kernel,
+        genotype_kernel,
         linkage_kernel,
         segments_kernel,
         wavefront_kernel,
@@ -275,6 +307,8 @@ def phase_build():
         slots = linkage_kernel._kernel_library().agglomerate_max_slots()
         classify_slots = segments_kernel._kernel_library(
             ).classify_max_slots()
+        genotype_kernel._kernel_library()
+        linkage_kernel._ins_kernel_library()
         log("build", "{0} built (in parallel) and loaded in {1:.2f}s (nvcc "
             "{2}); DPX add-min: {3}; agglomeration up to P = {4}; classify "
             "up to S = {5}".format(
@@ -315,39 +349,71 @@ def finish_kernels_a_call(process):
     output, _ = process.communicate()
     sys.stdout.write(output)
     if process.returncode != 0:
-        raise AssertionError("phase 2b (one device kernel a COLLECT call) "
+        raise AssertionError("phase 2b (device kernels a call) "
                              "failed with exit code {0}".format(
                                  process.returncode))
 
 
 def kernels_a_call():
-    """Phase 2b: a call of each COLLECT kernel's wrapper at the bench
-    batch's shapes (N = 4096, K = 32; G = 256, S = 2) runs one device
-    kernel (the module's KERNELS_PER_CALL), counted in the Chrome trace of
-    torch.profiler."""
+    """Phase 2b: a call of each wrapper of the COLLECT, GENOTYPE and INS
+    matrix kernels at the bench's shapes (N = 4096, K = 32; G = 256, S = 2;
+    GENOTYPE_BENCH_SHAPE; INS_BENCH_SHAPE) runs the device kernels its
+    design says (the module's KERNELS_PER_CALL: one, the INS matrices two),
+    counted in the Chrome trace of torch.profiler; the GENOTYPE and INS
+    calls also enqueue under torch.cuda.set_sync_debug_mode("error")."""
     import numpy as np
+    import torch
+
+    from svim_tpu_torch.ops import genotype_kernel, linkage_kernel
 
     rng = np.random.default_rng(20261017)
     scan_args = _on_card((_random_cigar_rows(rng, 4096, 32),
                           np.zeros(4096, np.int32))) + [40, 16384]
     classify_args, classify_kwargs = _classify_call(
         classify_inputs(rng, 256, 2))
+    calls = []
     for kernel, args, kwargs in (
             ("collect_scan", scan_args, {}),
             ("classify_segments", _on_card(classify_args), classify_kwargs)):
         module, cuda, _ = _collect_module(kernel)
-        launches = module.LAUNCHES
-        cuda(*args, **kwargs)
-        names = _device_kernels(lambda: cuda(*args, **kwargs))
-        if module.LAUNCHES - launches != 2 or module.KERNELS_PER_CALL != 1 \
-                or len(names) != module.KERNELS_PER_CALL:
+        calls.append((kernel, module, "LAUNCHES", module.KERNELS_PER_CALL,
+                      lambda cuda=cuda, args=args, kwargs=kwargs:
+                      cuda(*args, **kwargs)))
+    genotype_args = _on_card(genotype_timed_inputs(rng,
+                                                   *GENOTYPE_BENCH_SHAPE))
+    ins_args = _on_card(_ins_inputs(rng, *INS_BENCH_SHAPE))
+    calls += [
+        ("genotype_support", genotype_kernel, "LAUNCHES",
+         genotype_kernel.KERNELS_PER_CALL,
+         lambda: genotype_kernel.genotype_support_batched_cuda(
+             *genotype_args)),
+        ("ins_matrices", linkage_kernel, "INS_LAUNCHES",
+         linkage_kernel.INS_KERNELS_PER_CALL,
+         lambda: linkage_kernel.ins_matrices_from_pairs_cuda(*ins_args))]
+    for kernel, module, attribute, per_call, call in calls:
+        launches = getattr(module, attribute)
+        call()
+        names = _device_kernels(call)
+        if getattr(module, attribute) - launches != 2 \
+                or len(names) != per_call:
             raise AssertionError("{0}: {1} device kernels a call ({2}), {3} "
                                  "counted launches".format(
                                      kernel, len(names), names,
-                                     module.LAUNCHES - launches))
-        module.LAUNCHES = launches
-        log("collect", "{0} at the bench batch's shape: one device kernel a "
-            "call ({1})".format(kernel, names[0]))
+                                     getattr(module, attribute) - launches))
+        setattr(module, attribute, launches)
+        log("kernels", "{0} at the bench's shape: {1} device kernel(s) a "
+            "call ({2})".format(kernel, len(names), ", ".join(names)))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        genotype_kernel.genotype_support_batched(*genotype_args)
+        linkage_kernel.ins_matrices_from_pairs(*ins_args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("kernels", "sync check: genotype_support_batched and "
+        "ins_matrices_from_pairs enqueued on card tensors under "
+        "torch.cuda.set_sync_debug_mode('error') without a host sync")
 
 
 def _pairs(rng, batch, length):
@@ -718,11 +784,15 @@ def _telemetry():
     return {key: counts[key] for key in _NO_TELEMETRY}
 
 
-KERNEL_MODULES = {"wavefront_banded_distance": "wavefront_kernel",
-                  "span_distance_matrix": "distance_kernel",
-                  "agglomerate": "linkage_kernel",
-                  "collect_scan": "cigar_kernel",
-                  "classify_segments": "segments_kernel"}
+# each kernel's launch count: (ops module, attribute)
+KERNEL_COUNTERS = {
+    "wavefront_banded_distance": ("wavefront_kernel", "LAUNCHES"),
+    "span_distance_matrix": ("distance_kernel", "LAUNCHES"),
+    "agglomerate": ("linkage_kernel", "LAUNCHES"),
+    "collect_scan": ("cigar_kernel", "LAUNCHES"),
+    "classify_segments": ("segments_kernel", "LAUNCHES"),
+    "genotype_support": ("genotype_kernel", "LAUNCHES"),
+    "ins_matrices": ("linkage_kernel", "INS_LAUNCHES")}
 # launch counts of every kernel, per path the smoke drives
 PATH_LAUNCHES = {}
 
@@ -738,14 +808,15 @@ def _drive(path, arguments, chunk=0):
 
     from svim_tpu_torch import workloads
 
-    modules = {name: importlib.import_module("svim_tpu_torch.ops." + module)
-               for name, module in KERNEL_MODULES.items()}
-    for module in modules.values():
-        module.LAUNCHES = 0
+    counters = {name: (importlib.import_module("svim_tpu_torch.ops." + module),
+                       attribute)
+                for name, (module, attribute) in KERNEL_COUNTERS.items()}
+    for module, attribute in counters.values():
+        setattr(module, attribute, 0)
     with workloads.chunked_scan(chunk) if chunk else contextlib.nullcontext():
         code = _run_port(arguments)
-    PATH_LAUNCHES[path] = {name: module.LAUNCHES
-                           for name, module in modules.items()}
+    PATH_LAUNCHES[path] = {name: getattr(module, attribute)
+                           for name, (module, attribute) in counters.items()}
     if code != 0:
         raise RuntimeError("{0} exited with {1}".format(path, code))
     return PATH_LAUNCHES[path]["wavefront_banded_distance"]
@@ -887,6 +958,7 @@ def phase_bench(card, recorder, makers):
                              "from svim_tpu's".format(digest))
     log("bench", "wavefront and auto variants.vcf are byte-equal, and equal "
         "to svim_tpu's (sha256)")
+    recorder.label = "bench_wavefront"
     with recorder:
         code = _run_port(["alignment", os.path.join(directory, "wd_recorded"),
                           bam, genome, "--edit_backend", "wavefront",
@@ -1561,8 +1633,24 @@ def phase_linkage(recorder):
         want = getattr(linkage_kernel, name)(*args, **kwargs)
         where = "main-path call {0} of {1}".format(number, name)
         if name == "ins_matrices_from_pairs":
-            torch.testing.assert_close(got, want, rtol=1e-6, atol=0,
-                                       msg=lambda m: where + ": " + m)
+            # the run's matrices against the CPU's off the diagonal, and the
+            # same inputs through the kernel and the plain version on the
+            # card, with the agglomeration call that took them
+            cells = _off_diagonal(*got.shape[:2])
+            if not _bit_equal(got[cells], want[cells]):
+                raise AssertionError(where + ": the card's matrices differ "
+                                     "from the CPU's off the diagonal")
+            following = next(
+                (call for call in recorder.calls[number + 1:]
+                 if call[0] == "agglomerate_batched"
+                 and _bit_equal(call[1][0], got)), None)
+            if following is None:
+                raise AssertionError(where + ": no agglomeration call of "
+                                     "these matrices follows")
+            _ins_against_plain(args, where, valid=following[1][1],
+                               recorded=got)
+            kernel_rows[name] = kernel_rows.get(name, 0) + int(
+                args[0].shape[0])
         else:
             max_error = max(max_error, _same_linkage(got, want, where)[1])
             # the same inputs through the kernel and the plain version on
@@ -1596,12 +1684,16 @@ def phase_linkage(recorder):
         where = "synthetic {0}, P={1}".format(name, args[0].shape[1])
         if name != "ins_matrices_from_pairs":
             _kernel_against_plain(name, _positional(args, kwargs), where)
+        else:
+            _ins_against_plain(args, where)
         got = _to_cpu(op(*args, **kwargs))
         args, kwargs = _to_cpu(args), _to_cpu(kwargs)
         want = op(*args, **kwargs)
         if name == "ins_matrices_from_pairs":
-            torch.testing.assert_close(got, want, rtol=1e-6, atol=0,
-                                       msg=lambda m: where + ": " + m)
+            cells = _off_diagonal(*got.shape[:2])
+            if not _bit_equal(got[cells], want[cells]):
+                raise AssertionError(where + ": the card's matrices differ "
+                                     "from the CPU's off the diagonal")
             continue
         accepted, error = _same_linkage(got, want, where)
         max_error = max(max_error, error)
@@ -1627,6 +1719,22 @@ def phase_linkage(recorder):
         "from the card's merges pass the float32 guard and equal exact "
         "float64 host linkage; max height difference {1!r}".format(
             accepted_rows, max_error))
+
+    for label, args, valid in ins_matrix_cases(
+            np.random.default_rng(20261027)):
+        where = "INS matrices, " + label
+        got = _ins_against_plain(args, where, valid=valid).cpu()
+        tensors = [torch.from_numpy(value) if isinstance(value, np.ndarray)
+                   else float(value) for value in args]
+        want = linkage_kernel.ins_matrices_from_pairs_plain(*tensors)
+        cells = _off_diagonal(*got.shape[:2])
+        if not _bit_equal(got[cells], want[cells]):
+            raise AssertionError(where + ": the card's matrices differ from "
+                                 "the CPU's off the diagonal")
+        log("linkage", "{0}: B={1} P={2} Q={3}: kernel, plain version on the "
+            "card and on the CPU bit-equal off the diagonal, agglomeration "
+            "bit-equal".format(label, *args[0].shape, args[2].shape[0]))
+    return ins_timings(recorder)
 
 
 def _distance_inputs(rng, batch, pad, wide=False):
@@ -2244,7 +2352,7 @@ def _run_ranks(path, world, working_dir, bam, genome):
         ranks.append(values)
     PATH_LAUNCHES[path] = {
         name: sum(values["launches"][name] for values in ranks)
-        for name in KERNEL_MODULES}
+        for name in KERNEL_COUNTERS}
     return ranks
 
 
@@ -2500,6 +2608,13 @@ COLLECT_FUNCTIONS = {
 # the phases whose COLLECT calls phase 15 checks again
 COLLECT_RECORDED = ("golden", "bench", "tiefree", "streaming", "inputs",
                     "shards")
+# what DeviceOpRecorder records: the COLLECT ops and GENOTYPE's join, as
+# the dispatcher (kernel level) and as the host entry point (the jobs)
+RECORDED_OPS = COLLECT_OPS + (
+    ("genotype_support", "svim_tpu_torch.ops.genotype_kernel",
+     "genotype_support_batched"),
+    ("genotype_jobs", "svim_tpu_torch.ops.genotype_kernel",
+     "genotype_ref_support_device"))
 
 
 def _clone(value):
@@ -2514,9 +2629,9 @@ def _clone(value):
     return value
 
 
-class CollectRecorder:
+class DeviceOpRecorder:
     """While `recording(label)` is active, keeps a copy of the inputs and
-    outputs of every call the main path makes to the two COLLECT ops, filed
+    outputs of every call the main path makes to the RECORDED_OPS, filed
     under `label`.  The copies are clones on the inputs' device, so
     recording waits for nothing and the path runs as it would."""
 
@@ -2530,7 +2645,7 @@ class CollectRecorder:
         @contextlib.contextmanager
         def active():
             patched = []
-            for kernel, module_name, attribute in COLLECT_OPS:
+            for kernel, module_name, attribute in RECORDED_OPS:
                 module = importlib.import_module(module_name)
                 original = getattr(module, attribute)
 
@@ -2993,6 +3108,8 @@ def phase_collect_kernels(recorder):
     started = time.perf_counter()
     by_label = {}
     for label, kernel, args, kwargs, outputs in recorder.calls:
+        if kernel not in COLLECT_FUNCTIONS:
+            continue
         if any(isinstance(arg, torch.Tensor) and arg.device.type != "cuda"
                for arg in args):
             raise AssertionError("a {0} call of {1} ran off the card".format(
@@ -3176,6 +3293,682 @@ def collect_kernel_entry(kernel, timings, floor, launches_by_path):
             "floor_ms": floor}
 
 
+# --- phase 16 and the INS matrices of phase 6: this slice's two kernels -----
+
+INT32_MAX = 2**31 - 1
+INT32_MIN = -2**31
+# GENOTYPE's kernel: its source, the TPU program it replaces, the phases
+# whose joins phase 16 checks again (phase 9's inputs make none: SAM text
+# genotypes by host region queries, a queryname-sorted input not at all),
+# and the shape timed beside the bench's (candidates, slice_len, support
+# width)
+GENOTYPE_SOURCE = "svim_tpu_torch/csrc/genotype_support.cu"
+GENOTYPE_REPLACES = "svim_tpu/ops/genotype_kernel.py:78"
+GENOTYPE_RECORDED = ("golden", "bench", "tiefree", "streaming", "shards")
+GENOTYPE_TIMED_SHAPE = (4096, 8192, 64)
+# (C, slice_len, S) of the bench's GENOTYPE join and (B, P, Q) of its
+# largest INS matrix call (bench-8192, --edit_backend wavefront): phase 2b
+# runs a call of each at these shapes
+GENOTYPE_BENCH_SHAPE = (192, 64, 32)
+INS_BENCH_SHAPE = (128, 32, 32768)
+INS_SOURCE = "svim_tpu_torch/csrc/ins_matrices.cu"
+INS_REPLACES = "svim_tpu/ops/linkage_kernel.py:130"
+# what phases 6 and 16 have seen: calls compared and the largest difference
+GENOTYPE_CHECK = {"calls": 0, "max_abs_err": 0}
+INS_CHECK = {"calls": 0, "max_abs_err": 0.0}
+
+
+def _genotype_call(candidates, slice_len, s):
+    """genotype_support_batched's positional arguments (numpy int32 arrays,
+    slice_len last) for `candidates`: dicts of a window's rows (starts2,
+    ends2, ids, doubled coordinates), the candidate's ws2, s2, e2, mo2, tc,
+    its support ids (sorted here, padded with INT_MAX to `s`) and, where
+    given, a width other than its row count.  The windows lie one after
+    another in a table padded by slice_len rows as DeviceGenotypeTable pads
+    it."""
+    import numpy as np
+
+    parts = ([], [], [])
+    columns = np.zeros((7, len(candidates)), dtype=np.int64)
+    support = np.full((len(candidates), s), INT32_MAX, dtype=np.int64)
+    base = 0
+    for index, candidate in enumerate(candidates):
+        rows = len(candidate["starts2"])
+        for part, key in zip(parts, ("starts2", "ends2", "ids")):
+            part.append(np.asarray(candidate[key], dtype=np.int64))
+        columns[:, index] = (base, candidate.get("width", rows),
+                             candidate["ws2"], candidate["s2"],
+                             candidate["e2"], candidate["mo2"],
+                             candidate["tc"])
+        ids = np.sort(np.asarray(candidate["support"], dtype=np.int64))
+        support[index, :len(ids)] = ids
+        base += rows
+    table = [np.concatenate(part + [np.full(slice_len, pad, np.int64)])
+             .astype(np.int32)
+             for part, pad in zip(parts, (INT32_MAX, INT32_MIN, INT32_MAX))]
+    return ([column.astype(np.int32) for column in columns]
+            + [support.astype(np.int32)] + table + [slice_len])
+
+
+def _genotype_candidate(rows, ids, support=(), tc=0, **params):
+    """A candidate at 100,000-102,000 bp (doubled: s2 = 200,000, e2 =
+    204,000; an INS when tc = 1, e2 = s2) over `rows`, (start2, end2)
+    pairs."""
+    import numpy as np
+
+    s2 = params.pop("s2", 200_000)
+    e2 = params.pop("e2", s2 if tc else 204_000)
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1, 2)
+    return dict(dict(starts2=rows[:, 0], ends2=rows[:, 1], ids=ids,
+                     ws2=s2 - 2000, s2=s2, e2=e2, mo2=min(e2 - s2, 4000),
+                     tc=tc, support=list(support)), **params)
+
+
+# rows of the candidate above: SPAN spans it as a DEL and as an INS; FLANK
+# lies in the window and qualifies but spans neither; OUTSIDE ends before
+# the window and does not qualify
+SPAN = (190_000, 210_000)
+FLANK = (199_900, 203_000)
+OUTSIDE = (150_000, 197_000)
+
+
+def _random_candidates(rng, count, most_rows, s, wide=False):
+    """`count` candidates over random windows of 0 to `most_rows` rows
+    sorted by start, either type, support ids drawn from the window's ids
+    with repeats and some INT_MAX among them, at most `s`.  `wide` draws
+    every coordinate and bound over the whole int32 range, so that the
+    margins and overlaps wrap."""
+    import numpy as np
+
+    candidates = []
+    for _ in range(count):
+        rows = int(rng.integers(0, most_rows + 1))
+        tc = int(rng.integers(0, 2))
+        if wide:
+            starts2 = np.sort(rng.integers(INT32_MIN, INT32_MAX, size=rows))
+            ends2 = rng.integers(INT32_MIN, INT32_MAX, size=rows)
+            bounds = rng.integers(INT32_MIN, INT32_MAX, size=3)
+            near = rng.integers(0, 300, size=2)
+            s2 = int(INT32_MIN + near[0]) if rng.random() < 0.5 \
+                else int(bounds[0])
+            e2 = int(INT32_MAX - near[1]) if rng.random() < 0.5 \
+                else int(bounds[1])
+            candidate = dict(ws2=int(bounds[2]), s2=s2, e2=e2,
+                             mo2=int(rng.integers(0, 4001)), tc=tc)
+        else:
+            center = int(rng.integers(100_000, 10_000_000)) * 2
+            starts2 = np.sort(center + rng.integers(-40_000, 6_000,
+                                                    size=rows))
+            ends2 = starts2 + rng.integers(0, 40_000, size=rows)
+            length = 0 if tc else int(rng.integers(0, 6_000))
+            candidate = dict(ws2=center - 2000, s2=center,
+                             e2=center + 2 * length,
+                             mo2=min(length, 4000), tc=tc)
+        ids = rng.integers(0, max(2, rows // 2), size=rows)
+        picked = list(rng.choice(ids, size=min(rows, s // 2))) \
+            if rows else []
+        if rng.random() < 0.3 and len(picked) < s:
+            picked.append(INT32_MAX)
+        candidates.append(dict(candidate, starts2=starts2, ends2=ends2,
+                               ids=ids, support=picked))
+    return candidates
+
+
+def genotype_cases(rng):
+    """Seeded inputs of the GENOTYPE join: (label, args) with args
+    genotype_support_batched's positional arguments as numpy arrays (see
+    _genotype_call).  The cap at 499, 500 and 501 qualifying rows,
+    supporters around and after the 500th qualifying row, support reads
+    and rows outside the window before the cap (which do not use it up),
+    repeated ids; width 0, 1 and 8192; S = 8, 64 and one past the kernel's
+    shared-memory stage, repeated and INT_MAX support ids; table ids
+    INT_MAX (against a support row with and without INT_MAX padding) and
+    INT_MIN; coordinates whose margins wrap int32; both types in every
+    call; C = 1 and C = 4096."""
+    import numpy as np
+
+    def distinct(count, first=0):
+        return np.arange(first, first + count)
+
+    cap = []
+    for tc in (0, 1):
+        for qualifying in (499, 500, 501):
+            cap.append(_genotype_candidate([SPAN] * qualifying,
+                                           distinct(qualifying), tc=tc))
+        cap += [
+            _genotype_candidate([FLANK] * 500 + [SPAN] * 100,
+                                distinct(600), tc=tc),
+            _genotype_candidate([FLANK] * 250 + [SPAN] * 300,
+                                distinct(550), tc=tc),
+            _genotype_candidate([SPAN] * 200 + [SPAN] * 500,
+                                distinct(700, 10_000),
+                                support=distinct(200, 10_000), tc=tc),
+            _genotype_candidate([OUTSIDE] * 100 + [SPAN] * 500,
+                                distinct(600), tc=tc),
+            _genotype_candidate([SPAN] * 600, np.arange(600) % 150, tc=tc)]
+    yield "the cap at 499, 500, 501 and around it", _genotype_call(
+        cap, 1024, 256)
+
+    widths = [_genotype_candidate([], [], tc=0),
+              _genotype_candidate([SPAN] * 5, distinct(5), tc=1, width=1),
+              _genotype_candidate([SPAN] * 5, distinct(5), tc=0, width=1)]
+    wide_window = _random_candidates(rng, 1, 0, 8)[0]
+    starts2 = np.sort(wide_window["s2"] + rng.integers(-60_000, 8_000,
+                                                       size=8192))
+    widths.append(dict(wide_window, starts2=starts2,
+                       ends2=starts2 + rng.integers(0, 70_000, size=8192),
+                       ids=rng.integers(0, 3000, size=8192),
+                       support=list(rng.integers(0, 3000, size=8))))
+    yield "width 0, 1 and 8192", _genotype_call(widths, 8192, 8)
+
+    for s in (8, 64):
+        yield "S={0}, repeated and INT_MAX support ids".format(s), \
+            _genotype_call(_random_candidates(rng, 64, 256, s), 256, s)
+    past = _random_candidates(rng, 8, 512, 40)
+    for candidate in past:
+        # ids of no row fill the support row past the stage
+        extra = rng.integers(10**6, 10**9, size=8192 - len(
+            candidate["support"]))
+        candidate["support"] = candidate["support"] + list(extra)
+    yield "S=8192, past the shared-memory stage", _genotype_call(
+        past, 512, 8192)
+
+    sentinels = []
+    for tc in (0, 1):
+        ids = np.concatenate([np.full(300, INT32_MAX), distinct(300)])
+        sentinels += [
+            # a full support row: INT_MAX ids qualify and use the cap
+            _genotype_candidate([SPAN] * 600, ids,
+                                support=distinct(8, 5000), tc=tc),
+            # INT_MAX padding: INT_MAX ids match it and are excluded
+            _genotype_candidate([SPAN] * 600, ids,
+                                support=distinct(3, 5000), tc=tc),
+            _genotype_candidate([SPAN] * 7, np.concatenate([
+                [INT32_MIN, INT32_MIN], distinct(5)]), tc=tc),
+            _genotype_candidate([SPAN] * 4, [INT32_MIN, 3, INT32_MAX, 3],
+                                support=[3, 3, INT32_MAX], tc=tc)]
+    yield "INT_MAX and INT_MIN ids", _genotype_call(sentinels, 1024, 8)
+
+    yield "wrapping margins", _genotype_call(
+        _random_candidates(rng, 32, 64, 8, wide=True), 64, 8)
+    yield "C=1", _genotype_call(_random_candidates(rng, 1, 64, 8), 64, 8)
+    yield "C=4096", _genotype_call(_random_candidates(rng, 4096, 96, 64),
+                                   128, 64)
+
+
+def genotype_timed_inputs(rng, candidates, slice_len, s):
+    """A join at the timed shape: one coordinate-sorted table of
+    candidates + slice_len rows, every candidate's window slice_len rows
+    of it at a random place, its support ids drawn from its window."""
+    import numpy as np
+
+    rows = candidates + slice_len
+    starts2 = np.sort(rng.integers(0, 40 * rows, size=rows))
+    ends2 = starts2 + rng.integers(0, 20_000, size=rows)
+    ids = rng.integers(0, rows // 8, size=rows)
+    lo = rng.integers(0, rows - slice_len, size=candidates)
+    s2 = starts2[lo + slice_len // 2]
+    tc = rng.integers(0, 2, size=candidates)
+    length = np.where(tc == 1, 0, rng.integers(0, 6_000, size=candidates))
+    support = np.sort(ids[lo[:, None] + rng.integers(0, slice_len,
+                                                     size=(candidates, s))],
+                      axis=1)
+    pads = (INT32_MAX, INT32_MIN, INT32_MAX)
+    table = [np.concatenate([column, np.full(slice_len, pad)]).astype(
+        np.int32) for column, pad in zip((starts2, ends2, ids), pads)]
+    columns = [lo, np.full(candidates, slice_len), s2 - 2000, s2,
+               s2 + 2 * length, np.minimum(length, 4000), tc]
+    return ([column.astype(np.int32) for column in columns]
+            + [support.astype(np.int32)] + table + [slice_len])
+
+
+def genotype_bound_work(tensors):
+    """What a GENOTYPE join on these inputs needs at least: (table rows,
+    operations).  Table rows: the distinct rows the candidates' windows
+    cover up to each one's 500th qualifying row (overlapping windows read a
+    row once).  Operations: each row a candidate walks (to its 500th
+    qualifying row or its width) loads its end and compares it with the
+    window start and its place with the width (3); each of those that ends
+    in the window loads its id and searches the support row, a compare a
+    step, then tests equality (ceil(log2 S) + 2); each qualifying row walked
+    adds to the rank, tests the cap, loads its start and runs the span test
+    (10 for DEL/INV: four compares, three logic ops; 6 for INS/DUP_INT: two
+    compares, one).  The distinct count's sort is not counted."""
+    import torch
+
+    from svim_tpu_torch.ops import genotype_kernel
+
+    lo, width, window_start2 = tensors[:3]
+    type_class = tensors[6]
+    support_sorted, starts2, ends2, ids, slice_len = tensors[7:]
+    s = support_sorted.shape[1]
+    table_rows = starts2.shape[0]
+    qualifying = genotype_kernel._windows(
+        lo, width, window_start2, support_sorted, starts2, ends2, ids,
+        slice_len)[3]
+    rank = torch.cumsum(qualifying.to(torch.int32), dim=1)
+    needed = torch.where(rank[:, -1] >= genotype_kernel.ALIGNMENT_CAP,
+                         (rank < genotype_kernel.ALIGNMENT_CAP).sum(dim=1) + 1,
+                         width.clamp(0, slice_len).long())
+    index = torch.arange(slice_len, device=lo.device)
+    first = lo.clamp(0, max(table_rows - slice_len, 0)).long()
+    walked = index[None, :] < needed[:, None]
+    in_window = walked & (ends2[first[:, None] + index[None, :]]
+                          > window_start2[:, None])
+    span_ops = torch.where(type_class == 0, 10, 6)
+    operations = (3 * int(needed.sum())
+                  + (max(s - 1, 0).bit_length() + 2) * int(in_window.sum())
+                  + int(((qualifying & walked).sum(dim=1) * span_ops).sum()))
+
+    marks = torch.zeros(table_rows + 1, dtype=torch.int32, device=lo.device)
+    ones = torch.ones_like(first, dtype=torch.int32)
+    marks.index_add_(0, first, ones)
+    marks.index_add_(0, first + needed, -ones)
+    touched = int((torch.cumsum(marks, dim=0)[:-1] > 0).sum())
+    return touched, operations
+
+
+def genotype_bound_ms(tensors):
+    """The least time the card could take for a GENOTYPE join on these
+    inputs, the larger of two times: bytes (genotype_bound_work's table
+    rows at 12 bytes, start, end and id; each candidate's seven parameters
+    and support row read once and its count written once) over the memory
+    rate, or genotype_bound_work's operations over the int32 rate.  Returns
+    (ms, "bytes" or "operations")."""
+    candidates, s = tensors[7].shape
+    touched, operations = genotype_bound_work(tensors)
+    moved = 12 * touched + candidates * (28 + 4 * s + 4)
+    bytes_ms = moved / HBM_BYTES_PER_SECOND * 1e3
+    ops_ms = operations / INT32_OPS_PER_SECOND * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
+def ins_matrix_cases(rng):
+    """Seeded inputs of the resident INS matrices: (label, args, valid),
+    args ins_matrices_from_pairs's positional arguments as numpy arrays
+    (the norms as float32 values), valid (B, P) bool.  Pairs as the host
+    enumerates them (each unordered pair once, in row order, padded to a
+    power of two with (0, 0, 0)): P = 32 and 128 at B = 16, no real pair
+    (padding only), spans 0 and past 2^24, starts whose differences wrap
+    int32 (INT_MIN among them), and norms around 1 beside the CLI's
+    defaults."""
+    import numpy as np
+
+    def call(starts, spans, counts, density, pos_norm, ed_norm):
+        batch, pad = starts.shape
+        pairs = [(row, i, j, int(rng.integers(0, 5000)))
+                 for row in range(batch)
+                 for i in range(int(counts[row]))
+                 for j in range(i + 1, int(counts[row]))
+                 if rng.random() < density]
+        size = 1
+        while size < len(pairs):
+            size *= 2
+        columns = np.zeros((4, size), dtype=np.int32)
+        if pairs:
+            columns[:, :len(pairs)] = np.asarray(pairs, dtype=np.int32).T
+        else:
+            columns[3] = rng.integers(0, 5000, size=size)
+        valid = np.arange(pad)[None, :] < np.asarray(counts)[:, None]
+        return ([starts.astype(np.int32), spans.astype(np.int32),
+                 *columns, np.float32(pos_norm), np.float32(ed_norm)],
+                valid)
+
+    def columns(batch, pad, low, high, span_high):
+        counts = rng.integers(2, pad + 1, size=batch)
+        starts = rng.integers(low, high, size=(batch, pad))
+        spans = rng.integers(0, span_high, size=(batch, pad))
+        return starts, spans, counts
+
+    for pad in (32, 128):
+        starts, spans, counts = columns(16, pad, 0, 2_000_000, 3000)
+        yield "P={0}".format(pad), *call(starts, spans, counts, 0.4,
+                                         900.0, 0.3)
+    starts, spans, counts = columns(8, 32, 0, 2_000_000, 3000)
+    yield "no real pair", *call(starts, spans, counts, 0.0, 900.0, 0.3)
+    starts, spans, counts = columns(8, 32, 0, 2_000_000, 3000)
+    spans[:, ::3] = 0
+    spans[:, 1::3] = rng.integers(2**24, 2**31 - 1, size=spans[:, 1::3].shape)
+    yield "spans 0 and past 2^24", *call(starts, spans, counts, 0.5, 900.0,
+                                         0.3)
+    starts, spans, counts = columns(8, 32, INT32_MIN, INT32_MAX, 3000)
+    starts[:, 0] = 0
+    starts[:, 1] = INT32_MIN
+    starts[:, 2] = INT32_MAX
+    starts[:, 3] = -1
+    counts[:] = np.maximum(counts, 4)
+    yield "starts whose differences wrap", *call(starts, spans, counts, 0.5,
+                                                 900.0, 0.3)
+    for pos_norm, ed_norm in ((1.0, 1.0), (0.99999994, 1.0000001),
+                              (1.0000001, 0.99999994)):
+        starts, spans, counts = columns(8, 32, 0, 2_000_000, 3000)
+        yield "norms {0!r}, {1!r}".format(pos_norm, ed_norm), *call(
+            starts, spans, counts, 0.5, pos_norm, ed_norm)
+
+
+def _ins_inputs(rng, batch, pad, pairs):
+    """ins_matrices_from_pairs's positional arguments (numpy int32 arrays,
+    the norms as numbers) for `batch` full partitions of `pad` slots and
+    about `pairs` near pairs: each unordered pair once, in row order,
+    padded to a power of two with (0, 0, 0) as the host pads them."""
+    import numpy as np
+
+    starts = rng.integers(0, 2_000_000, size=(batch, pad)).astype(np.int32)
+    spans = rng.integers(40, 3000, size=(batch, pad)).astype(np.int32)
+    part = rng.integers(0, batch, size=pairs)
+    first = rng.integers(0, pad - 1, size=pairs)
+    second = first + 1 + rng.integers(0, pad - 1 - first)
+    keys = np.unique((part * pad + first) * pad + second)
+    real = np.stack([keys // (pad * pad), keys // pad % pad, keys % pad,
+                     rng.integers(0, 400, size=len(keys))])
+    size = 1
+    while size < len(keys):
+        size *= 2
+    columns = np.zeros((4, size), dtype=np.int32)
+    columns[:, :len(keys)] = real
+    return [starts, spans, *columns, 900.0, 0.3]
+
+
+def ins_bound_ms(batch, pad, pairs):
+    """The least time the card could take for the INS matrices: the
+    (B, P, P) float32 matrices written once, the two (B, P) columns and the
+    four pair columns read once, over the memory rate.  Returns (ms,
+    "bytes")."""
+    moved = 4 * batch * pad * pad + 8 * batch * pad + 16 * pairs
+    return moved / HBM_BYTES_PER_SECOND * 1e3, "bytes"
+
+
+def _off_diagonal(batch, pad, valid=None):
+    """(B, P, P) bool: the cells off the diagonal (of valid slots)."""
+    import torch
+
+    cells = ~torch.eye(pad, dtype=torch.bool)[None].expand(batch, pad, pad)
+    if valid is not None:
+        valid = torch.as_tensor(valid).cpu()
+        cells = cells & valid[:, :, None] & valid[:, None, :]
+    return cells
+
+
+def _ins_against_plain(args, where, valid=None, recorded=None):
+    """The INS matrices through the kernel and through the plain version on
+    the card: bit-equal on every cell off the diagonal (`valid` narrows the
+    count of contract cells reported), and equal to `recorded`, the main
+    path's own matrices, where given; with `valid`, the agglomeration of
+    either must be bit-equal.  Returns the kernel's matrices (on the
+    card)."""
+    import torch
+
+    from svim_tpu_torch.ops import linkage_kernel
+
+    tensors = _on_card(args)
+    before = linkage_kernel.INS_LAUNCHES
+    got = linkage_kernel.ins_matrices_from_pairs_cuda(*tensors)
+    if linkage_kernel.INS_LAUNCHES != before + 1:
+        raise AssertionError(where + ": the INS matrices launched no kernel")
+    want = linkage_kernel.ins_matrices_from_pairs_plain(*tensors)
+    torch.cuda.synchronize()
+    batch, pad = tensors[0].shape
+    cells = _off_diagonal(batch, pad).cuda()
+    INS_CHECK["calls"] += 1
+    if cells.any():
+        INS_CHECK["max_abs_err"] = max(INS_CHECK["max_abs_err"], float(
+            (got[cells].double() - want[cells].double()).abs().max()))
+    if not _bit_equal(got[cells], want[cells]):
+        where_cells = torch.nonzero(cells & (got.view(torch.int32)
+                                             != want.view(torch.int32)))
+        raise AssertionError("{0}: kernel != plain at {1}".format(
+            where, where_cells[:8].tolist()))
+    if recorded is not None and not _bit_equal(got.cpu(), recorded.cpu()):
+        raise AssertionError(where + ": the run's matrices differ from the "
+                             "kernel's on the same inputs")
+    if valid is not None:
+        valid = torch.as_tensor(valid).cuda()
+        merged = linkage_kernel.agglomerate_batched_cuda(got, valid)
+        again = linkage_kernel.agglomerate_batched_cuda(want, valid)
+        torch.cuda.synchronize()
+        if not all(_bit_equal(a, b) for a, b in zip(merged, again)):
+            raise AssertionError(where + ": the agglomeration of the "
+                                 "kernel's matrices differs from that of the "
+                                 "plain version's")
+    return got
+
+
+# (B, P, Q) at which the INS matrix kernel is timed beside the bench's
+# largest call: full partitions in both pad buckets, ~8 pairs a slot
+INS_TIMED_SHAPES = ((1024, 128, 1 << 20), (1024, 32, 1 << 18))
+
+
+def ins_timings(recorder):
+    """Kernel ms (device time, stream held) beside plain ms and the bound
+    for the bench's largest recorded INS matrix call and at
+    INS_TIMED_SHAPES.  Returns {shape: (label, ms, plain ms, bound ms,
+    bound by)}."""
+    import numpy as np
+
+    from svim_tpu_torch.ops import linkage_kernel
+
+    bench = [args for (name, args, _, _, _), label in zip(
+        recorder.calls, recorder.labels)
+        if name == "ins_matrices_from_pairs" and label == "bench_wavefront"]
+    if not bench:
+        raise AssertionError("the bench's wavefront run made no INS matrix "
+                             "call")
+    rng = np.random.default_rng(20261025)
+    cases = [("bench batch", max(bench, key=lambda args: args[0].numel()))]
+    cases += [("seeded", _ins_inputs(rng, *shape))
+              for shape in INS_TIMED_SHAPES]
+    timings = {}
+    for label, args in cases:
+        tensors = _on_card(args)
+        ms, _ = _device_ms(
+            lambda: linkage_kernel.ins_matrices_from_pairs_cuda(*tensors), 20)
+        plain_ms, _ = _time_ms(
+            lambda: linkage_kernel.ins_matrices_from_pairs_plain(*tensors), 3)
+        batch, pad = tensors[0].shape
+        pairs = tensors[2].shape[0]
+        bound_ms, bound_by = ins_bound_ms(batch, pad, pairs)
+        shape = "B={0},P={1},Q={2}".format(batch, pad, pairs)
+        timings[shape] = (label, ms, plain_ms, bound_ms, bound_by)
+        log("linkage", "INS matrices at {0} ({1}): kernel {2:.4f} ms, plain "
+            "{3:.3f} ms, bound {4:.6f} ms by {5} (kernel {6:.1f} times its "
+            "bound)".format(shape, label, ms, plain_ms, bound_ms, bound_by,
+                            ms / bound_ms))
+    return timings
+
+
+def _genotype_against_plain(args, where, recorded=None):
+    """One GENOTYPE join through the kernel and through the plain version
+    on the card: equal counts (and equal to `recorded`, the main path's
+    own, where given).  Returns the kernel's counts."""
+    import torch
+
+    from svim_tpu_torch.ops import genotype_kernel
+
+    tensors = _on_card(args)
+    before = genotype_kernel.LAUNCHES
+    got = genotype_kernel.genotype_support_batched_cuda(*tensors)
+    launched = genotype_kernel.LAUNCHES - before
+    want = genotype_kernel.genotype_support_batched_plain(*tensors)
+    torch.cuda.synchronize()
+    if launched != (1 if got.numel() else 0):
+        raise AssertionError("{0}: {1} launches of the genotype kernel"
+                             .format(where, launched))
+    GENOTYPE_CHECK["calls"] += 1
+    references = [("plain version", want)]
+    if recorded is not None:
+        references.append(("main path's counts", recorded.cuda()))
+    for name, reference in references:
+        if got.numel():
+            GENOTYPE_CHECK["max_abs_err"] = max(
+                GENOTYPE_CHECK["max_abs_err"],
+                int((got.long() - reference.long()).abs().max()))
+        if not _bit_equal(got, reference):
+            rows = torch.nonzero(got != reference).flatten()[:8].tolist()
+            raise AssertionError("{0}: kernel != {1} at candidates {2}"
+                                 .format(where, name, rows))
+    return got
+
+
+def _join_seconds(jobs, per_tid, route, repeats=3):
+    """Host seconds of genotype_ref_support_device on recorded jobs (the
+    table built and uploaded, the join, the counts fetched), with the
+    dispatcher or with the plain version on the card: the least of
+    `repeats` runs after one more."""
+    import torch
+
+    from svim_tpu_torch.ops import genotype_kernel
+
+    device = torch.device("cuda")
+    original = genotype_kernel.genotype_support_batched
+    if route == "plain":
+        genotype_kernel.genotype_support_batched = \
+            genotype_kernel.genotype_support_batched_plain
+    try:
+        seconds = []
+        for _ in range(repeats + 1):
+            torch.cuda.synchronize()
+            started = time.perf_counter()
+            counts = genotype_kernel.genotype_ref_support_device(
+                jobs, per_tid, device)
+            seconds.append(time.perf_counter() - started)
+    finally:
+        genotype_kernel.genotype_support_batched = original
+    return min(seconds[1:]), counts
+
+
+def slice_kernel_entry(name, source, replaces, check, timings,
+                       launches_by_path, path):
+    """The `kernels` line's entry of the GENOTYPE or the INS matrix kernel:
+    its numbers at the bench's own call (launches from `path`: wrapper
+    calls, each `kernels_per_call` device kernels), every timed shape under
+    `by_shape`.  PyTorch has no call that computes either
+    function (library_ms null)."""
+    from svim_tpu_torch.ops import genotype_kernel, linkage_kernel
+
+    kernels_per_call = {
+        "genotype_support": genotype_kernel.KERNELS_PER_CALL,
+        "ins_matrices": linkage_kernel.INS_KERNELS_PER_CALL}[name]
+    shape, (_, ms, plain_ms, bound_ms, bound_by) = next(
+        (shape, value) for shape, value in timings.items()
+        if value[0] == "bench batch")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": PATH_LAUNCHES[path][name],
+            "launches_by_path": launches_by_path,
+            "kernels_per_call": kernels_per_call,
+            "max_abs_err": check["max_abs_err"],
+            "compared_calls": check["calls"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": shape + " (bench batch)",
+            "by_shape": {"{0} ({1})".format(key, value[0]): dict(zip(
+                ("ms", "plain_ms", "bound_ms", "bound_by"), value[1:]))
+                for key, value in timings.items()}}
+
+
+def phase_genotype_kernel(recorder):
+    """Phase 16: GENOTYPE's kernel against its plain version on the card:
+    every join the main path made in the recorded phases (equal to each
+    other and to the path's counts), the seeded cases, the sync check;
+    kernel ms beside plain ms and the bound at the bench's largest join and
+    at GENOTYPE_TIMED_SHAPE, and the join's host seconds through either
+    route on the first recorded bench and tie-free jobs.  Returns
+    {shape: (label, ms, plain ms, bound ms, bound by)}."""
+    import numpy as np
+    import torch
+
+    from svim_tpu_torch.ops import genotype_kernel
+
+    started = time.perf_counter()
+    by_label = {}
+    bench = []
+    joins = {}
+    for label, kernel, args, kwargs, outputs in recorder.calls:
+        if kernel == "genotype_jobs" and label in ("bench", "tiefree"):
+            joins.setdefault(label, args[:2])
+        if kernel != "genotype_support":
+            continue
+        if args[0].device.type != "cuda":
+            raise AssertionError("a GENOTYPE join of {0} ran off the card"
+                                 .format(label))
+        _genotype_against_plain(args, "GENOTYPE join of " + label,
+                                recorded=outputs)
+        by_label[label] = by_label.get(label, 0) + 1
+        if label == "bench":
+            bench.append(args)
+    for label in GENOTYPE_RECORDED:
+        if not by_label.get(label):
+            raise AssertionError("phase {0} made no GENOTYPE join".format(
+                label))
+    log("genotype", "every recorded main-path join equal to the plain "
+        "version's and to the path's own counts: {0} (phase 9's SAM text and "
+        "queryname inputs genotype on the host or not at all)".format(
+            json.dumps(by_label)))
+
+    rng = np.random.default_rng(20261023)
+    for label, args in genotype_cases(rng):
+        counts = _genotype_against_plain(args, "genotype, " + label)
+        log("genotype", "{0}: C={1} S={2} slice_len={3}: equal, counts "
+            "{4}".format(label, args[7].shape[0], args[7].shape[1], args[-1],
+                         counts[:12].tolist()))
+
+    largest = max(bench, key=lambda args: args[0].shape[0] * args[-1])
+    timed_args = _on_card(genotype_timed_inputs(rng, *GENOTYPE_TIMED_SHAPE))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        genotype_kernel.genotype_support_batched(*largest)
+        genotype_kernel.genotype_support_batched(*timed_args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("genotype", "sync check: genotype_support_batched enqueued on card "
+        "tensors under torch.cuda.set_sync_debug_mode('error') without a "
+        "host sync")
+
+    timings = {}
+    for label, tensors in (("bench batch", list(largest)),
+                           ("seeded", timed_args)):
+        _genotype_against_plain(tensors, "genotype timed, " + label)
+        ms, _ = _device_ms(
+            lambda: genotype_kernel.genotype_support_batched_cuda(*tensors),
+            20)
+        plain_ms, _ = _time_ms(
+            lambda: genotype_kernel.genotype_support_batched_plain(*tensors),
+            3)
+        bound_ms, bound_by = genotype_bound_ms(tensors)
+        shape = "C={0},slice_len={1},S={2},T={3}".format(
+            tensors[0].shape[0], tensors[-1], tensors[7].shape[1],
+            tensors[8].shape[0])
+        timings[shape] = (label, ms, plain_ms, bound_ms, bound_by)
+        log("genotype", "{0} ({1}): kernel {2:.4f} ms, plain {3:.3f} ms, "
+            "bound {4:.6f} ms by {5} (kernel {6:.1f} times its bound)".format(
+                shape, label, ms, plain_ms, bound_ms, bound_by,
+                ms / bound_ms))
+
+    for label, (jobs, per_tid) in joins.items():
+        kernel_s, counts = _join_seconds(jobs, per_tid, "kernel")
+        plain_s, plain_counts = _join_seconds(jobs, per_tid, "plain")
+        if counts != plain_counts:
+            raise AssertionError("the {0} join's counts differ between the "
+                                 "routes".format(label))
+        log("genotype", "{0} join ({1} jobs): {2!r} s through the kernel, "
+            "{3!r} s through the plain version on the card (host clock, "
+            "best of 3)".format(label, len(jobs), kernel_s, plain_s))
+    for path in ("golden", "bench_wavefront", "tiefree_wavefront"):
+        if PATH_LAUNCHES[path]["ins_matrices"] <= 0:
+            raise AssertionError(path + " launched no INS matrix kernel")
+    for path in ("golden", "bench_wavefront", "bench_auto"):
+        if PATH_LAUNCHES[path]["genotype_support"] != 1:
+            raise AssertionError("{0} launched the genotype kernel {1} "
+                                 "times".format(
+                                     path,
+                                     PATH_LAUNCHES[path]["genotype_support"]))
+    log("genotype", "phase 16 took {0:.1f} s".format(
+        time.perf_counter() - started))
+    return timings
+
+
 def main():
     sys.path.insert(0, ROOT)
     card = phase_environment()
@@ -3202,7 +3995,7 @@ def run_phases(card, makers):
 def run_later_phases(card, makers, started, kernels_a_call_process):
     timings, max_abs_err = phase_kernels(kernel_shapes())
     recorder = LinkageRecorder()
-    collect_calls = CollectRecorder()
+    collect_calls = DeviceOpRecorder()
     with recorder, collect_calls.recording("golden"):
         golden_bam, golden_genome = phase_golden()
     with collect_calls.recording("bench"):
@@ -3210,7 +4003,7 @@ def run_later_phases(card, makers, started, kernels_a_call_process):
                                                           makers)
     with collect_calls.recording("tiefree"):
         phase_tiefree(card, recorder, makers)
-    phase_linkage(recorder)
+    ins_timings = phase_linkage(recorder)
     rescan_design = rescan_design_library()
     phase_resources(rescan_design)
     agglomerate_timings = phase_agglomerate(rescan_design)
@@ -3231,12 +4024,13 @@ def run_later_phases(card, makers, started, kernels_a_call_process):
     with collect_calls.recording("shards"):
         phase_shards(bench_bam, bench_genome)
     collect_timings, collect_floor = phase_collect_kernels(collect_calls)
+    genotype_timings = phase_genotype_kernel(collect_calls)
     finish_kernels_a_call(kernels_a_call_process)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     log("paths", "kernel launches per path: {0}".format(
         json.dumps(PATH_LAUNCHES)))
-    log("time", "phases 2-15 took {0:.1f} s".format(
+    log("time", "phases 2-16 took {0:.1f} s".format(
         time.perf_counter() - started))
 
     import torch
@@ -3255,11 +4049,12 @@ def run_later_phases(card, makers, started, kernels_a_call_process):
     by_shape = {"{0} B={1} P={2}".format(*key): value
                 for key, value in agglomerate_timings.items()}
     by_shape.update(launch_timings)
-    # library_ms is null for all five: PyTorch has no call that computes a
+    # library_ms is null for all seven: PyTorch has no call that computes a
     # banded Levenshtein distance, none for this pairwise distance with its
     # same-read wall (torch.cdist has neither the two quotients nor the
-    # wall), no hierarchical clustering, and none for a CIGAR scan or the
-    # split-read decision chain
+    # wall), no hierarchical clustering, none for a CIGAR scan or the
+    # split-read decision chain, none for the capped interval join and none
+    # for the INS distance with its pair overwrites
     print(json.dumps({"kernels": [{
         "name": "wavefront_banded_distance", "route": "cuda",
         "source": "svim_tpu_torch/csrc/wavefront.cu",
@@ -3296,7 +4091,14 @@ def run_later_phases(card, makers, started, kernels_a_call_process):
                      for key, value in by_shape.items()}}]
         + [collect_kernel_entry(kernel, collect_timings, collect_floor,
                                 by_path(kernel))
-           for kernel in COLLECT_FUNCTIONS]}))
+           for kernel in COLLECT_FUNCTIONS]
+        + [slice_kernel_entry("genotype_support", GENOTYPE_SOURCE,
+                              GENOTYPE_REPLACES, GENOTYPE_CHECK,
+                              genotype_timings, by_path("genotype_support"),
+                              "bench_wavefront"),
+           slice_kernel_entry("ins_matrices", INS_SOURCE, INS_REPLACES,
+                              INS_CHECK, ins_timings,
+                              by_path("ins_matrices"), "bench_wavefront")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

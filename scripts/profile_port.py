@@ -27,7 +27,11 @@ other work: of their device time (`collect_pass_s`), the part during which
 a host thread sat in a CUDA runtime call that waits for the device
 (`collect_pass_waited_s`), and how many kernels each pass launched in
 the traced run beside the calls of its wrapper (`collect_kernels`: one a
-call since the scan's second design).  The traced run's stage seconds
+call since the scan's second design).  Each untraced run also reports the
+launches of GENOTYPE's join kernel and of the INS matrix kernel, and the
+traced run their device seconds (`genotype_kernel_s`,
+`ins_matrices_kernel_s`; 0 for a --root whose port ran them as plain
+PyTorch ops).  The traced run's stage seconds
 are inflated by the tracing and are not reported.  With --host_top N one
 more run goes under cProfile and the N
 functions with the largest cumulative host time are reported (inflated by
@@ -210,6 +214,7 @@ def main():
     from svim_tpu_torch import cli
     from svim_tpu_torch.ops import (
         cigar_kernel,
+        genotype_kernel,
         linkage_kernel,
         segments_kernel,
         wavefront_kernel,
@@ -234,9 +239,10 @@ def main():
             args.label or "run", tag))
         # a --root from before the COLLECT kernels has no count there
         for module in (wavefront_kernel, linkage_kernel, cigar_kernel,
-                       segments_kernel):
-            if hasattr(module, "LAUNCHES"):
-                module.LAUNCHES = 0
+                       segments_kernel, genotype_kernel):
+            for counter in ("LAUNCHES", "INS_LAUNCHES"):
+                if hasattr(module, counter):
+                    setattr(module, counter, 0)
         started = time.perf_counter()
         code = cli.main(["alignment", working_dir, bam, genome,
                          "--edit_backend", args.edit_backend, "--profile",
@@ -262,6 +268,10 @@ def main():
                              cigar_kernel, "LAUNCHES", None),
                          "classify_launches": getattr(
                              segments_kernel, "LAUNCHES", None),
+                         "genotype_launches": getattr(
+                             genotype_kernel, "LAUNCHES", None),
+                         "ins_matrices_launches": getattr(
+                             linkage_kernel, "INS_LAUNCHES", None),
                          "reused_of_memoized": _reused(working_dir)})
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -328,6 +338,12 @@ def main():
         "agglomerate_kernel_s": sum(seconds for name, seconds
                                     in by_name.items()
                                     if "agglomerate" in name),
+        "genotype_kernel_s": sum(seconds for name, seconds
+                                 in by_name.items()
+                                 if "genotype_support" in name),
+        "ins_matrices_kernel_s": sum(
+            seconds for name, seconds in by_name.items()
+            if "ins_cells_kernel" in name or "ins_pairs_kernel" in name),
         "collect_pass_s": collect_pass_s,
         "collect_pass_waited_s": collect_pass_waited_s,
         "collect_kernels": collect_kernels,

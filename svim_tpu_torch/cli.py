@@ -399,6 +399,7 @@ def run_pipeline(options, device):
         from svim_tpu_torch.ops import (
             cigar_kernel,
             distance_kernel,
+            genotype_kernel,
             linkage_kernel,
             segments_kernel,
             wavefront_kernel,
@@ -410,7 +411,9 @@ def run_pipeline(options, device):
             "span_distance_matrix": distance_kernel.LAUNCHES,
             "agglomerate": linkage_kernel.LAUNCHES,
             "collect_scan": cigar_kernel.LAUNCHES,
-            "classify_segments": segments_kernel.LAUNCHES}))
+            "classify_segments": segments_kernel.LAUNCHES,
+            "genotype_support": genotype_kernel.LAUNCHES,
+            "ins_matrices": linkage_kernel.INS_LAUNCHES}))
         logging.info("Cluster telemetry: %s", json.dumps(
             dict(TELEMETRY.as_dict(), eligible=TELEMETRY.eligible)))
         if options.distributed:

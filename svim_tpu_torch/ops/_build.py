@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # every kernel source of the port: build(KERNEL_SOURCES) compiles them side
 # by side (chip_smoke.py does, so that its build costs one nvcc's time)
 KERNEL_SOURCES = ("wavefront", "span_distance", "agglomerate", "collect_scan",
-                  "classify_segments")
+                  "classify_segments", "genotype_support", "ins_matrices")
 
 _lock = threading.Lock()
 _libraries = {}
@@ -126,3 +126,14 @@ def check_launch(kernel: str, code: int) -> None:
     if code != 0:
         raise RuntimeError("{0} kernel launch failed: CUDA error {1}".format(
             kernel, code))
+
+
+def route(tensor, name: str, plain, kernel):
+    """The function a dispatcher calls for `tensor`: `plain` on the CPU,
+    `kernel` on a card; raises for any other device (no quiet fallback)."""
+    if tensor.device.type == "cpu":
+        return plain
+    if tensor.device.type == "cuda":
+        return kernel
+    raise ValueError("no {0} kernel for device {1}".format(name,
+                                                          tensor.device))

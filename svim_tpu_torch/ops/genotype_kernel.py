@@ -3,19 +3,36 @@
 
 Counterpart of svim_tpu/ops/genotype_kernel.py: for every candidate, a
 fixed-size window of the coordinate-sorted, doubled-coordinate alignment
-table is gathered and the reference's qualification chain applied
-(in-window test, support-read exclusion by binary search, the
-500-alignment cap in coordinate order, the per-type span test), then
-DISTINCT supporting read ids are counted after a sort.  All arithmetic is
-int32 on pre-doubled coordinates, so counts equal the host join's exactly
-(SVIM_genotyping.py:34-94).
+table is read and the reference's qualification chain applied (in-window
+test, support-read exclusion by binary search, the 500-alignment cap in
+coordinate order, the per-type span test), then DISTINCT supporting read
+ids are counted.  All arithmetic is int32 on pre-doubled coordinates, so
+counts equal the host join's exactly (SVIM_genotyping.py:34-94).
+
+Three layers, on the pattern of ops/linkage_kernel.py:
+  * `genotype_support_batched_plain` - the plain PyTorch version: the
+    windows gathered as (candidates, slice_len) tensors, `searchsorted`,
+    `cumsum` and a row sort, in blocks of candidates that bound those
+    temporaries to MAX_GATHER_CELLS cells; it equals the JAX program on the
+    CPU.
+  * `genotype_support_batched_cuda` - the wrapper of the hand-written CUDA
+    kernel (csrc/genotype_support.cu: a CTA a candidate walking its window
+    in tiles of 256 rows with a block scan for the rank, stopping at the
+    500th qualifying row, the supporting ids sorted in shared memory),
+    equal to the plain version, one launch a call and no host
+    synchronisation; counted in `LAUNCHES`.
+  * `genotype_support_batched` - the dispatcher: CPU tensors take the
+    plain version, CUDA tensors the kernel.  Nothing falls back.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from svim_tpu_torch.ops._build import check_launch, check_tensors, route
 from svim_tpu_torch.parallel.mesh import gather_shards, shard_batch
 
 ALIGNMENT_CAP = 500   # SVIM_genotyping.py:56
@@ -23,17 +40,24 @@ WINDOW = 1000         # SVIM_genotyping.py:49
 INT_MAX = 2**31 - 1
 INT_MIN = -2**31
 MAX_WINDOW_ROWS = 8192  # candidates needing a wider table slice fall back
-# candidates per gather: bounds the (C, slice_len) temporaries
+# candidates per gather of the plain version: bounds its (C, slice_len)
+# temporaries
 MAX_GATHER_CELLS = 1 << 24
 
+LAUNCHES = 0   # calls of genotype_support_batched_cuda that launched
+KERNELS_PER_CALL = 1   # device kernels such a call launches
 
-def genotype_support_batched(lo, width, window_start2, start2, end2,
-                             min_overlap2, type_class, support_sorted,
-                             starts2, ends2, ids, slice_len: int):
-    """(C,) int32 candidate params + (C, S) sorted support ids + padded
-    table columns -> (C,) int32 reference-support counts."""
+
+def _windows(lo, width, window_start2, support_sorted, starts2, ends2, ids,
+             slice_len: int):
+    """The candidates' table windows, as jax.lax.dynamic_slice cuts them
+    (the start clamped so that the slice stays in the table): (w_starts2,
+    w_ends2, w_ids, qualifying), each (C, slice_len).  A row qualifies when
+    it lies in the slice, ends past the window start and is not a support
+    read."""
     index = torch.arange(slice_len, dtype=torch.int32, device=lo.device)
-    rows = (lo[:, None] + index[None, :]).long()
+    first = lo.clamp(0, max(starts2.shape[0] - slice_len, 0))
+    rows = (first[:, None] + index[None, :]).long()
     w_starts2 = starts2[rows]
     w_ends2 = ends2[rows]
     w_ids = ids[rows]
@@ -48,8 +72,15 @@ def genotype_support_batched(lo, width, window_start2, start2, end2,
     positions = torch.searchsorted(support_sorted, w_ids)
     positions = torch.clamp(positions, max=support_sorted.shape[1] - 1)
     is_support = torch.gather(support_sorted, 1, positions) == w_ids
+    return w_starts2, w_ends2, w_ids, in_slice & in_window & ~is_support
 
-    qualifying = in_slice & in_window & ~is_support
+
+def _support_counts(lo, width, window_start2, start2, end2, min_overlap2,
+                    type_class, support_sorted, starts2, ends2, ids,
+                    slice_len: int):
+    w_starts2, w_ends2, w_ids, qualifying = _windows(
+        lo, width, window_start2, support_sorted, starts2, ends2, ids,
+        slice_len)
     # the 500 cap counts qualifying alignments in coordinate order
     rank = torch.cumsum(qualifying.to(torch.int32), dim=1)
     capped = qualifying & (rank <= ALIGNMENT_CAP)
@@ -72,6 +103,105 @@ def genotype_support_batched(lo, width, window_start2, start2, end2,
                           ordered[:, :-1]], dim=1)
     return ((ordered != INT_MAX) & (ordered != previous)).sum(
         dim=1, dtype=torch.int32)
+
+
+def genotype_support_batched_plain(lo, width, window_start2, start2, end2,
+                                   min_overlap2, type_class, support_sorted,
+                                   starts2, ends2, ids, slice_len: int):
+    """(C,) int32 candidate params + (C, S) sorted support ids + padded
+    table columns -> (C,) int32 reference-support counts, in blocks of
+    candidates of at most MAX_GATHER_CELLS window cells."""
+    chunk = max(1, MAX_GATHER_CELLS // max(slice_len, 1))
+    columns = (lo, width, window_start2, start2, end2, min_overlap2,
+               type_class, support_sorted)
+    if lo.shape[0] <= chunk:
+        return _support_counts(*columns, starts2, ends2, ids, slice_len)
+    return torch.cat([
+        _support_counts(*(column[first:first + chunk] for column in columns),
+                        starts2, ends2, ids, slice_len)
+        for first in range(0, lo.shape[0], chunk)])
+
+
+_library = None
+
+
+def _kernel_library():
+    global _library
+    if _library is None:
+        from svim_tpu_torch.ops._build import load
+
+        library = load("genotype_support")
+        pointer = ctypes.c_void_p
+        library.genotype_support.argtypes = (
+            [pointer] * 8 + [ctypes.c_int, ctypes.c_int] + [pointer] * 3
+            + [ctypes.c_int, ctypes.c_int, pointer, pointer])
+        library.genotype_support.restype = ctypes.c_int
+        _library = library
+    return _library
+
+
+def genotype_support_batched_cuda(lo, width, window_start2, start2, end2,
+                                  min_overlap2, type_class, support_sorted,
+                                  starts2, ends2, ids, slice_len: int):
+    """genotype_support_batched on the card through
+    csrc/genotype_support.cu.
+
+    The seven candidate columns: (C,) int32 contiguous CUDA tensors;
+    support_sorted: (C, S) int32 with S >= 1, each row sorted; starts2,
+    ends2, ids: (T,) int32 with T >= slice_len; all on one device.  Returns
+    the (C,) int32 counts of genotype_support_batched_plain on that device.
+    One launch on the current stream (KERNELS_PER_CALL), no host
+    synchronisation; none when C = 0."""
+    global LAUNCHES
+    device = lo.device
+    if device.type != "cuda":
+        raise ValueError("genotype_support_batched_cuda needs CUDA tensors")
+    if support_sorted.dim() != 2 or starts2.dim() != 1:
+        raise ValueError("support_sorted must be (C, S) and the table "
+                         "columns (T,), got {0} and {1}".format(
+                             tuple(support_sorted.shape),
+                             tuple(starts2.shape)))
+    candidates, s = support_sorted.shape
+    table_rows = starts2.shape[0]
+    columns = (("lo", lo), ("width", width), ("window_start2", window_start2),
+               ("start2", start2), ("end2", end2),
+               ("min_overlap2", min_overlap2), ("type_class", type_class))
+    check_tensors(
+        [(name, tensor, torch.int32, (candidates,))
+         for name, tensor in columns]
+        + [("support_sorted", support_sorted, torch.int32, (candidates, s))]
+        + [(name, tensor, torch.int32, (table_rows,)) for name, tensor in (
+            ("starts2", starts2), ("ends2", ends2), ("ids", ids))], device)
+    if s < 1 or not 1 <= slice_len <= table_rows or table_rows >= 2**31:
+        raise ValueError("the genotype kernel needs S >= 1 and 1 <= "
+                         "slice_len <= T < 2^31 table rows, got S={0}, "
+                         "slice_len={1}, T={2}".format(s, slice_len,
+                                                       table_rows))
+    library = _kernel_library()
+    counts = torch.empty((candidates,), dtype=torch.int32, device=device)
+    if candidates == 0:
+        return counts
+    with torch.cuda.device(device):
+        check_launch("genotype_support", library.genotype_support(
+            *(tensor.data_ptr() for _, tensor in columns),
+            support_sorted.data_ptr(), candidates, s, starts2.data_ptr(),
+            ends2.data_ptr(), ids.data_ptr(), table_rows, slice_len,
+            counts.data_ptr(), torch.cuda.current_stream(device).cuda_stream))
+    LAUNCHES += 1
+    return counts
+
+
+def genotype_support_batched(lo, width, window_start2, start2, end2,
+                             min_overlap2, type_class, support_sorted,
+                             starts2, ends2, ids, slice_len: int):
+    """Dispatcher: CPU tensors -> genotype_support_batched_plain, CUDA
+    tensors -> genotype_support_batched_cuda (same contract: (C,) int32
+    candidate params + (C, S) sorted support ids + padded table columns ->
+    (C,) int32 reference-support counts)."""
+    return route(lo, "genotype_support", genotype_support_batched_plain,
+                 genotype_support_batched_cuda)(
+        lo, width, window_start2, start2, end2, min_overlap2, type_class,
+        support_sorted, starts2, ends2, ids, slice_len)
 
 
 def _round_up_pow2(value: int, floor: int) -> int:
@@ -182,8 +312,7 @@ def genotype_ref_support_device(jobs, per_tid, device, num_shards: int = 1):
                 np.asarray(support_ids, dtype=np.int32))
 
     # --num_shards cuts the candidate axis over the shard devices; each
-    # device holds its own copy of the table
-    chunk = max(1, MAX_GATHER_CELLS // slice_len)
+    # device holds its own copy of the table and takes one call
     tables = {}
     shard_counts = []
     for shard_columns, shard_support in shard_batch(
@@ -193,12 +322,9 @@ def genotype_ref_support_device(jobs, per_tid, device, num_shards: int = 1):
             tables[target] = tuple(
                 torch.from_numpy(column).to(target)
                 for column in (table.starts2, table.ends2, table.ids))
-        shard_columns = shard_columns.T.contiguous()
-        shard_counts.append((torch.cat([
-            genotype_support_batched(*shard_columns[:, first:first + chunk],
-                                     shard_support[first:first + chunk],
-                                     *tables[target], slice_len)
-            for first in range(0, shard_columns.shape[1], chunk)]),))
+        shard_counts.append((genotype_support_batched(
+            *shard_columns.T.contiguous(), shard_support, *tables[target],
+            slice_len),))
     counts = gather_shards(shard_counts, device)[0].cpu().numpy()
     for row_index, row in enumerate(rows):
         results[row[0]] = int(counts[row_index])

@@ -26,6 +26,12 @@ ops/wavefront_kernel.py and ops/distance_kernel.py:
 Outputs match the JAX kernels: the merge sequence (slot pairs + heights)
 and the minimum relative tie gap, from which the host rebuilds scipy's Z
 and cuts it with fcluster (device_cluster.labels_from_merges).
+
+The resident INS route's matrices have the same three layers:
+`ins_matrices_from_pairs_plain` (torch ops and two scatters),
+`ins_matrices_from_pairs_cuda` (csrc/ins_matrices.cu: a CTA a partition
+writes its cells, then a thread a pair overwrites its two; counted in
+`INS_LAUNCHES`) and the dispatcher `ins_matrices_from_pairs`.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import ctypes
 import numpy as np
 import torch
 
-from svim_tpu_torch.ops._build import check_launch, check_tensors
+from svim_tpu_torch.ops._build import check_launch, check_tensors, route
 
 BIG = 3.0e38
 # merges with height >= CUTOFF are padding (no real pair left)
@@ -52,7 +58,9 @@ KIND_SPAN_POSITION = 0   # DEL / INV / DUP_TAN  (SVIM_clustering.py:48-63)
 KIND_DUP_INT = 1         # source center + destination start + span (:78-86)
 KIND_BND = 2             # (|pos1 delta| + |pos2 delta|) / 3000 (:87-94)
 
-LAUNCHES = 0   # kernel launches by the two *_cuda wrappers
+LAUNCHES = 0   # kernel launches by the two agglomeration *_cuda wrappers
+INS_LAUNCHES = 0   # calls of ins_matrices_from_pairs_cuda that launched
+INS_KERNELS_PER_CALL = 2   # device kernels such a call launches
 
 
 def _scalar(value, like):
@@ -164,8 +172,8 @@ def agglomerate_batched_plain(distances, valid):
     return _agglomerate(d, _steps(valid))
 
 
-def ins_matrices_from_pairs(starts, spans, pair_part, pair_i, pair_j,
-                            pair_ed, pos_norm, ed_norm):
+def ins_matrices_from_pairs_plain(starts, spans, pair_part, pair_i, pair_j,
+                                  pair_ed, pos_norm, ed_norm):
     """Device-resident INS distance matrices (SVIM_clustering.py:64-77).
 
     starts/spans: (B, P) int32 partition columns.  pair_*: flat near-pair
@@ -174,7 +182,13 @@ def ins_matrices_from_pairs(starts, spans, pair_part, pair_i, pair_j,
     host.  Far pairs get position + span distance; near pairs get position +
     ed/max_span/ed_norm.  Diagonal/invalid slots are left arbitrary —
     agglomerate_batched masks them.  Padding pairs may point at (0, 0, 0)
-    (the masked diagonal)."""
+    (the masked diagonal).  A pair outside the (B, P) matrices raises
+    ValueError (the kernel traps on one)."""
+    batch, p = starts.shape
+    if bool(((pair_part < 0) | (pair_part >= batch) | (pair_i < 0)
+             | (pair_i >= p) | (pair_j < 0) | (pair_j >= p)).any()):
+        raise ValueError("a pair lies outside the ({0}, {1}, {1}) INS "
+                         "matrices".format(batch, p))
     pos_norm = _scalar(pos_norm, starts)
     ed_norm = _scalar(ed_norm, starts)
     one = _scalar(1.0, starts)
@@ -188,10 +202,13 @@ def ins_matrices_from_pairs(starts, spans, pair_part, pair_i, pair_j,
     part = pair_part.long()
     first = pair_i.long()
     second = pair_j.long()
+    # the reference writes ed / max(max_span, 1) / ed_norm, which XLA's
+    # simplifier turns into one division by the product: (a / b) / c ->
+    # a / (b * c)
     ed_term = (pos[part, first, second]
                + pair_ed.to(torch.float32)
-               / torch.maximum(max_span[part, first, second], one)
-               / ed_norm)
+               / (torch.maximum(max_span[part, first, second], one)
+                  * ed_norm))
     mat[part, first, second] = ed_term
     mat[part, second, first] = ed_term
     return mat
@@ -395,13 +412,70 @@ def span_position_agglomerate_batched_cuda(starts, ends, reads, valid, norm,
     return outputs
 
 
-def _route(tensor, plain, kernel):
-    if tensor.device.type == "cpu":
-        return plain
-    if tensor.device.type == "cuda":
-        return kernel
-    raise ValueError("no agglomeration kernel for device {0}".format(
-        tensor.device))
+# --- the hand-written kernel of the resident INS matrices (csrc/ins_matrices.cu)
+
+_ins_library = None
+
+
+def _ins_kernel_library():
+    global _ins_library
+    if _ins_library is None:
+        from svim_tpu_torch.ops._build import load
+
+        library = load("ins_matrices")
+        pointer = ctypes.c_void_p
+        library.ins_matrices.argtypes = (
+            [pointer] * 6 + [ctypes.c_int] * 3
+            + [ctypes.c_float, ctypes.c_float, pointer, pointer])
+        library.ins_matrices.restype = ctypes.c_int
+        _ins_library = library
+    return _ins_library
+
+
+def ins_matrices_from_pairs_cuda(starts, spans, pair_part, pair_i, pair_j,
+                                 pair_ed, pos_norm, ed_norm):
+    """ins_matrices_from_pairs on the card through csrc/ins_matrices.cu.
+
+    starts, spans: (B, P) int32 contiguous CUDA tensors; pair_part, pair_i,
+    pair_j, pair_ed: (Q,) int32 on the same device; the norms: numbers,
+    rounded to float32.  Returns the (B, P, P) float32 matrices, equal to
+    ins_matrices_from_pairs_plain bit for bit off the diagonal (a padding
+    pair (0, 0, 0) leaves its diagonal cell as the cell formula gives it).
+    P is at most 4,096 (the C entry refuses more and check_launch raises); a
+    pair outside the matrices makes the pair kernel trap.
+    Two launches on the current stream, cells then pairs
+    (INS_KERNELS_PER_CALL), no host synchronisation; counted once a call in
+    `INS_LAUNCHES`."""
+    global INS_LAUNCHES
+    device = starts.device
+    if device.type != "cuda":
+        raise ValueError("ins_matrices_from_pairs_cuda needs CUDA tensors")
+    if starts.dim() != 2 or pair_part.dim() != 1:
+        raise ValueError("starts must be (B, P) and the pair columns (Q,), "
+                         "got {0} and {1}".format(tuple(starts.shape),
+                                                  tuple(pair_part.shape)))
+    batch, p = starts.shape
+    pairs = pair_part.shape[0]
+    check_tensors(
+        [("starts", starts, torch.int32, (batch, p)),
+         ("spans", spans, torch.int32, (batch, p))]
+        + [(name, tensor, torch.int32, (pairs,)) for name, tensor in (
+            ("pair_part", pair_part), ("pair_i", pair_i), ("pair_j", pair_j),
+            ("pair_ed", pair_ed))], device)
+    library = _ins_kernel_library()
+    matrices = torch.empty((batch, p, p), dtype=torch.float32, device=device)
+    if batch == 0 or p == 0:
+        return matrices
+    with torch.cuda.device(device):
+        check_launch("ins_matrices", library.ins_matrices(
+            starts.data_ptr(), spans.data_ptr(), pair_part.data_ptr(),
+            pair_i.data_ptr(), pair_j.data_ptr(), pair_ed.data_ptr(), batch,
+            p, pairs, float(pos_norm), float(ed_norm), matrices.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream))
+    INS_LAUNCHES += 1
+    return matrices
+
+
 
 
 def agglomerate_batched(distances, valid):
@@ -410,8 +484,18 @@ def agglomerate_batched(distances, valid):
     Distances of another float type are rounded to float32 first, on either
     device."""
     distances = distances.to(torch.float32)
-    return _route(distances, agglomerate_batched_plain,
-                  agglomerate_batched_cuda)(distances, valid)
+    return route(distances, "agglomeration", agglomerate_batched_plain,
+                 agglomerate_batched_cuda)(distances, valid)
+
+
+def ins_matrices_from_pairs(starts, spans, pair_part, pair_i, pair_j,
+                            pair_ed, pos_norm, ed_norm):
+    """Dispatcher of the resident INS matrices: CPU tensors -> plain
+    version, CUDA tensors -> kernel (see ins_matrices_from_pairs_plain for
+    the contract)."""
+    return route(starts, "INS matrix", ins_matrices_from_pairs_plain,
+                 ins_matrices_from_pairs_cuda)(
+        starts, spans, pair_part, pair_i, pair_j, pair_ed, pos_norm, ed_norm)
 
 
 def span_position_agglomerate_batched(starts, ends, reads, valid, norm,
@@ -419,7 +503,8 @@ def span_position_agglomerate_batched(starts, ends, reads, valid, norm,
     """Dispatcher of the fused route: CPU tensors -> plain version, CUDA
     tensors -> kernel (see span_position_agglomerate_batched_plain for the
     contract)."""
-    return _route(starts, span_position_agglomerate_batched_plain,
-                  span_position_agglomerate_batched_cuda)(
+    return route(starts, "agglomeration",
+                 span_position_agglomerate_batched_plain,
+                 span_position_agglomerate_batched_cuda)(
         starts, ends, reads, valid, norm, threshold, wall_same_read, dest,
         kind)

@@ -1,7 +1,16 @@
 """Parity of the port's GENOTYPE (svim_tpu_torch.ops.genotype_kernel and
 genotype.genotype_packed_multi) with the JAX package's: equal counts from
-the interval-join kernel, equal genotypes on the test_genotype_packed.py
-cases."""
+the interval join's plain version on chip_smoke.py's seeded edge cases
+(genotype_cases: the cap at 499, 500 and 501, width 0, 1 and 8192, S past
+the kernel's shared-memory stage, INT_MAX and INT_MIN ids, wrapping
+margins, C = 1 and 4096), a numpy model of the CUDA kernel's algorithm
+(csrc/genotype_support.cu: tiles of rows in coordinate order, the running
+rank of a block scan, the stop at the 500th qualifying row, the list of at
+most 512 ids, its bitonic sort and the boundary count) held to JAX at
+several tile sizes, the dispatcher (CPU tensors take the plain version
+without a build; a CUDA tensor reaches the kernel or raises; any other
+device raises), and equal genotypes on the test_genotype_packed.py cases.
+Everything is integers: the tolerance is exact equality."""
 
 import copy
 import os
@@ -11,10 +20,12 @@ import numpy as np
 import pytest
 import torch
 
+from svim_tpu.genotype import genotype_packed as jax_genotype_packed
 from svim_tpu.genotype import genotype_packed_multi as jax_genotype_multi
 from svim_tpu.io.bamscan import scan_bam
 from svim_tpu.ops import genotype_kernel as jax_kernel
 from svim_tpu_torch.genotype import genotype_packed_multi
+from svim_tpu_torch.ops import _build
 from svim_tpu_torch.ops import genotype_kernel as torch_kernel
 
 CPU = torch.device("cpu")
@@ -22,6 +33,11 @@ CPU = torch.device("cpu")
 # plain versions are many small ops that oversubscribed threads stall
 torch.set_num_threads(1)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_collect_kernel import SMOKE, _OnCard  # noqa: E402
+
+
+# the seed of chip_smoke.py's phase 16
+CASES = list(SMOKE.genotype_cases(np.random.default_rng(20261023)))
 
 
 def test_genotype_support_batched_equals_jax():
@@ -124,3 +140,337 @@ def test_genotype_ref_support_guards_giant_contigs():
     assert torch_kernel.genotype_ref_support_device(jobs, per_tid, CPU) \
         == jax_kernel.genotype_ref_support_device(jobs, per_tid, None) \
         == [None]
+
+
+def _jax_counts(args):
+    return np.asarray(jax_kernel.genotype_support_batched(*args[:-1],
+                                                          args[-1]))
+
+
+def _tensors(args):
+    return [torch.from_numpy(value) for value in args[:-1]] + [args[-1]]
+
+
+@pytest.mark.parametrize("case", range(len(CASES)),
+                         ids=[label for label, _ in CASES])
+def test_plain_version_equals_jax_on_the_smoke_cases(case):
+    label, args = CASES[case]
+    want = _jax_counts(args)
+    got = torch_kernel.genotype_support_batched(*_tensors(args))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want, err_msg=label)
+
+
+def test_the_smoke_cases_reach_their_edges():
+    """The cap cases count 499, 500, 500 (501 qualifying rows), 0 for
+    supporters after the 500th qualifying row, 250 around it, 500 past
+    excluded and out-of-window rows, 150 distinct of 600 supporters; the
+    sentinel cases 200 (INT_MAX ids use the cap against a full support
+    row), 300 (they match the padding), 5 (INT_MIN never counted)."""
+    counts = dict((label, _jax_counts(args)) for label, args in CASES)
+    cap = counts["the cap at 499, 500, 501 and around it"]
+    np.testing.assert_array_equal(cap, [499, 500, 500, 0, 250, 500, 500,
+                                        150] * 2)
+    np.testing.assert_array_equal(counts["INT_MAX and INT_MIN ids"],
+                                  [200, 300, 5, 0] * 2)
+    np.testing.assert_array_equal(counts["width 0, 1 and 8192"][:3],
+                                  [0, 1, 1])
+    assert counts["width 0, 1 and 8192"][3] > 0
+    for label, args in CASES:
+        assert set(args[6].tolist()) == {0, 1} or len(args[6]) == 1, label
+    assert any(args[7].shape[1] > 4096 for _, args in CASES)
+
+
+def _numpy_bound_work(args):
+    """chip_smoke.genotype_bound_work candidate by candidate in numpy: the
+    rows walked to the 500th qualifying one, the set of table rows they
+    touch, and the operations of the walk."""
+    (lo, width, window_start2, _start2, _end2, _overlap2, type_class,
+     support, _starts2, ends2, ids, slice_len) = args
+    table_rows = len(ends2)
+    steps = max(support.shape[1] - 1, 0).bit_length()
+    touched = set()
+    operations = 0
+    for c in range(len(lo)):
+        first = min(max(int(lo[c]), 0), max(table_rows - slice_len, 0))
+        qualified = 0
+        for row in range(first, first + min(max(int(width[c]), 0),
+                                            slice_len)):
+            touched.add(row)
+            operations += 3
+            if ends2[row] <= window_start2[c]:
+                continue
+            operations += steps + 2
+            if ids[row] in support[c]:
+                continue
+            operations += 10 if type_class[c] == 0 else 6
+            qualified += 1
+            if qualified == torch_kernel.ALIGNMENT_CAP:
+                break
+    return len(touched), operations
+
+
+@pytest.mark.parametrize("shape,same_window", [
+    ((24, 256, 8), False), ((16, 2048, 64), False), ((16, 2048, 64), True)],
+    ids=["under the cap", "the cap reached", "one window for all"])
+def test_the_genotype_bound_counts_a_table_row_once(shape, same_window):
+    """The smoke's bound of the join counts the distinct table rows the
+    walks touch (overlapping windows once) and the operations of the walks,
+    each stopped at its 500th qualifying row, as a plain loop does."""
+    args = SMOKE.genotype_timed_inputs(np.random.default_rng(7), *shape)
+    if same_window:
+        args[0] = np.full_like(args[0], args[0][0])
+    touched, operations = SMOKE.genotype_bound_work(_tensors(args))
+    assert (touched, operations) == _numpy_bound_work(args)
+    candidates, slice_len, _ = shape
+    if same_window:
+        assert touched <= slice_len
+    ms, bound_by = SMOKE.genotype_bound_ms(_tensors(args))
+    moved = 12 * touched + candidates * (28 + 4 * shape[2] + 4)
+    assert ms == max(moved / SMOKE.HBM_BYTES_PER_SECOND,
+                     operations / SMOKE.INT32_OPS_PER_SECOND) * 1e3
+    assert bound_by in ("bytes", "operations")
+
+
+def _wrap(value):
+    return (int(value) + 2**31) % 2**32 - 2**31
+
+
+def _bitonic_sort(values):
+    """The kernel's sort network over a power-of-two list, compare-exchange
+    by compare-exchange (ascending)."""
+    values = values.copy()
+    size = len(values)
+    k = 2
+    while k <= size:
+        j = k // 2
+        while j > 0:
+            for i in range(size):
+                partner = i ^ j
+                if partner > i and (values[i] > values[partner]) == (
+                        (i & k) == 0):
+                    values[i], values[partner] = values[partner], values[i]
+            j //= 2
+        k *= 2
+    return values
+
+
+def _model_genotype_support(args, tile):
+    """numpy model of csrc/genotype_support.cu, one candidate at a time:
+    the window walked in tiles of `tile` rows in coordinate order, a row's
+    rank from the tile's inclusive scan and the running total, a capped
+    spanning row placed at the count of spanning rows before it, the walk
+    stopped once 500 rows qualified, the list of 512 ids (INT_MAX where
+    nothing was written) sorted by the bitonic network over the smallest
+    power of two that holds the listed ids, and the boundaries counted with
+    a first previous of INT_MIN.  Returns (counts, rows walked)."""
+    (lo, width, window_start2, start2, end2, min_overlap2, type_class,
+     support, starts2, ends2, ids, slice_len) = args
+    int_max, int_min = torch_kernel.INT_MAX, torch_kernel.INT_MIN
+    counts = np.zeros(len(lo), dtype=np.int32)
+    walked = np.zeros(len(lo), dtype=np.int64)
+    for c in range(len(lo)):
+        rows = min(max(int(width[c]), 0), slice_len)
+        first = min(max(int(lo[c]), 0), len(starts2) - slice_len)
+        row_ids = support[c]
+        bounds = (_wrap(int(end2[c]) - int(min_overlap2[c])),
+                  _wrap(int(end2[c]) + 200), _wrap(int(start2[c]) - 200),
+                  _wrap(int(start2[c]) + int(min_overlap2[c])))
+        listed = np.full(512, int_max, dtype=np.int64)
+        qualified = placed = 0
+        base = 0
+        while base < rows and qualified < torch_kernel.ALIGNMENT_CAP:
+            k = np.arange(base, min(base + tile, rows))
+            walked[c] += len(k)
+            start, end = starts2[first + k], ends2[first + k]
+            row = ids[first + k]
+            position = np.minimum(np.searchsorted(row_ids, row, side="left"),
+                                  len(row_ids) - 1)
+            qualifying = (end > window_start2[c]) & (row_ids[position] != row)
+            if type_class[c] == 0:
+                spans = (((start < bounds[0]) & (end > bounds[1]))
+                         | ((start < bounds[2]) & (end > bounds[3])))
+            else:
+                spans = (start < bounds[2]) & (end > bounds[1])
+            rank = qualified + np.cumsum(qualifying)
+            spanning_before = np.cumsum(qualifying & spans)
+            supports = qualifying & spans & (
+                rank <= torch_kernel.ALIGNMENT_CAP)
+            listed[placed + spanning_before[supports] - 1] = row[supports]
+            placed += int(supports.sum())
+            qualified += int(qualifying.sum())
+            base += tile
+        size = 1
+        while size < placed:
+            size *= 2
+        listed[:size] = _bitonic_sort(listed[:size])
+        assert np.all(listed[:-1] <= listed[1:])
+        previous = np.concatenate([[int_min], listed[:-1]])
+        counts[c] = np.sum((listed != int_max) & (listed != previous))
+    return counts, walked
+
+
+@pytest.mark.parametrize("tile", [32, 64, 256, 1024])
+def test_the_genotype_kernel_model_at_several_tiles(tile):
+    """The kernel's algorithm equals JAX on every seeded case at any tile
+    size (the kernel walks 256-row tiles), and its stop at the 500th
+    qualifying row leaves rows of the long windows unread."""
+    for label, args in CASES:
+        if label == "C=4096":
+            args = [value[:512] if index < 8 else value
+                    for index, value in enumerate(args)]
+        got, walked = _model_genotype_support(args, tile)
+        np.testing.assert_array_equal(got, _jax_counts(args),
+                                      err_msg=label)
+        if label.startswith("the cap"):
+            rows = np.minimum(args[1], args[-1])
+            assert (walked < rows).any() or tile > 600, label
+
+
+def test_dispatch_takes_the_plain_version_on_the_cpu_and_never_falls_back(
+        monkeypatch):
+    """CPU tensors take genotype_support_batched_plain without a build; a
+    tensor on a card goes to the kernel, and a failing build reaches the
+    caller; a tensor on any other device raises."""
+    def broken(name):
+        raise RuntimeError("nvcc failed for {0}.cu".format(name))
+
+    monkeypatch.setattr(_build, "load", broken)
+    monkeypatch.setattr(torch_kernel, "_library", None)
+    label, args = CASES[0]
+    got = torch_kernel.genotype_support_batched(*_tensors(args))
+    np.testing.assert_array_equal(got.numpy(), _jax_counts(args))
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(torch_kernel, "genotype_support_batched_plain",
+                        no_plain)
+    launches = torch_kernel.LAUNCHES
+    on_card = [_OnCard(value) if isinstance(value, torch.Tensor) else value
+               for value in _tensors(args)]
+    with pytest.raises(RuntimeError,
+                       match="nvcc failed for genotype_support.cu"):
+        torch_kernel.genotype_support_batched(*on_card)
+    assert torch_kernel.LAUNCHES == launches
+    meta = [value.to("meta") if isinstance(value, torch.Tensor) else value
+            for value in _tensors(args)]
+    with pytest.raises(ValueError, match="no genotype_support kernel"):
+        torch_kernel.genotype_support_batched(*meta)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        torch_kernel.genotype_support_batched_cuda(*_tensors(args))
+
+
+
+
+def test_one_call_a_shard_and_the_plain_blocks(monkeypatch):
+    """genotype_ref_support_device makes one call of the dispatcher a shard
+    with every candidate of the shard (the kernel keeps no (C, slice_len)
+    temporary); the plain version's blocks of MAX_GATHER_CELLS cells give
+    the same counts as one block."""
+    label, args = CASES[-1]
+    want = _jax_counts(args)
+    monkeypatch.setattr(torch_kernel, "MAX_GATHER_CELLS", 1000)
+    got = torch_kernel.genotype_support_batched_plain(*_tensors(args))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    rng = np.random.default_rng(9)
+    starts = np.sort(rng.integers(0, 200_000, size=4000))
+    per_tid = {0: (starts, starts + rng.integers(500, 8000, size=4000),
+                   rng.integers(0, 900, size=4000), 8000)}
+    jobs = []
+    for _ in range(64):
+        start = int(rng.integers(2000, 190_000))
+        tc = int(rng.integers(0, 2))
+        end = start if tc else start + int(rng.integers(50, 3000))
+        jobs.append((0, start, end, tc, list(rng.integers(0, 900, size=3)),
+                     250_000))
+    calls = []
+    original = torch_kernel.genotype_support_batched
+
+    def counted(*args):
+        calls.append(args[0].shape[0])
+        return original(*args)
+
+    monkeypatch.setattr(torch_kernel, "genotype_support_batched", counted)
+    for shards in (1, 8):
+        del calls[:]
+        counts = torch_kernel.genotype_ref_support_device(jobs, per_tid, CPU,
+                                                          shards)
+        assert calls == [64 // shards] * shards
+        assert counts == jax_kernel.genotype_ref_support_device(
+            jobs, per_tid, None)
+
+
+def test_genotype_packed_filters_unfiltered_table_equals_jax(
+        tmp_path, default_options):
+    """Twin of test_genotype_packed.py::
+    test_genotype_packed_filters_unfiltered_table: a table scanned at
+    min_mapq 0 genotypes as svim_tpu's does."""
+    from svim_tpu.collect.packed import _run_collect_scan
+    from test_genotype_packed import _make_inputs
+
+    bam_path, del_candidates, ins_candidate = _make_inputs(tmp_path)
+    header, packed, _sa_tags = scan_bam(bam_path, 0)
+    _run_collect_scan(packed, default_options)
+    assert (packed.mapq < default_options.min_mapq).any()
+    port_dels = copy.deepcopy(del_candidates)
+    port_ins = copy.deepcopy(ins_candidate)
+    jax_genotype_packed(del_candidates, packed, header, "DEL",
+                        default_options)
+    jax_genotype_packed([ins_candidate], packed, header, "INS",
+                        default_options)
+    genotype_packed_multi([(port_dels, "DEL", None), ([port_ins], "INS",
+                                                      None)],
+                          packed, header, default_options, CPU)
+    for got, want in zip(port_dels + [port_ins],
+                         del_candidates + [ins_candidate]):
+        assert (got.genotype, got.ref_reads, got.alt_reads,
+                got.support_fraction) == (want.genotype, want.ref_reads,
+                                          want.alt_reads,
+                                          want.support_fraction)
+    assert any(candidate.ref_reads for candidate in port_dels)
+
+
+def test_genotype_packed_multi_single_call_matches_per_type_equals_jax(
+        tmp_path, default_options):
+    """Twin of test_genotype_packed.py::
+    test_genotype_packed_multi_single_call_matches_per_type: DEL and INS
+    jobs interleaved in one join give svim_tpu's per-type genotypes."""
+    from svim_tpu.collect.packed import _run_collect_scan
+    from test_genotype_packed import _make_inputs
+
+    bam_path, del_candidates, ins_candidate = _make_inputs(tmp_path)
+    header, packed, _sa_tags = scan_bam(bam_path, default_options.min_mapq)
+    _run_collect_scan(packed, default_options)
+    port_dels = copy.deepcopy(del_candidates)
+    port_ins = copy.deepcopy(ins_candidate)
+    jax_genotype_packed(del_candidates, packed, header, "DEL",
+                        default_options)
+    jax_genotype_packed([ins_candidate], packed, header, "INS",
+                        default_options)
+    # the port's one call, its jobs interleaved: DEL, INS, DEL, ...
+    groups = []
+    for index, candidate in enumerate(port_dels):
+        groups.append(([candidate], "DEL", None))
+        if index == 0:
+            groups.append(([port_ins], "INS", None))
+    joins = []
+    original = torch_kernel.genotype_ref_support_device
+
+    def counted(jobs, *args):
+        joins.append([job[3] for job in jobs])
+        return original(jobs, *args)
+
+    torch_kernel.genotype_ref_support_device = counted
+    try:
+        genotype_packed_multi(groups, packed, header, default_options, CPU)
+    finally:
+        torch_kernel.genotype_ref_support_device = original
+    assert len(joins) == 1 and 0 in joins[0] and 1 in joins[0]
+    for got, want in zip(port_dels + [port_ins],
+                         del_candidates + [ins_candidate]):
+        assert (got.genotype, got.ref_reads, got.alt_reads,
+                got.support_fraction) == (want.genotype, want.ref_reads,
+                                          want.alt_reads,
+                                          want.support_fraction)

@@ -4,7 +4,20 @@ linkage_kernel) with the JAX package's on the same seeded inputs.
 Merge sequences and the dedup / wall flags must be equal.  Heights and
 min_gap agree to rtol 1e-6: XLA on the CPU and PyTorch may contract
 (s_lo*d_lo + s_hi*d_hi) / (s_lo+s_hi) differently by an ulp.  The flat
-labels rebuilt by labels_from_merges must be equal."""
+labels rebuilt by labels_from_merges must be equal.
+
+The resident INS matrices: the plain version equals JAX bit for bit on
+every cell off the diagonal on chip_smoke.py's seeded cases
+(ins_matrix_cases: P = 32 and 128, padding pairs only, spans 0 and past
+2^24, starts whose differences wrap, norms around 1 and an edit-distance
+normaliser of 0.3, which shows XLA's one division by max_span * ed_norm),
+a numpy model of csrc/ins_matrices.cu (the cells, then the pairs in any
+order, the padding pairs skipped) equals JAX the same way, and the
+dispatcher never falls back."""
+
+import os
+import random
+import sys
 
 import numpy as np
 import pytest
@@ -13,7 +26,11 @@ import torch
 from svim_tpu.cluster import device_cluster as jax_cluster
 from svim_tpu.ops import linkage_kernel as jax_linkage
 from svim_tpu_torch.cluster import device_cluster as torch_cluster
+from svim_tpu_torch.ops import _build
 from svim_tpu_torch.ops import linkage_kernel as torch_linkage
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_collect_kernel import SMOKE, _OnCard  # noqa: E402
 
 # one intra-op thread: the suite runs several pytest workers, and the
 # plain versions are many small ops that oversubscribed threads stall
@@ -168,3 +185,197 @@ def test_ins_matrices_from_pairs_equals_jax():
     got_merges = torch_linkage.agglomerate_batched(_t(got), _t(valid))
     want_merges = jax_linkage.agglomerate_batched(want, valid)
     _assert_merges_equal(got_merges, want_merges, batch)
+
+
+# the seed of chip_smoke.py's phase 6
+INS_CASES = list(SMOKE.ins_matrix_cases(np.random.default_rng(20261027)))
+
+
+def _ins_tensors(args):
+    return [_t(value) if isinstance(value, np.ndarray) else float(value)
+            for value in args]
+
+
+def _contract_cells(valid):
+    pad = valid.shape[1]
+    return (valid[:, :, None] & valid[:, None, :]
+            & ~np.eye(pad, dtype=bool)[None])
+
+
+def _assert_bit_equal_off_diagonal(got, want, valid, label):
+    off = ~np.eye(got.shape[1], dtype=bool)[None].repeat(got.shape[0], 0)
+    for cells in (_contract_cells(valid), off):
+        np.testing.assert_array_equal(got[cells].view(np.int32),
+                                      want[cells].view(np.int32),
+                                      err_msg=label)
+
+
+@pytest.mark.parametrize("case", range(len(INS_CASES)),
+                         ids=[label for label, _, _ in INS_CASES])
+def test_ins_matrices_plain_equals_jax_bit_for_bit(case):
+    """Bit-equal on every cell off the diagonal, and the agglomeration that
+    follows gives JAX's merges."""
+    label, args, valid = INS_CASES[case]
+    want = np.asarray(jax_linkage.ins_matrices_from_pairs(*args))
+    got = torch_linkage.ins_matrices_from_pairs(*_ins_tensors(args)).numpy()
+    _assert_bit_equal_off_diagonal(got, want, valid, label)
+    got_merges = torch_linkage.agglomerate_batched(_t(got), _t(valid))
+    want_merges = jax_linkage.agglomerate_batched(want, valid)
+    _assert_merges_equal(got_merges, want_merges, len(valid))
+
+
+def test_ins_cases_reach_their_edges():
+    by_label = {label: (args, valid) for label, args, valid in INS_CASES}
+    assert {args[0].shape[1] for args, _ in by_label.values()} == {32, 128}
+    args, _ = by_label["no real pair"]
+    assert not (args[3] - args[4]).any()
+    args, _ = by_label["spans 0 and past 2^24"]
+    assert (args[1] == 0).any() and (args[1] > 2**24).any()
+    args, _ = by_label["starts whose differences wrap"]
+    delta = args[0][:, :, None].astype(np.int64) - args[0][:, None, :]
+    assert (delta == -2**31).any() and (np.abs(delta) >= 2**31).any()
+    assert any(args[7] != 1.0 for args, _ in by_label.values())
+
+
+def _model_ins_matrices(args, order, warps):
+    """numpy model of csrc/ins_matrices.cu: the cell kernel's CTA a
+    partition, `warps` warps taking every warps-th row, lane j column j;
+    then the pair kernel's threads in `order` ("forward", "reverse" or
+    "shuffled": threads run in no order), each pair with i != j inside the
+    batch writing its term to (i, j) and (j, i)."""
+    starts, spans, part, first, second, ed, pos_norm, ed_norm = args
+    pos_norm, ed_norm = np.float32(pos_norm), np.float32(ed_norm)
+    one = np.float32(1.0)
+    batch, pad = starts.shape
+
+    def position(a, b):
+        delta = (a.astype(np.int64) - b + 2**31) % 2**32 - 2**31
+        magnitude = np.where(delta == -2**31, delta, np.abs(delta))
+        return magnitude.astype(np.float32) / pos_norm
+
+    out = np.empty((batch, pad, pad), dtype=np.float32)
+    floats = spans.astype(np.float32)
+    for b in range(batch):
+        for warp in range(warps):
+            for i in range(warp, pad, warps):
+                larger = np.maximum(np.maximum(floats[b, i], floats[b]), one)
+                span_d = np.abs(floats[b, i] - floats[b]) / larger
+                out[b, i] = position(starts[b, i], starts[b]) + span_d
+    pairs = np.arange(len(part))
+    if order == "reverse":
+        pairs = pairs[::-1]
+    elif order == "shuffled":
+        pairs = np.random.default_rng(5).permutation(pairs)
+    for q in pairs:
+        b, i, j = int(part[q]), int(first[q]), int(second[q])
+        if i == j or not (0 <= b < batch and 0 <= i < pad and 0 <= j < pad):
+            continue
+        larger = np.maximum(np.maximum(floats[b, i], floats[b, j]), one)
+        term = (position(starts[b, i], starts[b, j])
+                + np.float32(ed[q]) / np.float32(larger * ed_norm))
+        out[b, i, j] = out[b, j, i] = term
+    return out
+
+
+@pytest.mark.parametrize("order,warps", [("forward", 8), ("reverse", 8),
+                                         ("shuffled", 8), ("shuffled", 1),
+                                         ("forward", 3)])
+def test_the_ins_matrix_kernel_model_equals_jax(order, warps):
+    """The kernel's two passes equal JAX bit for bit off the diagonal
+    whatever order the pair threads and the row warps take."""
+    for label, args, valid in INS_CASES:
+        if args[0].shape[1] > 32 and warps != 8:
+            continue
+        want = np.asarray(jax_linkage.ins_matrices_from_pairs(*args))
+        _assert_bit_equal_off_diagonal(
+            _model_ins_matrices(args, order, warps), want, valid, label)
+
+
+def test_ins_dispatch_never_falls_back(monkeypatch):
+    """CPU tensors take ins_matrices_from_pairs_plain without a build; a
+    tensor on a card goes to the kernel, and a failing build reaches the
+    caller; a tensor on any other device raises."""
+    def broken(name):
+        raise RuntimeError("nvcc failed for {0}.cu".format(name))
+
+    monkeypatch.setattr(_build, "load", broken)
+    monkeypatch.setattr(torch_linkage, "_ins_library", None)
+    label, args, valid = INS_CASES[0]
+    tensors = _ins_tensors(args)
+    got = torch_linkage.ins_matrices_from_pairs(*tensors).numpy()
+    want = np.asarray(jax_linkage.ins_matrices_from_pairs(*args))
+    _assert_bit_equal_off_diagonal(got, want, valid, label)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(torch_linkage, "ins_matrices_from_pairs_plain",
+                        no_plain)
+    launches = torch_linkage.INS_LAUNCHES
+    on_card = [_OnCard(value) if isinstance(value, torch.Tensor) else value
+               for value in tensors]
+    with pytest.raises(RuntimeError, match="nvcc failed for ins_matrices.cu"):
+        torch_linkage.ins_matrices_from_pairs(*on_card)
+    assert torch_linkage.INS_LAUNCHES == launches
+    meta = [value.to("meta") if isinstance(value, torch.Tensor) else value
+            for value in tensors]
+    with pytest.raises(ValueError, match="no INS matrix kernel"):
+        torch_linkage.ins_matrices_from_pairs(*meta)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        torch_linkage.ins_matrices_from_pairs_cuda(*tensors)
+
+
+
+
+@pytest.mark.parametrize("column,place", [(2, -1), (2, "B"), (3, -1),
+                                          (3, "P"), (4, -1), (4, "P")],
+                         ids=["part -1", "part B", "i -1", "i P", "j -1",
+                              "j P"])
+def test_ins_pairs_outside_the_matrices_raise(column, place):
+    """A pair outside the (B, P) matrices is an error, never a wrapped or
+    skipped write: the plain version raises (the kernel traps)."""
+    label, args, valid = INS_CASES[0]
+    tensors = _ins_tensors(args)
+    batch, pad = tensors[0].shape
+    bad = tensors[column].clone()
+    bad[0] = {"B": batch, "P": pad}.get(place, place)
+    tensors[column] = bad
+    with pytest.raises(ValueError, match="outside"):
+        torch_linkage.ins_matrices_from_pairs(*tensors)
+
+
+def test_resident_no_near_pairs_equals_jax():
+    """Twin of test_ins_resident.py::test_resident_no_near_pairs: members
+    all beyond the position gate, so the matrices come from the padding
+    pair alone; the port's resident route clusters as svim_tpu's does."""
+    from svim_tpu.config import parse_arguments as jax_parse_arguments
+    from svim_tpu.signatures import SignatureInsertion as JaxInsertion
+    from svim_tpu_torch.config import parse_arguments
+    from svim_tpu_torch.signatures import SignatureInsertion
+    from test_ins_resident import _Reference
+
+    reference = _Reference()
+    rng = random.Random(3)
+    motifs = ["".join(rng.choice("ACGT") for _ in range(70))
+              for _ in range(4)]
+    arguments = ["alignment", "/tmp", "/tmp/x.bam", "/tmp/g.fa",
+                 "--edit_backend", "wavefront"]
+    results = []
+    for cluster, parse, insertion in (
+            (jax_cluster, jax_parse_arguments, JaxInsertion),
+            (torch_cluster, parse_arguments, SignatureInsertion)):
+        options = parse(arguments=arguments)
+        elements = [insertion("chr1", 40_000 + k * 5_000,
+                              40_000 + k * 5_000 + 70, "cigar",
+                              "r{0}".format(k), motif)
+                    for k, motif in enumerate(motifs)]
+        batcher = (cluster.DeviceBatcher(options) if cluster is jax_cluster
+                   else cluster.DeviceBatcher(options, torch.device("cpu")))
+        pending = cluster.dispatch_ins_resident([elements], reference,
+                                                options, batcher)
+        assert pending.resident and not pending.resident[0][2].size
+        result = cluster.consume_partitions_device(pending)
+        results.append([[(e.read, e.start, e.end) for e in members]
+                        for members in result[0].clusters])
+    assert results[0] == results[1]
+    assert sum(len(members) for members in results[1]) == 4
