@@ -14,9 +14,17 @@ Phases, each of which raises (non-zero exit) on failure:
      svim_tpu_torch/_build;
   2b. in a process of its own, started after the build: one wrapper call
      of the COLLECT, GENOTYPE and INS matrix kernels at the bench's shapes
-     runs the device kernels its design says (torch.profiler: one a call,
-     the INS matrices two), and the GENOTYPE and INS calls enqueue under
+     runs the device kernels its design says (torch.profiler: one a call),
+     and the GENOTYPE and INS calls enqueue under
      torch.cuda.set_sync_debug_mode("error");
+  2c. in a process of its own for each fault of INS_TRAPS (pair columns out
+     of partition order, a pair outside the matrices), started after the
+     build: the INS matrix kernel takes seeded columns as the host builds
+     them, the plain version refuses the faulty ones (ValueError) and the
+     kernel traps on them (the process dies of a CUDA error); then the
+     first designs of GENOTYPE's join and of the INS matrices (their
+     sources at SLICE_DESIGN_COMMIT) are built, and the registers, spills
+     and shared memory of present and first designs logged (cuobjdump);
   3. kernel vs plain version on the card: banded_distance_cuda against
      banded_distance_torch on seeded inputs (half near-identical pairs, half
      random) at the main path's shapes and at one case per code path of the
@@ -57,7 +65,8 @@ Phases, each of which raises (non-zero exit) on failure:
      them gives bit-equal outputs on either; so do the seeded cases of
      ins_matrix_cases (P = 32 and 128, padding pairs only, spans 0 and past
      2^24, wrapping starts, norms around 1), and the kernel is timed beside
-     its plain version and bound at the bench's largest call and at
+     its first design (in turns, outputs bit-equal off the diagonal), its
+     plain version and bound at the bench's largest call and at
      INS_TIMED_SHAPES; the same for seeded tie-free
      partitions, whose labels built from the card's merges must equal exact
      float64 host linkage, and for the seeded cases of agglomerate_cases
@@ -172,8 +181,9 @@ Phases, each of which raises (non-zero exit) on failure:
      repeated and INT_MAX support ids, INT_MAX and INT_MIN table ids,
      wrapping margins, both types in a call, C = 1 and 4096); the join
      enqueues under torch.cuda.set_sync_debug_mode("error"); prints kernel
-     and plain ms beside the bound at the bench's join and at C = 4096,
-     slice_len = 8192, S = 64, and the host seconds of the bench's and the
+     ms beside its first design's (in turns, counts equal), plain ms and the
+     bound at the bench's join and at C = 4096, slice_len = 8192, S = 64,
+     and the host seconds of the bench's and the
      tie-free run's whole join through the kernel and through the plain
      version on the card; golden and both bench runs launch the kernel
      once.
@@ -358,7 +368,7 @@ def kernels_a_call():
     """Phase 2b: a call of each wrapper of the COLLECT, GENOTYPE and INS
     matrix kernels at the bench's shapes (N = 4096, K = 32; G = 256, S = 2;
     GENOTYPE_BENCH_SHAPE; INS_BENCH_SHAPE) runs the device kernels its
-    design says (the module's KERNELS_PER_CALL: one, the INS matrices two),
+    design says (the module's KERNELS_PER_CALL: one each),
     counted in the Chrome trace of torch.profiler; the GENOTYPE and INS
     calls also enqueue under torch.cuda.set_sync_debug_mode("error")."""
     import numpy as np
@@ -1613,7 +1623,7 @@ def _host_labels(matrix, count, threshold):
         device_cluster.average_linkage(condensed), threshold)
 
 
-def phase_linkage(recorder):
+def phase_linkage(recorder, first_designs):
     import numpy as np
     import torch
 
@@ -1734,7 +1744,7 @@ def phase_linkage(recorder):
         log("linkage", "{0}: B={1} P={2} Q={3}: kernel, plain version on the "
             "card and on the CPU bit-equal off the diagonal, agglomeration "
             "bit-equal".format(label, *args[0].shape, args[2].shape[0]))
-    return ins_timings(recorder)
+    return ins_timings(recorder, first_designs["ins_matrices"])
 
 
 def _distance_inputs(rng, batch, pad, wide=False):
@@ -2950,22 +2960,14 @@ class _FirstScanDesign:
         return 2 * n
 
 
-def collect_design_libraries():
-    """{"collect_scan", "classify_segments": the first designs (their
-    sources at COLLECT_DESIGN_COMMIT, see _source_at; None where a source
-    cannot be had), "empty": the floor's kernels}, built in parallel with
-    the port's nvcc flags into SCRATCH and bound like the present ones."""
+def _build_designs(directory, sources):
+    """{name: source text} compiled side by side with the port's nvcc flags
+    into `directory`: {name: the loaded library, its `path` set}."""
     import ctypes
 
     from svim_tpu_torch.ops import _build
 
-    directory = os.path.join(SCRATCH, "collect_designs")
     os.makedirs(directory, exist_ok=True)
-    sources = {"empty": EMPTY_KERNELS}
-    for kernel, entry in COLLECT_FUNCTIONS.items():
-        source = _source_at(COLLECT_DESIGN_COMMIT, entry[3])
-        if source is not None:
-            sources[kernel] = source
     jobs = {}
     for name, source in sources.items():
         source_path = os.path.join(directory, name + ".cu")
@@ -2976,7 +2978,7 @@ def collect_design_libraries():
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", library_path,
              source_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
-    libraries = dict.fromkeys(COLLECT_FUNCTIONS)
+    libraries = {}
     for name, (library_path, process) in jobs.items():
         output, _ = process.communicate()
         if process.returncode != 0:
@@ -2984,6 +2986,32 @@ def collect_design_libraries():
                                                                   output))
         libraries[name] = ctypes.CDLL(library_path)
         libraries[name].path = library_path
+    return libraries
+
+
+def _bind_like(library, present, functions):
+    """Gives `library`'s `functions` the argument and result types of the
+    present library's."""
+    for name in functions:
+        getattr(library, name).argtypes = getattr(present, name).argtypes
+        getattr(library, name).restype = getattr(present, name).restype
+
+
+def collect_design_libraries():
+    """{"collect_scan", "classify_segments": the first designs (their
+    sources at COLLECT_DESIGN_COMMIT, see _source_at; None where a source
+    cannot be had), "empty": the floor's kernels}, built in parallel with
+    the port's nvcc flags into SCRATCH and bound like the present ones."""
+    import ctypes
+
+    sources = {"empty": EMPTY_KERNELS}
+    for kernel, entry in COLLECT_FUNCTIONS.items():
+        source = _source_at(COLLECT_DESIGN_COMMIT, entry[3])
+        if source is not None:
+            sources[kernel] = source
+    libraries = dict.fromkeys(COLLECT_FUNCTIONS)
+    libraries.update(_build_designs(os.path.join(SCRATCH, "collect_designs"),
+                                    sources))
     empty = libraries["empty"]
     empty.empty_launch.argtypes = [ctypes.c_void_p]
     empty.empty_cooperative_launch.argtypes = [ctypes.c_int, ctypes.c_int,
@@ -2991,61 +3019,59 @@ def collect_design_libraries():
     for kernel, functions in (("collect_scan", ("collect_scan",)),
                               ("classify_segments", ("classify_max_slots",
                                                      "classify_segments"))):
-        library = libraries[kernel]
-        if library is None:
-            continue
-        present = _collect_module(kernel)[0]._kernel_library()
-        for name in functions:
-            getattr(library, name).argtypes = getattr(present, name).argtypes
-            getattr(library, name).restype = getattr(present, name).restype
+        if libraries[kernel] is not None:
+            _bind_like(libraries[kernel],
+                       _collect_module(kernel)[0]._kernel_library(),
+                       functions)
     if libraries["collect_scan"] is not None:
         libraries["collect_scan"] = _FirstScanDesign(
             libraries["collect_scan"])
     return libraries
 
 
-def _through_first_design(kernel, library, function):
-    """`function()` with the wrapper of COLLECT kernel `kernel` bound to
-    `library`; launches made so are not counted."""
-    module = _collect_module(kernel)[0]
-    saved, launches = module._library, module.LAUNCHES
-    module._library = library
-    try:
-        return function()
-    finally:
-        module._library = saved
-        module.LAUNCHES = launches
+def _time_designs(module, attribute, counter, call, first_design, same,
+                  repeats=20):
+    """Device ms of `call()`, a call of a kernel's wrapper in `module`, and,
+    when `first_design` is a library, of the first design on the same inputs
+    in turns (first design, kernel, kernel, first design; each the mean of
+    its two turns; the wrapper reaches it through `module.<attribute>`),
+    whose output must pass `same(kernel's, first design's)`.  The launches
+    counted in `module.<counter>` here are taken back.  Returns (ms, first
+    design ms or None)."""
+    saved, launches = getattr(module, attribute), getattr(module, counter)
 
-
-def _time_collect_designs(kernel, tensors, kwargs, first_design,
-                          repeats=20):
-    """Device ms of COLLECT kernel `kernel` on `tensors` and, when
-    `first_design` is a library, of the first design on the same inputs in
-    turns (first design, kernel, kernel, first design; each the mean of its
-    two turns), whose outputs must equal the kernel's bit for bit.  Returns
-    (ms, first design ms or None)."""
-    module, cuda, _ = _collect_module(kernel)
-    launches = module.LAUNCHES
-
-    def call():
-        return cuda(*tensors, **kwargs)
+    def through_first_design():
+        setattr(module, attribute, first_design)
+        try:
+            return _device_ms(call, repeats)
+        finally:
+            setattr(module, attribute, saved)
 
     try:
         if first_design is None:
             return _device_ms(call, repeats)[0], None
-        first, old = _through_first_design(
-            kernel, first_design, lambda: _device_ms(call, repeats))
+        first, old = through_first_design()
         second, new = _device_ms(call, repeats)
         third, _ = _device_ms(call, repeats)
-        fourth, _ = _through_first_design(
-            kernel, first_design, lambda: _device_ms(call, repeats))
+        fourth, _ = through_first_design()
     finally:
-        module.LAUNCHES = launches
-    for index, (a, b) in enumerate(zip(new, old)):
-        if not _bit_equal(a, b):
-            raise AssertionError("{0}: the first design differs from the "
-                                 "kernel in output {1}".format(kernel, index))
+        setattr(module, counter, launches)
+    if not same(new, old):
+        raise AssertionError("{0}: the first design's output differs from "
+                             "the kernel's".format(module.__name__))
     return (second + third) / 2, (first + fourth) / 2
+
+
+def _time_collect_designs(kernel, tensors, kwargs, first_design,
+                          repeats=20):
+    """_time_designs for COLLECT kernel `kernel` on `tensors`: every output
+    of the first design equal to the kernel's bit for bit."""
+    module, cuda, _ = _collect_module(kernel)
+    return _time_designs(
+        module, "_library", "LAUNCHES", lambda: cuda(*tensors, **kwargs),
+        first_design,
+        lambda new, old: all(_bit_equal(a, b) for a, b in zip(new, old)),
+        repeats)
 
 
 def collect_launch_floor(empty, repeats=20):
@@ -3316,6 +3342,151 @@ INS_REPLACES = "svim_tpu/ops/linkage_kernel.py:130"
 # what phases 6 and 16 have seen: calls compared and the largest difference
 GENOTYPE_CHECK = {"calls": 0, "max_abs_err": 0}
 INS_CHECK = {"calls": 0, "max_abs_err": 0.0}
+# the commit of the first designs of these two kernels (the join a CTA a
+# candidate; the INS matrices in two launches, cells then pairs): built
+# beside the present ones and timed with them in turns on the same inputs
+SLICE_DESIGN_COMMIT = "be8ae56ef1c9273948640dc310ab4f987f546040"
+# kernel -> (source, module, its library attribute, its launch counter)
+SLICE_KERNELS = {
+    "genotype_support": (GENOTYPE_SOURCE, "genotype_kernel", "_library",
+                         "LAUNCHES"),
+    "ins_matrices": (INS_SOURCE, "linkage_kernel", "_ins_library",
+                     "INS_LAUNCHES")}
+# the faults of the INS pair columns that the kernel must trap on, each
+# checked in a process of its own (a trap ends the process's CUDA context)
+INS_TRAPS = ("partitions swapped", "real pair after the padding",
+             "a pair outside the matrices")
+
+
+def _slice_module(name):
+    import importlib
+
+    return importlib.import_module("svim_tpu_torch.ops." + SLICE_KERNELS[
+        name][1])
+
+
+def slice_design_libraries():
+    """{"genotype_support", "ins_matrices": the first design (its source at
+    SLICE_DESIGN_COMMIT, see _source_at; None where it cannot be had)},
+    built in parallel with the port's nvcc flags into SCRATCH and bound
+    like the present ones."""
+    sources = {}
+    for name, (source_file, _, _, _) in SLICE_KERNELS.items():
+        source = _source_at(SLICE_DESIGN_COMMIT, source_file)
+        if source is not None:
+            sources[name] = source
+    libraries = dict.fromkeys(SLICE_KERNELS)
+    libraries.update(_build_designs(os.path.join(SCRATCH, "slice_designs"),
+                                    sources))
+    for name, library in libraries.items():
+        if library is not None:
+            module = _slice_module(name)
+            _bind_like(library, module._ins_kernel_library()
+                       if name == "ins_matrices"
+                       else module._kernel_library(), (name,))
+    return libraries
+
+
+def _time_slice_designs(name, call, first_design, same):
+    """_time_designs for kernel `name` of SLICE_KERNELS."""
+    _, _, attribute, counter = SLICE_KERNELS[name]
+    return _time_designs(_slice_module(name), attribute, counter, call,
+                         first_design, same)
+
+
+def phase_slice_resources(first_designs):
+    """Registers, spills and static shared memory of the GENOTYPE and INS
+    matrix kernels, present and first design (logged; not checked)."""
+    from svim_tpu_torch.ops import _build
+
+    for name, library in first_designs.items():
+        paths = {"present": _build.library_path(name)}
+        if library is not None:
+            paths["first design"] = library.path
+        for which, path in paths.items():
+            for line in _resource_usage(path) or ["cuobjdump not found"]:
+                log("resources", "{0}, {1}: {2}".format(name, which, line))
+
+
+def ins_column_faults(args, kind):
+    """ins_matrices_from_pairs's arguments (numpy, from _ins_inputs) with
+    one fault of `kind` in their pair columns, in place: partitions
+    swapped, a real pair after the padding, padding among the real pairs,
+    the last partition first (all out of partition order), or a pair
+    outside the matrices."""
+    import numpy as np
+
+    part, first, second = args[2], args[3], args[4]
+    real = int((first != second).sum())
+    if kind == "partitions swapped":
+        later = int(np.flatnonzero(part[:real] != part[0])[0])
+        part[0], part[later] = part[later], part[0]
+    elif kind == "real pair after the padding":
+        part[real], first[real], second[real] = 3, 0, 1
+    elif kind == "padding among the real pairs":
+        second[real // 2] = first[real // 2]
+    elif kind == "last partition first":
+        part[0] = len(args[0]) - 1
+    elif kind == "a pair outside the matrices":
+        first[real // 2] = args[0].shape[1]
+    else:
+        raise ValueError("no INS column fault " + kind)
+    return args
+
+
+def start_ins_traps():
+    """Phase 2c: each fault of INS_TRAPS through the INS matrix kernel in a
+    process of its own, beside the later phases (ins_trap_case).  Returns
+    the processes for finish_ins_traps()."""
+    return {kind: subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "import chip_smoke; chip_smoke.ins_trap_case(sys.argv[2])", ROOT,
+         kind], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for kind in INS_TRAPS}
+
+
+def ins_trap_case(kind):
+    """The INS matrix kernel on seeded columns of the bench's shape, which
+    it must take, then on the same columns with the fault `kind`, which the
+    plain version must refuse (ValueError) and the kernel trap on: prints
+    "NO TRAP" if the synchronisation after its launch passes."""
+    import numpy as np
+    import torch
+
+    from svim_tpu_torch.ops import linkage_kernel
+
+    args = _ins_inputs(np.random.default_rng(20261028), *INS_BENCH_SHAPE)
+    linkage_kernel.ins_matrices_from_pairs_cuda(*_on_card(args))
+    torch.cuda.synchronize()
+    print("the columns as built: no trap", flush=True)
+    faulty = _on_card(ins_column_faults(args, kind))
+    try:
+        linkage_kernel.ins_matrices_from_pairs_plain(*faulty)
+    except ValueError as error:
+        print("plain version: ValueError: {0}".format(error), flush=True)
+    linkage_kernel.ins_matrices_from_pairs_cuda(*faulty)
+    torch.cuda.synchronize()
+    print("NO TRAP", flush=True)
+
+
+def finish_ins_traps(processes):
+    """Waits for start_ins_traps()'s processes: each must have taken the
+    columns as built, seen the plain version raise, and died of the
+    kernel's trap (a CUDA error at the synchronisation)."""
+    for kind, process in processes.items():
+        output, _ = process.communicate(timeout=RANK_TIMEOUT)
+        if (process.returncode == 0 or "NO TRAP" in output
+                or "the columns as built: no trap" not in output
+                or "plain version: ValueError" not in output
+                or "CUDA error" not in output):
+            sys.stdout.write(output)
+            raise AssertionError("the INS matrix kernel did not trap on "
+                                 + kind)
+        error = next(line for line in output.splitlines()
+                     if "CUDA error" in line)
+        log("kernels", "INS matrices, {0}: the plain version raised "
+            "ValueError and the kernel trapped (exit code {1}: {2})".format(
+                kind, process.returncode, error.strip()))
 
 
 def _genotype_call(candidates, slice_len, s):
@@ -3592,8 +3763,11 @@ def ins_matrix_cases(rng):
     enumerates them (each unordered pair once, in row order, padded to a
     power of two with (0, 0, 0)): P = 32 and 128 at B = 16, no real pair
     (padding only), spans 0 and past 2^24, starts whose differences wrap
-    int32 (INT_MIN among them), and norms around 1 beside the CLI's
-    defaults."""
+    int32 (INT_MIN among them), norms around 1 beside the CLI's defaults,
+    position norms outside the range of the kernel's fast division (tiny,
+    huge) and a negative one, P = 37 (the kernel's 4-byte stores) and
+    P = 200 (its row bands; the agglomeration that phase 6 runs on them
+    takes P <= 237)."""
     import numpy as np
 
     def call(starts, spans, counts, density, pos_norm, ed_norm):
@@ -3646,6 +3820,19 @@ def ins_matrix_cases(rng):
         starts, spans, counts = columns(8, 32, 0, 2_000_000, 3000)
         yield "norms {0!r}, {1!r}".format(pos_norm, ed_norm), *call(
             starts, spans, counts, 0.5, pos_norm, ed_norm)
+    # position norms past the kernel's fast division ([2^-40, 2^40] in
+    # magnitude), where its cells divide by __fdiv_rn, and a negative one
+    # inside it
+    for pos_norm in (1e-19, 2.0**61, -900.0):
+        starts, spans, counts = columns(8, 32, 0, 2_000_000, 3000)
+        yield "position norm {0!r}".format(pos_norm), *call(
+            starts, spans, counts, 0.5, pos_norm, 0.3)
+    # P not a multiple of 4 (4-byte stores), and past 128 (row bands)
+    for batch, pad, density in ((4, 37, 0.5), (2, 200, 0.1)):
+        starts, spans, counts = columns(batch, pad, 0, 2_000_000, 3000)
+        counts[0] = pad
+        yield "P={0}".format(pad), *call(starts, spans, counts, density,
+                                         900.0, 0.3)
 
 
 def _ins_inputs(rng, batch, pad, pairs):
@@ -3740,11 +3927,12 @@ def _ins_against_plain(args, where, valid=None, recorded=None):
 INS_TIMED_SHAPES = ((1024, 128, 1 << 20), (1024, 32, 1 << 18))
 
 
-def ins_timings(recorder):
-    """Kernel ms (device time, stream held) beside plain ms and the bound
-    for the bench's largest recorded INS matrix call and at
+def ins_timings(recorder, first_design):
+    """Kernel ms (device time, stream held) beside the first design's ms on
+    the same inputs in turns (`first_design`: a library or None), plain ms
+    and the bound for the bench's largest recorded INS matrix call and at
     INS_TIMED_SHAPES.  Returns {shape: (label, ms, plain ms, bound ms,
-    bound by)}."""
+    bound by, first design ms)}."""
     import numpy as np
 
     from svim_tpu_torch.ops import linkage_kernel
@@ -3762,19 +3950,24 @@ def ins_timings(recorder):
     timings = {}
     for label, args in cases:
         tensors = _on_card(args)
-        ms, _ = _device_ms(
-            lambda: linkage_kernel.ins_matrices_from_pairs_cuda(*tensors), 20)
+        batch, pad = tensors[0].shape
+        cells = _off_diagonal(batch, pad).cuda()
+        ms, first_ms = _time_slice_designs(
+            "ins_matrices",
+            lambda: linkage_kernel.ins_matrices_from_pairs_cuda(*tensors),
+            first_design, lambda new, old: _bit_equal(new[cells], old[cells]))
         plain_ms, _ = _time_ms(
             lambda: linkage_kernel.ins_matrices_from_pairs_plain(*tensors), 3)
-        batch, pad = tensors[0].shape
         pairs = tensors[2].shape[0]
         bound_ms, bound_by = ins_bound_ms(batch, pad, pairs)
         shape = "B={0},P={1},Q={2}".format(batch, pad, pairs)
-        timings[shape] = (label, ms, plain_ms, bound_ms, bound_by)
-        log("linkage", "INS matrices at {0} ({1}): kernel {2:.4f} ms, plain "
-            "{3:.3f} ms, bound {4:.6f} ms by {5} (kernel {6:.1f} times its "
-            "bound)".format(shape, label, ms, plain_ms, bound_ms, bound_by,
-                            ms / bound_ms))
+        timings[shape] = (label, ms, plain_ms, bound_ms, bound_by, first_ms)
+        log("linkage", "INS matrices at {0} ({1}): kernel {2:.4f} ms (first "
+            "design {3}), plain {4:.3f} ms, bound {5:.6f} ms by {6} (kernel "
+            "{7:.1f} times its bound)".format(
+                shape, label, ms, "not timed" if first_ms is None
+                else "{0:.4f} ms".format(first_ms), plain_ms, bound_ms,
+                bound_by, ms / bound_ms))
     return timings
 
 
@@ -3843,14 +4036,15 @@ def slice_kernel_entry(name, source, replaces, check, timings,
     """The `kernels` line's entry of the GENOTYPE or the INS matrix kernel:
     its numbers at the bench's own call (launches from `path`: wrapper
     calls, each `kernels_per_call` device kernels), every timed shape under
-    `by_shape`.  PyTorch has no call that computes either
-    function (library_ms null)."""
+    `by_shape`, each beside the first design's time in the same call
+    (`first_design_ms`, null where it was not built).  PyTorch has no call
+    that computes either function (library_ms null)."""
     from svim_tpu_torch.ops import genotype_kernel, linkage_kernel
 
     kernels_per_call = {
         "genotype_support": genotype_kernel.KERNELS_PER_CALL,
         "ins_matrices": linkage_kernel.INS_KERNELS_PER_CALL}[name]
-    shape, (_, ms, plain_ms, bound_ms, bound_by) = next(
+    shape, (_, ms, plain_ms, bound_ms, bound_by, first_ms) = next(
         (shape, value) for shape, value in timings.items()
         if value[0] == "bench batch")
     return {"name": name, "route": "cuda", "source": source,
@@ -3860,20 +4054,23 @@ def slice_kernel_entry(name, source, replaces, check, timings,
             "max_abs_err": check["max_abs_err"],
             "compared_calls": check["calls"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": shape + " (bench batch)",
+            "first_design_ms": first_ms, "shape": shape + " (bench batch)",
             "by_shape": {"{0} ({1})".format(key, value[0]): dict(zip(
-                ("ms", "plain_ms", "bound_ms", "bound_by"), value[1:]))
+                ("ms", "plain_ms", "bound_ms", "bound_by",
+                 "first_design_ms"), value[1:]))
                 for key, value in timings.items()}}
 
 
-def phase_genotype_kernel(recorder):
+def phase_genotype_kernel(recorder, first_design):
     """Phase 16: GENOTYPE's kernel against its plain version on the card:
     every join the main path made in the recorded phases (equal to each
     other and to the path's counts), the seeded cases, the sync check;
-    kernel ms beside plain ms and the bound at the bench's largest join and
-    at GENOTYPE_TIMED_SHAPE, and the join's host seconds through either
-    route on the first recorded bench and tie-free jobs.  Returns
-    {shape: (label, ms, plain ms, bound ms, bound by)}."""
+    kernel ms beside the first design's on the same inputs in turns
+    (`first_design`: a library or None), plain ms and the bound at the
+    bench's largest join and at GENOTYPE_TIMED_SHAPE, and the join's host
+    seconds through either route on the first recorded bench and tie-free
+    jobs.  Returns {shape: (label, ms, plain ms, bound ms, bound by, first
+    design ms)}."""
     import numpy as np
     import torch
 
@@ -3930,9 +4127,10 @@ def phase_genotype_kernel(recorder):
     for label, tensors in (("bench batch", list(largest)),
                            ("seeded", timed_args)):
         _genotype_against_plain(tensors, "genotype timed, " + label)
-        ms, _ = _device_ms(
+        ms, first_ms = _time_slice_designs(
+            "genotype_support",
             lambda: genotype_kernel.genotype_support_batched_cuda(*tensors),
-            20)
+            first_design, _bit_equal)
         plain_ms, _ = _time_ms(
             lambda: genotype_kernel.genotype_support_batched_plain(*tensors),
             3)
@@ -3940,11 +4138,13 @@ def phase_genotype_kernel(recorder):
         shape = "C={0},slice_len={1},S={2},T={3}".format(
             tensors[0].shape[0], tensors[-1], tensors[7].shape[1],
             tensors[8].shape[0])
-        timings[shape] = (label, ms, plain_ms, bound_ms, bound_by)
-        log("genotype", "{0} ({1}): kernel {2:.4f} ms, plain {3:.3f} ms, "
-            "bound {4:.6f} ms by {5} (kernel {6:.1f} times its bound)".format(
-                shape, label, ms, plain_ms, bound_ms, bound_by,
-                ms / bound_ms))
+        timings[shape] = (label, ms, plain_ms, bound_ms, bound_by, first_ms)
+        log("genotype", "{0} ({1}): kernel {2:.4f} ms (first design {3}), "
+            "plain {4:.3f} ms, bound {5:.6f} ms by {6} (kernel {7:.1f} times "
+            "its bound)".format(
+                shape, label, ms, "not timed" if first_ms is None
+                else "{0:.4f} ms".format(first_ms), plain_ms, bound_ms,
+                bound_by, ms / bound_ms))
 
     for label, (jobs, per_tid) in joins.items():
         kernel_s, counts = _join_seconds(jobs, per_tid, "kernel")
@@ -3985,15 +4185,22 @@ def run_phases(card, makers):
     started = time.perf_counter()
     phase_build()
     kernels_a_call_process = start_kernels_a_call()
+    trap_processes = start_ins_traps()
     try:
-        run_later_phases(card, makers, started, kernels_a_call_process)
+        run_later_phases(card, makers, started, kernels_a_call_process,
+                         trap_processes)
     finally:
-        kernels_a_call_process.kill()
-        kernels_a_call_process.wait()
+        for process in [kernels_a_call_process, *trap_processes.values()]:
+            process.kill()
+            process.wait()
 
 
-def run_later_phases(card, makers, started, kernels_a_call_process):
+def run_later_phases(card, makers, started, kernels_a_call_process,
+                     trap_processes):
+    slice_designs = slice_design_libraries()
+    phase_slice_resources(slice_designs)
     timings, max_abs_err = phase_kernels(kernel_shapes())
+    finish_ins_traps(trap_processes)
     recorder = LinkageRecorder()
     collect_calls = DeviceOpRecorder()
     with recorder, collect_calls.recording("golden"):
@@ -4003,7 +4210,7 @@ def run_later_phases(card, makers, started, kernels_a_call_process):
                                                           makers)
     with collect_calls.recording("tiefree"):
         phase_tiefree(card, recorder, makers)
-    ins_timings = phase_linkage(recorder)
+    ins_timings = phase_linkage(recorder, slice_designs)
     rescan_design = rescan_design_library()
     phase_resources(rescan_design)
     agglomerate_timings = phase_agglomerate(rescan_design)
@@ -4024,7 +4231,8 @@ def run_later_phases(card, makers, started, kernels_a_call_process):
     with collect_calls.recording("shards"):
         phase_shards(bench_bam, bench_genome)
     collect_timings, collect_floor = phase_collect_kernels(collect_calls)
-    genotype_timings = phase_genotype_kernel(collect_calls)
+    genotype_timings = phase_genotype_kernel(
+        collect_calls, slice_designs["genotype_support"])
     finish_kernels_a_call(kernels_a_call_process)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -22,41 +22,52 @@
 // window's start is clamped to [0, rows - slice_len] and its length to
 // [0, slice_len], as jax.lax.dynamic_slice and the slice's mask do.
 //
-// Design: one CTA of 256 threads a candidate.
-//   * The support row is staged in shared memory when it holds at most
-//     4,096 ids, and searched in device memory above that (S has no cap).
-//   * The window is walked in tiles of 256 rows, a thread a row, in
-//     coordinate order (coalesced loads of the three columns).  One block
-//     scan a tile (warp shuffles and one pass over the warp sums) of
-//     qualifying + (qualifying & spans) << 16 gives each row its exact rank
-//     and its place among the tile's spanning rows: the cap keeps the first
-//     500 qualifying rows in coordinate order, so it is a scan, not atomics.
-//     A capped spanning row's place in the list is the count of spanning
-//     rows before it, since every qualifying row before a capped one is
-//     capped too.
+// Design: a warp a candidate, eight candidates a CTA, and no block
+// barrier anywhere: a warp synchronises with __syncwarp and its own
+// collectives, and a warp whose window is empty writes 0 and leaves.
+//   * The support row is staged in the warp's slice of shared memory when
+//     it holds at most 512 ids (by cp.async, while the window's first rows
+//     load), and searched in device memory above that (S has no cap), by
+//     a branch-free lower bound of ceil(log2 S) steps.
+//   * The window is walked in coordinate order in steps of 4 x 32 rows:
+//     lane l loads rows base + r * 32 + l for r = 0..3 (coalesced, issued
+//     together).  After the first step the ends come first: a step none of
+//     whose rows ends past the window's start is done (no row of it can
+//     qualify), else the lanes load those rows' starts and ids.  Then for
+//     each r in order two ballots, of the qualifying rows and of the
+//     supporting ones, give each row its exact rank (the rows qualified so
+//     far plus the qualifying lanes below it, plus one) and a supporting
+//     row its slot in the list (the ids listed so far plus the supporting
+//     lanes below it).  A row
+//     supports when it spans and its rank is at most 500: the cap keeps the
+//     first 500 qualifying rows in coordinate order, without atomics.
 //   * The walk stops once 500 rows qualified: no later row can be capped,
 //     so the stop is exact, and it bounds the work at any width.
-//   * The supporting ids (at most 500) sit in a list of 512 ints in shared
-//     memory, INT_MAX where nothing was written; a bitonic sort of the
-//     smallest power of two that holds them, then the boundaries counted
-//     with __syncthreads_count.  Thread 0 writes the count.
-// What bounds it on this card: bytes.  A candidate reads its rows up to
-// the 500th qualifying one (12 bytes a row), its support row and writes 4
-// bytes; at the main path's sizes that is kilobytes, so a call is one short
-// launch.  No host synchronisation.  See PERF.md for its time against the
-// bound.
+//   * The supporting ids (at most 500) sit in the warp's list of 512 ints in
+//     shared memory.  They are sorted in registers by a bitonic network
+//     over the smallest power of two that holds them (at least 32; the
+//     rest INT_MAX), size / 32 values a lane, compare-exchanges within a
+//     lane or across lanes by shuffles; the boundaries are counted in each
+//     lane and summed over the warp; lane 0 writes the count.
+// What bounds it on this card: the walk's operations (a binary search of
+// the support row a row in the window) once the windows' rows sit in L2;
+// at the main path's sizes (a few hundred candidates, windows of <= 1,024
+// rows) a call is one short launch.  No host synchronisation.  See PERF.md
+// for its time against the bound.
 
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = 8;             // candidates a CTA
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsALane = 4;         // rows a lane loads a step
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kCap = 500;            // ALIGNMENT_CAP, SVIM_genotyping.py:56
 constexpr int kList = 512;           // the cap rounded up to a power of two
-constexpr int kStageWords = 4096;    // support ids staged in shared memory
+constexpr int kStageWords = 512;     // support ids staged a warp
 constexpr int32_t kIntMax = 2147483647;
 constexpr int32_t kIntMin = -kIntMax - 1;
 
@@ -71,48 +82,76 @@ __device__ __forceinline__ int32_t wrap_sub(int32_t a, int32_t b) {
 }
 
 // jnp.searchsorted(row, id) on the left, clamped to s - 1, then equality.
+// The search is branch-free and takes ceil(log2 s) steps whatever the id,
+// the same in every lane of a warp: on a sorted row it is the lower bound.
 __device__ __forceinline__ bool in_support(const int32_t* row, int s,
                                            int32_t id) {
-  int lo = 0;
-  int hi = s;
-  while (lo < hi) {
-    const int mid = static_cast<int>(
-        (static_cast<unsigned>(lo) + static_cast<unsigned>(hi)) >> 1);
-    if (row[mid] < id) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
+  const int32_t* at = row;
+  for (int n = s; n > 1;) {
+    const int half = n >> 1;
+    at = at[half] < id ? at + half : at;
+    n -= half;
   }
-  return row[lo < s ? lo : s - 1] == id;
+  const int index = static_cast<int>(at - row) + (*at < id ? 1 : 0);
+  return row[index < s ? index : s - 1] == id;
 }
 
-// Inclusive sum over the CTA of `value`; *total gets the CTA's sum.  Two
-// barriers; warp_sums may be written again only after a third.
-__device__ __forceinline__ int block_inclusive_scan(int value, int* warp_sums,
-                                                    int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int offset = 1; offset < 32; offset <<= 1) {
-    const int other = __shfl_up_sync(kFull, value, offset);
-    if (lane >= offset) value += other;
+// The number of distinct ids among the first `listed` entries of `list`
+// (at most 32 * kPerLane of them), as the reference counts them: sorted,
+// then the boundaries with a first previous of INT_MIN, INT_MAX never
+// counted.  The bitonic network over 32 * kPerLane entries runs in
+// registers, entry x = lane * kPerLane + e in value e of a lane: stages
+// whose partner differs in the low bits compare within a lane, the others
+// exchange with lane ^ (j / kPerLane) by __shfl_xor_sync.  Entries past
+// `listed` are INT_MAX.  Called by the whole warp after a __syncwarp.
+template <int kPerLane>
+__device__ __forceinline__ int distinct_ids(const int32_t* list, int listed,
+                                            int lane) {
+  constexpr int kSize = 32 * kPerLane;
+  int32_t value[kPerLane];
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) {
+    const int x = lane * kPerLane + e;
+    value[e] = x < listed ? list[x] : kIntMax;
   }
-  if (lane == 31) warp_sums[warp] = value;
-  __syncthreads();
-  if (warp == 0) {
-    int sum = lane < kWarps ? warp_sums[lane] : 0;
-    for (int offset = 1; offset < kWarps; offset <<= 1) {
-      const int other = __shfl_up_sync(kFull, sum, offset);
-      if (lane >= offset) sum += other;
+#pragma unroll
+  for (int k = 2; k <= kSize; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j >= kPerLane) {
+#pragma unroll
+        for (int e = 0; e < kPerLane; ++e) {
+          const int x = lane * kPerLane + e;
+          const int32_t other = __shfl_xor_sync(kFull, value[e], j / kPerLane);
+          const bool keep_min = ((x & j) == 0) == ((x & k) == 0);
+          value[e] = keep_min ? min(value[e], other) : max(value[e], other);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kPerLane; ++e) {
+          if (e & j) continue;
+          const bool ascending = ((lane * kPerLane + e) & k) == 0;
+          const int32_t low = min(value[e], value[e | j]);
+          const int32_t high = max(value[e], value[e | j]);
+          value[e] = ascending ? low : high;
+          value[e | j] = ascending ? high : low;
+        }
+      }
     }
-    if (lane < kWarps) warp_sums[lane] = sum;
   }
-  __syncthreads();
-  *total = warp_sums[kWarps - 1];
-  return value + (warp > 0 ? warp_sums[warp - 1] : 0);
+  const int32_t above = __shfl_up_sync(kFull, value[kPerLane - 1], 1);
+  int distinct = 0;
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) {
+    const int32_t previous =
+        e > 0 ? value[e - 1] : (lane == 0 ? kIntMin : above);
+    distinct += value[e] != kIntMax && value[e] != previous ? 1 : 0;
+  }
+  return __reduce_add_sync(kFull, distinct);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// 4 CTAs an SM (64 registers): 4,224 warps in flight on 132 SMs
+__global__ void __launch_bounds__(kThreads, 4)
     genotype_support_kernel(const int32_t* __restrict__ lo,
                             const int32_t* __restrict__ width,
                             const int32_t* __restrict__ window_start2,
@@ -121,18 +160,20 @@ __global__ void __launch_bounds__(kThreads)
                             const int32_t* __restrict__ min_overlap2,
                             const int32_t* __restrict__ type_class,
                             const int32_t* __restrict__ support, int s,
+                            int candidates,
                             const int32_t* __restrict__ starts2,
                             const int32_t* __restrict__ ends2,
                             const int32_t* __restrict__ ids, int table_rows,
                             int slice_len, int32_t* __restrict__ counts) {
-  __shared__ int32_t stage[kStageWords];
-  __shared__ int32_t list[kList];
-  __shared__ int warp_sums[kWarps];
-  const int c = blockIdx.x;
-  const int tid = threadIdx.x;
+  __shared__ int32_t stage[kWarps][kStageWords];
+  __shared__ int32_t lists[kWarps][kList];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * kWarps + warp;
+  if (c >= candidates) return;
   const int rows = min(max(width[c], 0), slice_len);
   if (rows == 0) {
-    if (tid == 0) counts[c] = 0;
+    if (lane == 0) counts[c] = 0;
     return;
   }
   const int first = min(max(lo[c], 0), table_rows - slice_len);
@@ -147,74 +188,93 @@ __global__ void __launch_bounds__(kThreads)
   const int32_t start_less_margin = wrap_sub(s2, 200);
   const int32_t start_plus_overlap = wrap_add(s2, mo2);
 
+  // the support row is staged by cp.async, beside the loads of the
+  // window's first rows: the two share one trip to memory
   const int32_t* row_ids = support + static_cast<size_t>(c) * s;
-  if (s <= kStageWords) {
-    for (int i = tid; i < s; i += kThreads) stage[i] = row_ids[i];
-    row_ids = stage;
+  const bool staged = s <= kStageWords;
+  if (staged) {
+    for (int i = lane; i < s; i += 32) {
+      __pipeline_memcpy_async(&stage[warp][i], row_ids + i, sizeof(int32_t));
+    }
+    __pipeline_commit();
   }
-  for (int i = tid; i < kList; i += kThreads) list[i] = kIntMax;
-  __syncthreads();
+  int32_t* list = lists[warp];
+  const unsigned lanes_below = (1u << lane) - 1u;
 
-  int qualified = 0;   // qualifying rows so far (the same in every thread)
+  int32_t end[kRowsALane];
+  int32_t start[kRowsALane];
+  int32_t id[kRowsALane];
+#pragma unroll
+  for (int r = 0; r < kRowsALane; ++r) {
+    const int k = r * 32 + lane;
+    end[r] = k < rows ? ends2[first + k] : kIntMin;
+    start[r] = k < rows ? starts2[first + k] : 0;
+    id[r] = k < rows ? ids[first + k] : 0;
+  }
+  if (staged) {
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    row_ids = stage[warp];
+  }
+
+  int qualified = 0;   // qualifying rows so far (the same in every lane)
   int listed = 0;      // supporting ids in the list so far
-  for (int base = 0; base < rows && qualified < kCap; base += kThreads) {
-    const int k = base + tid;
-    bool qualifying = false;
-    bool spans = false;
-    int32_t id = 0;
-    if (k < rows) {
-      const int row = first + k;
-      const int32_t end = ends2[row];
-      id = ids[row];
-      if (end > ws2 && !in_support(row_ids, s, id)) {
-        qualifying = true;
-        const int32_t start = starts2[row];
-        spans = del_inv ? ((start < end_less_overlap && end > end_plus_margin) ||
-                           (start < start_less_margin &&
-                            end > start_plus_overlap))
-                        : (start < start_less_margin && end > end_plus_margin);
+  for (int base = 0; base < rows && qualified < kCap;
+       base += 32 * kRowsALane) {
+    // a row qualifies only when its end passes the window's start: after
+    // the first step the ends come first, and a step with none of them
+    // past it is skipped
+    if (base > 0) {
+#pragma unroll
+      for (int r = 0; r < kRowsALane; ++r) {
+        const int k = base + r * 32 + lane;
+        end[r] = k < rows ? ends2[first + k] : kIntMin;
       }
     }
-    int tile = 0;
-    const int inclusive = block_inclusive_scan(
-        static_cast<int>(qualifying) + (static_cast<int>(qualifying && spans)
-                                        << 16),
-        warp_sums, &tile);
-    const bool supports = qualifying && spans &&
-                          qualified + (inclusive & 0xffff) <= kCap;
-    if (supports) list[listed + (inclusive >> 16) - 1] = id;
-    // the barrier also ends this tile's reads of warp_sums
-    listed += __syncthreads_count(supports);
-    qualified += tile & 0xffff;
-  }
-
-  // bitonic sort of the first power of two >= listed entries (the rest are
-  // INT_MAX already)
-  int size = 1;
-  while (size < listed) size <<= 1;
-  for (int k = 2; k <= size; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < size; i += kThreads) {
-        const int partner = i ^ j;
-        if (partner > i) {
-          const int32_t a = list[i];
-          const int32_t b = list[partner];
-          if ((a > b) == ((i & k) == 0)) {
-            list[i] = b;
-            list[partner] = a;
-          }
-        }
+    bool in_window[kRowsALane];
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < kRowsALane; ++r) {
+      in_window[r] = base + r * 32 + lane < rows && end[r] > ws2;
+      any = any || in_window[r];
+    }
+    if (!__any_sync(kFull, any)) continue;
+    if (base > 0) {
+#pragma unroll
+      for (int r = 0; r < kRowsALane; ++r) {
+        const int k = base + r * 32 + lane;
+        start[r] = in_window[r] ? starts2[first + k] : 0;
+        id[r] = in_window[r] ? ids[first + k] : 0;
       }
-      __syncthreads();
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsALane; ++r) {
+      const bool qualifying = in_window[r] && !in_support(row_ids, s, id[r]);
+      const bool spans =
+          del_inv ? ((start[r] < end_less_overlap && end[r] > end_plus_margin) ||
+                     (start[r] < start_less_margin &&
+                      end[r] > start_plus_overlap))
+                  : (start[r] < start_less_margin && end[r] > end_plus_margin);
+      const unsigned qualifying_lanes = __ballot_sync(kFull, qualifying);
+      const int rank = qualified + __popc(qualifying_lanes & lanes_below) + 1;
+      const bool supports = qualifying && spans && rank <= kCap;
+      const unsigned supporting_lanes = __ballot_sync(kFull, supports);
+      if (supports) {
+        list[listed + __popc(supporting_lanes & lanes_below)] = id[r];
+      }
+      listed += __popc(supporting_lanes);
+      qualified += __popc(qualifying_lanes);
+      if (qualified >= kCap) break;
     }
   }
-  int distinct = 0;
-  for (int i = tid; i < kList; i += kThreads) {
-    const int32_t value = list[i];
-    const int32_t previous = i > 0 ? list[i - 1] : kIntMin;
-    distinct += __syncthreads_count(value != kIntMax && value != previous);
-  }
-  if (tid == 0) counts[c] = distinct;
+  __syncwarp();
+  // the smallest power of two >= listed (at least 32) entries sorted
+  const int distinct = listed <= 32    ? distinct_ids<1>(list, listed, lane)
+                       : listed <= 64  ? distinct_ids<2>(list, listed, lane)
+                       : listed <= 128 ? distinct_ids<4>(list, listed, lane)
+                       : listed <= 256 ? distinct_ids<8>(list, listed, lane)
+                                       : distinct_ids<16>(list, listed, lane);
+  if (lane == 0) counts[c] = distinct;
 }
 
 }  // namespace
@@ -236,14 +296,15 @@ int genotype_support(const void* lo, const void* width,
                      int slice_len, void* counts, void* stream) {
   cudaGetLastError();  // clear a stale error so the code below is ours
   if (candidates == 0) return 0;
-  genotype_support_kernel<<<static_cast<unsigned>(candidates), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  genotype_support_kernel<<<static_cast<unsigned>(
+                                (candidates + kWarps - 1) / kWarps),
+                            kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(lo), static_cast<const int32_t*>(width),
       static_cast<const int32_t*>(window_start2),
       static_cast<const int32_t*>(start2), static_cast<const int32_t*>(end2),
       static_cast<const int32_t*>(min_overlap2),
       static_cast<const int32_t*>(type_class),
-      static_cast<const int32_t*>(support), s,
+      static_cast<const int32_t*>(support), s, candidates,
       static_cast<const int32_t*>(starts2), static_cast<const int32_t*>(ends2),
       static_cast<const int32_t*>(ids), table_rows, slice_len,
       static_cast<int32_t*>(counts));

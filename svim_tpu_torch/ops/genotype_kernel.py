@@ -16,11 +16,11 @@ Three layers, on the pattern of ops/linkage_kernel.py:
     temporaries to MAX_GATHER_CELLS cells; it equals the JAX program on the
     CPU.
   * `genotype_support_batched_cuda` - the wrapper of the hand-written CUDA
-    kernel (csrc/genotype_support.cu: a CTA a candidate walking its window
-    in tiles of 256 rows with a block scan for the rank, stopping at the
-    500th qualifying row, the supporting ids sorted in shared memory),
-    equal to the plain version, one launch a call and no host
-    synchronisation; counted in `LAUNCHES`.
+    kernel (csrc/genotype_support.cu: a warp a candidate walking its
+    window 4 x 32 rows a step, a row's rank and list slot from two ballots,
+    stopping at the 500th qualifying row, the supporting ids sorted by a
+    warp's bitonic network; no block barrier), equal to the plain version,
+    one launch a call and no host synchronisation; counted in `LAUNCHES`.
   * `genotype_support_batched` - the dispatcher: CPU tensors take the
     plain version, CUDA tensors the kernel.  Nothing falls back.
 """

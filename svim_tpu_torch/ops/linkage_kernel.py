@@ -29,9 +29,11 @@ and cuts it with fcluster (device_cluster.labels_from_merges).
 
 The resident INS route's matrices have the same three layers:
 `ins_matrices_from_pairs_plain` (torch ops and two scatters),
-`ins_matrices_from_pairs_cuda` (csrc/ins_matrices.cu: a CTA a partition
-writes its cells, then a thread a pair overwrites its two; counted in
-`INS_LAUNCHES`) and the dispatcher `ins_matrices_from_pairs`.
+`ins_matrices_from_pairs_cuda` (csrc/ins_matrices.cu: one launch, a CTA a
+partition finds its pairs by a warp search, assembles the matrix in shared
+memory and writes it once; counted in `INS_LAUNCHES`) and the dispatcher
+`ins_matrices_from_pairs`.  Both routes take the pair columns in partition
+order only (see `check_pair_order`).
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ KIND_BND = 2             # (|pos1 delta| + |pos2 delta|) / 3000 (:87-94)
 
 LAUNCHES = 0   # kernel launches by the two agglomeration *_cuda wrappers
 INS_LAUNCHES = 0   # calls of ins_matrices_from_pairs_cuda that launched
-INS_KERNELS_PER_CALL = 2   # device kernels such a call launches
+INS_KERNELS_PER_CALL = 1   # device kernels such a call launches
 
 
 def _scalar(value, like):
@@ -172,6 +174,23 @@ def agglomerate_batched_plain(distances, valid):
     return _agglomerate(d, _steps(valid))
 
 
+def check_pair_order(pair_part, pair_i, pair_j, batch):
+    """Raises ValueError unless the pair columns come in partition order:
+    the key pair_i == pair_j ? +inf : pair_part does not decrease, i.e. the
+    real pairs grouped by ascending partition, then the padding pairs
+    (i == j) and nothing after them.  ins_matrices_from_pairs takes only
+    such columns (csrc/ins_matrices.cu traps on others); the resident
+    dispatch builds them so.  A host sync on a card's tensors: the plain
+    version and the tests call it, the kernel's wrapper does not."""
+    key = torch.where(pair_i == pair_j,
+                      torch.full_like(pair_part, batch, dtype=torch.int64),
+                      pair_part.long())
+    if bool((key[1:] < key[:-1]).any()):
+        raise ValueError("the INS pair columns are not in partition order "
+                         "(real pairs by ascending partition, then the "
+                         "padding)")
+
+
 def ins_matrices_from_pairs_plain(starts, spans, pair_part, pair_i, pair_j,
                                   pair_ed, pos_norm, ed_norm):
     """Device-resident INS distance matrices (SVIM_clustering.py:64-77).
@@ -181,14 +200,17 @@ def ins_matrices_from_pairs_plain(starts, spans, pair_part, pair_i, pair_j,
     pair_ed comes straight from the wavefront kernel and never visits the
     host.  Far pairs get position + span distance; near pairs get position +
     ed/max_span/ed_norm.  Diagonal/invalid slots are left arbitrary —
-    agglomerate_batched masks them.  Padding pairs may point at (0, 0, 0)
-    (the masked diagonal).  A pair outside the (B, P) matrices raises
-    ValueError (the kernel traps on one)."""
+    agglomerate_batched masks them.  Padding pairs (i == j) point at the
+    masked diagonal, (0, 0, 0) as the host pads.  A pair outside the (B, P)
+    matrices raises ValueError, and so do columns out of partition order
+    (check_pair_order; the kernel traps on either).  The JAX function takes
+    pairs in any order; the port takes them as the host builds them."""
     batch, p = starts.shape
     if bool(((pair_part < 0) | (pair_part >= batch) | (pair_i < 0)
              | (pair_i >= p) | (pair_j < 0) | (pair_j >= p)).any()):
         raise ValueError("a pair lies outside the ({0}, {1}, {1}) INS "
                          "matrices".format(batch, p))
+    check_pair_order(pair_part, pair_i, pair_j, batch)
     pos_norm = _scalar(pos_norm, starts)
     ed_norm = _scalar(ed_norm, starts)
     one = _scalar(1.0, starts)
@@ -441,11 +463,12 @@ def ins_matrices_from_pairs_cuda(starts, spans, pair_part, pair_i, pair_j,
     rounded to float32.  Returns the (B, P, P) float32 matrices, equal to
     ins_matrices_from_pairs_plain bit for bit off the diagonal (a padding
     pair (0, 0, 0) leaves its diagonal cell as the cell formula gives it).
-    P is at most 4,096 (the C entry refuses more and check_launch raises); a
-    pair outside the matrices makes the pair kernel trap.
-    Two launches on the current stream, cells then pairs
-    (INS_KERNELS_PER_CALL), no host synchronisation; counted once a call in
-    `INS_LAUNCHES`."""
+    P is at most 4,096 (the C entry refuses more and check_launch raises).
+    The pair columns must come in partition order (check_pair_order): on
+    columns out of that order, or a pair outside the matrices, the kernel
+    traps (the launch fails; the next synchronising call raises).
+    One launch on the current stream (INS_KERNELS_PER_CALL), no host
+    synchronisation; counted in `INS_LAUNCHES`."""
     global INS_LAUNCHES
     device = starts.device
     if device.type != "cuda":

@@ -4,10 +4,10 @@ the interval join's plain version on chip_smoke.py's seeded edge cases
 (genotype_cases: the cap at 499, 500 and 501, width 0, 1 and 8192, S past
 the kernel's shared-memory stage, INT_MAX and INT_MIN ids, wrapping
 margins, C = 1 and 4096), a numpy model of the CUDA kernel's algorithm
-(csrc/genotype_support.cu: tiles of rows in coordinate order, the running
-rank of a block scan, the stop at the 500th qualifying row, the list of at
-most 512 ids, its bitonic sort and the boundary count) held to JAX at
-several tile sizes, the dispatcher (CPU tensors take the plain version
+(csrc/genotype_support.cu: a warp a candidate, steps of rows in
+coordinate order, a row's rank and list slot from ballots, the stop at the
+500th qualifying row, the list of at most 512 ids, its warp sort and the
+boundary count) held to JAX at several step sizes, the dispatcher (CPU tensors take the plain version
 without a build; a CUDA tensor reaches the kernel or raises; any other
 device raises), and equal genotypes on the test_genotype_packed.py cases.
 Everything is integers: the tolerance is exact equality."""
@@ -236,37 +236,68 @@ def _wrap(value):
     return (int(value) + 2**31) % 2**32 - 2**31
 
 
-def _bitonic_sort(values):
-    """The kernel's sort network over a power-of-two list, compare-exchange
-    by compare-exchange (ascending)."""
-    values = values.copy()
+def _register_sort(values):
+    """The kernel's sort of a warp's listed ids (csrc/genotype_support.cu's
+    distinct_ids): the bitonic network over a power-of-two size >= 32 in
+    registers, entry x = lane * E + e in value e of lane `lane` (E = size /
+    32); a stage whose partner bit j is below E compares values e and e | j
+    of a lane, the others exchange value e with lane ^ (j / E) by a
+    shuffle, a lane keeping the minimum where its entry is the lower of the
+    pair in an ascending block.  Returns the entries in x order."""
     size = len(values)
+    per_lane = size // 32
+    value = np.asarray(values).reshape(32, per_lane).copy()
+    x = np.arange(size).reshape(32, per_lane)
     k = 2
     while k <= size:
         j = k // 2
         while j > 0:
-            for i in range(size):
-                partner = i ^ j
-                if partner > i and (values[i] > values[partner]) == (
-                        (i & k) == 0):
-                    values[i], values[partner] = values[partner], values[i]
+            if j >= per_lane:
+                other = value[np.arange(32) ^ (j // per_lane)]
+                keep_min = ((x & j) == 0) == ((x & k) == 0)
+                value = np.where(keep_min, np.minimum(value, other),
+                                 np.maximum(value, other))
+            else:
+                for e in range(per_lane):
+                    if e & j:
+                        continue
+                    ascending = (x[:, e] & k) == 0
+                    low = np.minimum(value[:, e], value[:, e | j])
+                    high = np.maximum(value[:, e], value[:, e | j])
+                    value[:, e] = np.where(ascending, low, high)
+                    value[:, e | j] = np.where(ascending, high, low)
             j //= 2
         k *= 2
-    return values
+    return value.reshape(size)
 
 
-def _model_genotype_support(args, tile):
-    """numpy model of csrc/genotype_support.cu, one candidate at a time:
-    the window walked in tiles of `tile` rows in coordinate order, a row's
-    rank from the tile's inclusive scan and the running total, a capped
-    spanning row placed at the count of spanning rows before it, the walk
-    stopped once 500 rows qualified, the list of 512 ids (INT_MAX where
-    nothing was written) sorted by the bitonic network over the smallest
-    power of two that holds the listed ids, and the boundaries counted with
-    a first previous of INT_MIN.  Returns (counts, rows walked)."""
+def _lower_bound(row, value):
+    """The kernel's branch-free lower bound: ceil(log2 S) halvings."""
+    at, n = 0, len(row)
+    while n > 1:
+        half = n >> 1
+        if row[at + half] < value:
+            at += half
+        n -= half
+    return at + int(row[at] < value)
+
+
+def _model_genotype_support(args, rows_a_lane):
+    """numpy model of csrc/genotype_support.cu, a warp a candidate: the
+    window walked in coordinate order `rows_a_lane` x 32 rows a step, lane
+    l at rows base + r * 32 + l; a step none of whose rows ends past the
+    window's start is skipped; for each r in order the ballot of qualifying
+    lanes gives a row its rank (rows qualified so far + qualifying lanes
+    below + 1), the ballot of supporting lanes (spanning, rank <= 500) a
+    supporting row its slot; the walk stopped once 500 rows qualified; the
+    listed ids sorted by the register network over the smallest power of
+    two >= 32 that holds them, and the boundaries counted with a first
+    previous of INT_MIN.  Returns (counts, rows walked)."""
     (lo, width, window_start2, start2, end2, min_overlap2, type_class,
      support, starts2, ends2, ids, slice_len) = args
     int_max, int_min = torch_kernel.INT_MAX, torch_kernel.INT_MIN
+    cap = torch_kernel.ALIGNMENT_CAP
+    lanes = np.arange(32)
     counts = np.zeros(len(lo), dtype=np.int32)
     walked = np.zeros(len(lo), dtype=np.int64)
     for c in range(len(lo)):
@@ -276,50 +307,77 @@ def _model_genotype_support(args, tile):
         bounds = (_wrap(int(end2[c]) - int(min_overlap2[c])),
                   _wrap(int(end2[c]) + 200), _wrap(int(start2[c]) - 200),
                   _wrap(int(start2[c]) + int(min_overlap2[c])))
-        listed = np.full(512, int_max, dtype=np.int64)
-        qualified = placed = 0
-        base = 0
-        while base < rows and qualified < torch_kernel.ALIGNMENT_CAP:
-            k = np.arange(base, min(base + tile, rows))
-            walked[c] += len(k)
-            start, end = starts2[first + k], ends2[first + k]
-            row = ids[first + k]
-            position = np.minimum(np.searchsorted(row_ids, row, side="left"),
-                                  len(row_ids) - 1)
-            qualifying = (end > window_start2[c]) & (row_ids[position] != row)
-            if type_class[c] == 0:
-                spans = (((start < bounds[0]) & (end > bounds[1]))
-                         | ((start < bounds[2]) & (end > bounds[3])))
-            else:
-                spans = (start < bounds[2]) & (end > bounds[1])
-            rank = qualified + np.cumsum(qualifying)
-            spanning_before = np.cumsum(qualifying & spans)
-            supports = qualifying & spans & (
-                rank <= torch_kernel.ALIGNMENT_CAP)
-            listed[placed + spanning_before[supports] - 1] = row[supports]
-            placed += int(supports.sum())
-            qualified += int(qualifying.sum())
-            base += tile
-        size = 1
-        while size < placed:
+        listed_ids = np.full(512, int_max, dtype=np.int64)
+        qualified = listed = 0
+        for base in range(0, rows, 32 * rows_a_lane):
+            if qualified >= cap:
+                break
+            walked[c] += min(32 * rows_a_lane, rows - base)
+            k = base + np.arange(rows_a_lane)[:, None] * 32 + lanes[None, :]
+            inside = k < rows
+            row = first + np.where(inside, k, 0)
+            end = np.where(inside, ends2[row], int_min)
+            in_window = inside & (end > window_start2[c])
+            if not in_window.any():
+                continue
+            for r in range(rows_a_lane):
+                start, row_id = starts2[row[r]], ids[row[r]]
+                member = np.array([
+                    row_ids[min(_lower_bound(row_ids, value),
+                                len(row_ids) - 1)] == value
+                    for value in row_id])
+                qualifying = in_window[r] & ~member
+                if type_class[c] == 0:
+                    spans = (((start < bounds[0]) & (end[r] > bounds[1]))
+                             | ((start < bounds[2]) & (end[r] > bounds[3])))
+                else:
+                    spans = (start < bounds[2]) & (end[r] > bounds[1])
+                rank = qualified + np.cumsum(qualifying) - qualifying + 1
+                supports = qualifying & spans & (rank <= cap)
+                slots = listed + np.cumsum(supports) - supports
+                listed_ids[slots[supports]] = row_id[supports]
+                listed += int(supports.sum())
+                qualified += int(qualifying.sum())
+                if qualified >= cap:
+                    break
+        size = 32
+        while size < listed:
             size *= 2
-        listed[:size] = _bitonic_sort(listed[:size])
-        assert np.all(listed[:-1] <= listed[1:])
-        previous = np.concatenate([[int_min], listed[:-1]])
-        counts[c] = np.sum((listed != int_max) & (listed != previous))
+        ordered = _register_sort(listed_ids[:size])
+        assert np.all(ordered[:-1] <= ordered[1:])
+        previous = np.concatenate([[int_min], ordered[:-1]])
+        counts[c] = np.sum((ordered != int_max) & (ordered != previous))
     return counts, walked
 
 
-@pytest.mark.parametrize("tile", [32, 64, 256, 1024])
+def test_the_kernels_sorts_and_search_order_as_numpy_does():
+    """The register sort network sorts any ids (INT_MIN and INT_MAX among
+    them) at every size it takes, and the branch-free search is the lower
+    bound of a sorted row."""
+    rng = np.random.default_rng(9)
+    extremes = [torch_kernel.INT_MIN, torch_kernel.INT_MAX]
+    for size in (32, 64, 128, 256, 512):
+        values = rng.integers(-5, 40, size=size)
+        values[:3] = extremes + [7]
+        np.testing.assert_array_equal(_register_sort(values),
+                                      np.sort(values))
+    for s in (1, 2, 3, 8, 37, 64, 4096):
+        row = np.sort(rng.integers(0, 60, size=s))
+        for value in (-1, 0, 17, 59, 60, torch_kernel.INT_MAX):
+            assert _lower_bound(row, value) == np.searchsorted(row, value)
+
+
+@pytest.mark.parametrize("tile", [32, 64, 128, 256, 1024])
 def test_the_genotype_kernel_model_at_several_tiles(tile):
-    """The kernel's algorithm equals JAX on every seeded case at any tile
-    size (the kernel walks 256-row tiles), and its stop at the 500th
-    qualifying row leaves rows of the long windows unread."""
+    """The kernel's algorithm (a warp a candidate) equals JAX on every
+    seeded case whatever the rows a step, `tile` = 32 x the rows a lane
+    loads (the kernel's: 128), and its stop at the 500th qualifying row
+    leaves rows of the long windows unread."""
     for label, args in CASES:
         if label == "C=4096":
             args = [value[:512] if index < 8 else value
                     for index, value in enumerate(args)]
-        got, walked = _model_genotype_support(args, tile)
+        got, walked = _model_genotype_support(args, tile // 32)
         np.testing.assert_array_equal(got, _jax_counts(args),
                                       err_msg=label)
         if label.startswith("the cap"):
