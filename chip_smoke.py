@@ -187,6 +187,30 @@ Phases, each of which raises (non-zero exit) on failure:
      tie-free run's whole join through the kernel and through the plain
      version on the card; golden and both bench runs launch the kernel
      once.
+ 17. (run after 5b, so that phases 6, 15 and 16 take its recorded calls)
+     all six SV classes at the scale of the two accuracy harnesses of
+     scripts/eval_accuracy.py, made by background makers
+     (svim_tpu_torch.workloads.stress_workload: 54 Mb over five contigs,
+     12% read noise, 15% repeats, cut&paste DUP:INT;
+     independent_workload: the donor-genome projection, reads from both
+     strands and both haplotypes), on STRESS_PATHS: the stress workload at
+     the CLI's defaults and with --edit_backend wavefront
+     --incremental_cluster off, the independent one at the defaults.  Each
+     VCF must hash to svim_tpu's and give its per-class (tp, fp, fn)
+     (STRESS_VCF_SHA256, STRESS_CLASSES); stress_wavefront's telemetry and
+     accepted labelings by route must equal svim_tpu's (STRESS_TELEMETRY,
+     STRESS_DEVICE_BY_ROUTE); the COLLECT, classify and GENOTYPE kernels
+     must run on every path, the agglomeration wherever a partition went
+     to the card, the wavefront and INS matrix kernels on
+     stress_wavefront.  Every device call is recorded: the linkage ops go
+     to phase 6, COLLECT and GENOTYPE to phases 15 and 16, and every
+     wavefront call runs again through the kernel and the plain version
+     on the card, equal to each other and to the run's output.  Logs what
+     the calls held (scans and their overflows, CIGAR widths, the
+     reference ids classified, the GENOTYPE table's contigs, fused-entry
+     partitions by type, the DUP_INT candidate round, the wavefront calls'
+     shapes and variants), each run's stage seconds and, from a traced run
+     of each path in a process of its own, its device busy time.
 The script imports torch and the port, never jax or the JAX package: the
 inputs come from svim_tpu_torch.workloads.
 Then one JSON line describing the kernels, the card line, and the last
@@ -250,6 +274,35 @@ TIEFREE_TELEMETRY = {"auto": dict(_NO_TELEMETRY, device=133, pre_tie=8,
                                        resident_relink=35)}
 TIEFREE_DEVICE_BY_ROUTE = {"auto": {"fused": 74, "matrix": 59},
                            "wavefront": {"fused": 74, "resident": 61}}
+# the two accuracy harnesses of scripts/eval_accuracy.py at seed 1
+# (svim_tpu_torch.workloads.stress_workload, --big, and
+# independent_workload, --independent) and the paths phase 17 drives on
+# them: (workload, flags).  From svim_tpu's CPU runs: the sha256 of its
+# variants.vcf (##fileDate lines left out; on the stress workload one hash
+# for either edit backend), its per-class (tp, fp, fn) from evaluate_vcf,
+# and for stress_wavefront (--incremental_cluster off) its clustering
+# telemetry and accepted labelings by route: none on any route, since the
+# simulated reads of a locus share their breakpoints (exact float64 ties)
+STRESS_SEED = 1
+STRESS_PATHS = {"stress_auto": ("stress", []),
+                "stress_wavefront": ("stress", [
+                    "--edit_backend", "wavefront",
+                    "--incremental_cluster", "off"]),
+                "independent_auto": ("independent", [])}
+STRESS_VCF_SHA256 = {"stress": ("3e12db2609fb0a84fd1fd550df1a87d3"
+                                "78d60a66bde291667dc736bcc70135d4"),
+                     "independent": ("677e4fcb1a835007efc15ae72809478414"
+                                     "ec3a7578eaa5dfc4049413f99b2b37")}
+STRESS_CLASSES = {
+    "stress": {"ALL": (344, 0, 1), "BND": (140, 0, 0), "DEL": (60, 0, 0),
+               "DUP:INT": (25, 0, 0), "DUP:TANDEM": (35, 0, 0),
+               "INS": (49, 0, 1), "INV": (35, 0, 0)},
+    "independent": {"ALL": (62, 3, 0), "BND": (32, 0, 0), "DEL": (8, 0, 0),
+                    "DUP:INT": (5, 0, 0), "DUP:TANDEM": (7, 0, 0),
+                    "INS": (6, 3, 0), "INV": (4, 0, 0)}}
+STRESS_TELEMETRY = dict(_NO_TELEMETRY, pre_tie=174, pre_wall=25, post_tie=1,
+                        resident_relink=50)
+STRESS_DEVICE_BY_ROUTE = {}
 # (B, P) of the distance kernel's JSON timing: the largest listed shape
 DISTANCE_MAIN_SHAPE = (8192, 128)
 LINKAGE_OPS = ("span_position_agglomerate_batched", "agglomerate_batched",
@@ -865,35 +918,47 @@ def phase_golden():
 
 
 # a workload's maker: svim_tpu_torch.workloads.<name>_workload(directory,
-# reads) in a process of its own
+# argument) in a process of its own
 _MAKER_SCRIPT = """
 import sys
 sys.path.insert(0, sys.argv[1])
 from svim_tpu_torch import workloads
 getattr(workloads, sys.argv[2] + "_workload")(sys.argv[3], int(sys.argv[4]))
 """
-WORKLOADS = {"bench": BENCH_READS, "tiefree": TIEFREE_READS}
+# each workload's maker argument (reads; a harness's seed) and the files it
+# writes: the BAM, and the stress harnesses' truth set
+WORKLOADS = {"bench": (BENCH_READS, "bench.bam"),
+             "tiefree": (TIEFREE_READS, "tiefree.bam"),
+             "stress": (STRESS_SEED, "reads.bam", "truth.json"),
+             "independent": (STRESS_SEED, "reads.bam", "truth.json")}
 
 
 def _workload_paths(name):
-    directory = os.path.join(SCRATCH, "{0}{1}".format(name, WORKLOADS[name]))
-    return (directory, os.path.join(directory, name + ".bam"),
+    argument, bam, *_truth = WORKLOADS[name]
+    directory = os.path.join(SCRATCH, "{0}{1}".format(name, argument))
+    return (directory, os.path.join(directory, bam),
             os.path.join(directory, "genome.fa"))
 
 
+def _workload_made(name):
+    directory = _workload_paths(name)[0]
+    return all(os.path.exists(os.path.join(directory, file_name))
+               for file_name in WORKLOADS[name][1:] + ("genome.fa",))
+
+
 def start_workloads():
-    """Starts the makers of the 8192-read workloads that are not on disk
-    yet.  Each is a minute or more of host Python (record parsing), so they
-    run beside each other and beside the kernel phases.  Returns {name:
-    (process, start time)} for _workload()."""
+    """Starts the makers of the workloads that are not on disk yet.  Each
+    is tens of seconds or more of host Python (simulation, record
+    parsing), so they run beside each other and beside the kernel phases.
+    Returns {name: (process, start time)} for _workload()."""
     makers = {}
-    for name, reads in WORKLOADS.items():
-        directory, bam, genome = _workload_paths(name)
-        if not (os.path.exists(bam) and os.path.exists(genome)):
+    for name, (argument, *_files) in WORKLOADS.items():
+        directory = _workload_paths(name)[0]
+        if not _workload_made(name):
             os.makedirs(directory, exist_ok=True)
             makers[name] = (subprocess.Popen(
                 [sys.executable, "-c", _MAKER_SCRIPT, ROOT, name, directory,
-                 str(reads)]), time.perf_counter())
+                 str(argument)]), time.perf_counter())
     return makers
 
 
@@ -906,16 +971,16 @@ def _workload(makers, name):
         process, started = makers.pop(name)
         if process.wait() != 0:
             raise RuntimeError("making the {0} workload failed".format(name))
-    elif not (os.path.exists(bam) and os.path.exists(genome)):
+    elif not _workload_made(name):
         os.makedirs(directory, exist_ok=True)
         subprocess.run([sys.executable, "-c", _MAKER_SCRIPT, ROOT, name,
-                        directory, str(WORKLOADS[name])], check=True)
+                        directory, str(WORKLOADS[name][0])], check=True)
     else:
         return directory, bam, genome
-    log(name, "made the {0}-read workload in {1:.1f}s, in a process of its "
-        "own ({2} bytes)".format(WORKLOADS[name],
-                                 time.perf_counter() - started,
-                                 os.path.getsize(bam)))
+    log(name, "made the {0} workload ({1}) in {2:.1f}s, in a process of its "
+        "own ({3} bytes of BAM)".format(
+            name, os.path.basename(directory), time.perf_counter() - started,
+            os.path.getsize(bam)))
     return directory, bam, genome
 
 
@@ -2641,21 +2706,21 @@ def _clone(value):
 
 class DeviceOpRecorder:
     """While `recording(label)` is active, keeps a copy of the inputs and
-    outputs of every call the main path makes to the RECORDED_OPS, filed
-    under `label`.  The copies are clones on the inputs' device, so
+    outputs of every call the main path makes to the RECORDED_OPS (or to
+    the `ops` given), filed under `label`.  The copies are clones on the inputs' device, so
     recording waits for nothing and the path runs as it would."""
 
     def __init__(self):
         self.calls = []   # (label, kernel name, args, kwargs, outputs)
 
-    def recording(self, label):
+    def recording(self, label, ops=RECORDED_OPS):
         import contextlib
         import importlib
 
         @contextlib.contextmanager
         def active():
             patched = []
-            for kernel, module_name, attribute in RECORDED_OPS:
+            for kernel, module_name, attribute in ops:
                 module = importlib.import_module(module_name)
                 original = getattr(module, attribute)
 
@@ -4169,6 +4234,340 @@ def phase_genotype_kernel(recorder, first_design):
     return timings
 
 
+# --- phase 17: all six SV classes at the stress harnesses' scale -----------
+
+# the wavefront op as phase 17 records it (the host functions of
+# ops/wavefront_kernel.py look banded_distance up at each call)
+WAVEFRONT_OP = (("wavefront", "svim_tpu_torch.ops.wavefront_kernel",
+                 "banded_distance"),)
+# what phase 17 has seen of the wavefront kernel: calls compared and the
+# largest difference from the plain version
+WAVEFRONT_CHECK = {"calls": 0, "max_abs_err": 0}
+# the kernels of the port's CUDA sources (csrc/*.cu), as a trace names them
+PORT_KERNEL_NAMES = ("agglomerate_fused_kernel", "agglomerate_matrix_kernel",
+                     "classify_groups", "genotype_support_kernel",
+                     "ins_matrices_kernel", "scan_and_compact",
+                     "span_distance_kernel", "wavefront_cta_kernel",
+                     "wavefront_warp_kernel")
+
+
+class ClusterTally:
+    """While active, counts what the CLUSTER stage sent to the agglomeration
+    kernel: the partitions registered on its fused entry, by signature type,
+    and the DUP_INT candidate round's calls, the partitions they offered and
+    the agglomeration launches they made (on the matrix entry)."""
+
+    def __init__(self):
+        from svim_tpu_torch.cluster import device_cluster
+        from svim_tpu_torch.ops import linkage_kernel
+
+        self.module = device_cluster
+        self.kernels = linkage_kernel
+        self.fused = {}
+        self.candidates = {"calls": 0, "partitions": 0, "launches": 0}
+
+    def __enter__(self):
+        self.originals = (self.module._dispatch_fused,
+                          self.module.cluster_candidates_device)
+        dispatch, candidates = self.originals
+
+        def counted_dispatch(samples, element_type, *args, **kwargs):
+            pending = dispatch(samples, element_type, *args, **kwargs)
+            self.fused[element_type] = (self.fused.get(element_type, 0)
+                                        + len(pending.fused))
+            return pending
+
+        def counted_candidates(samples, *args, **kwargs):
+            before = self.kernels.LAUNCHES
+            results = candidates(samples, *args, **kwargs)
+            self.candidates["calls"] += 1
+            self.candidates["partitions"] += len(samples)
+            self.candidates["launches"] += self.kernels.LAUNCHES - before
+            return results
+
+        self.module._dispatch_fused = counted_dispatch
+        self.module.cluster_candidates_device = counted_candidates
+        return self
+
+    def __exit__(self, *exc):
+        (self.module._dispatch_fused,
+         self.module.cluster_candidates_device) = self.originals
+
+
+def _classify_ref_ids(args):
+    """The reference ids of a classify call's valid segments: SA-tag
+    geometry (slot_row < 0) and packed rows alike."""
+    import torch
+
+    slot_row, ref_id_h, valid, ref_id_all = args[0], args[3], args[7], args[9]
+    from_row = valid & (slot_row >= 0)
+    ids = torch.cat([ref_id_h[valid & (slot_row < 0)],
+                     ref_id_all[slot_row[from_row].long()]])
+    return set(ids.unique().tolist())
+
+
+def _stress_calls(path, calls, linkage):
+    """What the recorded device calls of `path` held: COLLECT scans (and
+    how many overflowed their max_events table and ran again), the K of
+    their CIGAR words, the reference ids the classify calls compared, the
+    GENOTYPE tables' contigs, the linkage ops by entry and the wavefront
+    calls' (B, L, band, variant)."""
+    from svim_tpu_torch.ops import wavefront_kernel
+
+    mine = [(kernel, args, outputs) for label, kernel, args, _kwargs, outputs
+            in calls if label == path]
+    scans = [(args, outputs) for kernel, args, outputs in mine
+             if kernel == "collect_scan"]
+    ref_ids = set()
+    for kernel, args, _ in mine:
+        if kernel == "classify_segments":
+            ref_ids |= _classify_ref_ids(args)
+    ops = {}
+    for _, name, _, _ in linkage.of([path]):
+        ops[name] = ops.get(name, 0) + 1
+    return {
+        "scans": len(scans),
+        "overflowed": sum(int(outputs[10]) > int(args[3])
+                          for args, outputs in scans),
+        "events": sum(min(int(outputs[10]), int(args[3]))
+                      for args, outputs in scans),
+        "cigar_k": sorted({int(args[0].shape[1]) for args, _ in scans}),
+        "classify_calls": sum(kernel == "classify_segments"
+                              for kernel, _, _ in mine),
+        "classify_ref_ids": sorted(ref_ids),
+        "genotype_contigs": [len(args[1]) for kernel, args, _ in mine
+                             if kernel == "genotype_jobs"],
+        "linkage_ops": ops,
+        "wavefront": [[int(args[0].shape[0]), int(args[0].shape[1]),
+                       int(args[4]), wavefront_kernel.kernel_variant(
+                           int(args[0].shape[1]), int(args[4]))]
+                      for kernel, args, _ in mine if kernel == "wavefront"]}
+
+
+def _wavefront_against_plain(args, recorded, where):
+    """One recorded wavefront call through the kernel and through the plain
+    version on the card: equal to each other and to the run's own output."""
+    import torch
+
+    from svim_tpu_torch.ops import wavefront_kernel
+
+    before = wavefront_kernel.LAUNCHES
+    got = wavefront_kernel.banded_distance_cuda(*args)
+    launched = wavefront_kernel.LAUNCHES - before
+    want = wavefront_kernel.banded_distance_torch(*args)
+    torch.cuda.synchronize()
+    if launched != 1:
+        raise AssertionError("{0}: {1} wavefront launches".format(where,
+                                                                  launched))
+    WAVEFRONT_CHECK["calls"] += 1
+    if got.numel():
+        WAVEFRONT_CHECK["max_abs_err"] = max(
+            WAVEFRONT_CHECK["max_abs_err"],
+            int((got.long() - want.long()).abs().max()))
+    if not (torch.equal(got, want) and torch.equal(got, recorded)):
+        raise AssertionError(where + ": the wavefront kernel differs from "
+                             "the plain version or from the run's output")
+
+
+_BUSY_SCRIPT = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.stress_busy(sys.argv[2])
+"""
+
+
+def stress_busy(runs):
+    """Phase 17's device busy time, in a process of its own so that its
+    torch.profiler session is the process's first (see
+    start_kernels_a_call): the CLI runs of `runs` (JSON [[path, arguments],
+    ...]) one after another under one session, each inside a
+    record_function range.  Busy is the union of the kernel, copy and
+    memset intervals of the exported Chrome trace within the range (the
+    rule of scripts/profile_port.py; the profiler's event list leaves out
+    the kernels ctypes launched); the port's own kernels in the range must
+    be as many as the wrappers counted.  Prints one line "BUSY " + JSON
+    {path: {"busy_s", "device_sum_s", "wall_s", "port_kernels",
+    "launches"}}."""
+    import importlib
+    import importlib.util
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_port", os.path.join(ROOT, "scripts", "profile_port.py"))
+    profile_port = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profile_port)
+    counters = {name: (importlib.import_module("svim_tpu_torch.ops."
+                                               + module), attribute)
+                for name, (module, attribute) in KERNEL_COUNTERS.items()}
+    report = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as trace:
+        for path, arguments in json.loads(runs):
+            for module, attribute in counters.values():
+                setattr(module, attribute, 0)
+            started = time.perf_counter()
+            with record_function("stress_path:" + path):
+                code = _run_port(arguments)
+                torch.cuda.synchronize()
+            if code != 0:
+                raise RuntimeError("traced {0} exited with {1}".format(path,
+                                                                      code))
+            report[path] = {"wall_s": time.perf_counter() - started,
+                            "launches": sum(getattr(module, attribute)
+                                            for module, attribute
+                                            in counters.values())}
+    chrome_trace = os.path.join(SCRATCH, "stress_busy_trace.json")
+    trace.export_chrome_trace(chrome_trace)
+    with open(chrome_trace) as handle:
+        events = [event for event in json.load(handle)["traceEvents"]
+                  if event.get("ph") == "X"]
+    device = profile_port.device_intervals(chrome_trace)
+    for event in events:
+        name = event.get("name", "")
+        if event.get("cat") != "user_annotation" \
+                or not name.startswith("stress_path:"):
+            continue
+        low, high = event["ts"], event["ts"] + event["dur"]
+        inside = [(max(start, low), min(end, high)) for start, end in device
+                  if start < high and end > low]
+        entry = report[name.split(":", 1)[1]]
+        entry["busy_s"] = profile_port._union_seconds(inside)
+        entry["device_sum_s"] = sum(end - start for start, end in inside) / 1e6
+        entry["port_kernels"] = sum(
+            1 for kernel in events if kernel.get("cat") == "kernel"
+            and low <= kernel["ts"] < high
+            and any(part in kernel.get("name", "")
+                    for part in PORT_KERNEL_NAMES))
+    for path, entry in report.items():
+        if entry.get("port_kernels") != entry["launches"]:
+            raise AssertionError("{0}: {1} of the port's kernels in the "
+                                 "trace, {2} counted launches".format(
+                                     path, entry.get("port_kernels"),
+                                     entry["launches"]))
+    print("BUSY " + json.dumps(report), flush=True)
+
+
+def phase_stress(card, makers, recorder, device_ops):
+    """Phase 17: the two accuracy harnesses of scripts/eval_accuracy.py
+    (the 54 Mb stress simulation and the donor-genome projection, made by
+    background makers) through the CLI on the card, on STRESS_PATHS; every
+    device call recorded (`recorder` for the linkage ops, which phase 6
+    takes again; `device_ops` for COLLECT and GENOTYPE, which phases 15
+    and 16 take, and for the wavefront kernel, held against its plain
+    version here).  Each run's VCF must hash to svim_tpu's and its
+    per-class (tp, fp, fn) must equal svim_tpu's; stress_wavefront's
+    telemetry and accepted labelings by route must equal svim_tpu's; the
+    COLLECT, classify and GENOTYPE kernels must have run on every path,
+    the agglomeration wherever a partition went to the card, the wavefront
+    and INS matrix kernels on stress_wavefront.  Logs what the calls held
+    (_stress_calls), each run's stage seconds and, from a traced run of
+    each path in a process of its own (stress_busy), its device busy
+    time."""
+    from svim_tpu_torch import workloads
+    from svim_tpu_torch.sim import evaluate_vcf
+
+    started = time.perf_counter()
+    traced = []
+    for path, (workload, flags) in STRESS_PATHS.items():
+        directory, bam, genome = _workload(makers, workload)
+        truth = workloads.load_truth(directory)
+        working_dir = os.path.join(directory, "wd_" + path)
+        recorder.label = path
+        with recorder, device_ops.recording(path,
+                                            RECORDED_OPS + WAVEFRONT_OP), \
+                RouteCounter() as routes, ClusterTally() as tally:
+            _drive(path, ["alignment", working_dir, bam, genome,
+                          "--profile"] + flags)
+        launches = PATH_LAUNCHES[path]
+        telemetry = _telemetry()
+        by_route = {route: count for route, count in routes.device.items()
+                    if count}
+        classes = {svtype: tuple(counts) for svtype, counts in evaluate_vcf(
+            os.path.join(working_dir, "variants.vcf"), truth).items()}
+        log("stress", "{0} on {1}: stages {2}; per class (tp, fp, fn) {3}; "
+            "telemetry {4}; labelings accepted by route {5}; fused-entry "
+            "partitions by type {6}; DUP_INT candidate round {7}; launches "
+            "{8}; {9} mid-scan partitions reused of {10}".format(
+                path, card, json.dumps(_stage_seconds(working_dir)),
+                json.dumps(classes), json.dumps(telemetry),
+                json.dumps(by_route), json.dumps(tally.fused),
+                json.dumps(tally.candidates), json.dumps(launches),
+                *_reused(working_dir)))
+        digest = _vcf_sha256(working_dir)
+        if digest != STRESS_VCF_SHA256[workload]:
+            raise AssertionError("{0}: variants.vcf (sha256 {1}) differs "
+                                 "from svim_tpu's".format(path, digest))
+        if classes != STRESS_CLASSES[workload]:
+            raise AssertionError("{0}: per-class counts {1}, svim_tpu's "
+                                 "{2}".format(path, classes,
+                                              STRESS_CLASSES[workload]))
+        if path == "stress_wavefront" and (
+                telemetry != STRESS_TELEMETRY
+                or by_route != STRESS_DEVICE_BY_ROUTE):
+            raise AssertionError("{0}: telemetry {1} and labelings by route "
+                                 "{2}, svim_tpu's {3} and {4}".format(
+                                     path, telemetry, by_route,
+                                     STRESS_TELEMETRY,
+                                     STRESS_DEVICE_BY_ROUTE))
+        needed = ["collect_scan", "classify_segments", "genotype_support"]
+        if sum(tally.fused.values()) or sum(
+                telemetry[key] for key in ("device", "post_tie", "post_wall",
+                                           "resident_relink")):
+            needed.append("agglomerate")
+        if path == "stress_wavefront":
+            needed += ["wavefront_banded_distance", "ins_matrices"]
+        idle = [name for name in needed if launches[name] <= 0]
+        if idle:
+            raise AssertionError("{0} launched no {1} kernel".format(
+                path, ", ".join(idle)))
+        log("stress", "{0}: VCF hashes to svim_tpu's; per-class counts and "
+            "{1} equal svim_tpu's; calls: {2}".format(
+                path, "telemetry and labelings by route"
+                if path == "stress_wavefront" else "the kernels launched",
+                json.dumps(_stress_calls(path, device_ops.calls, recorder))))
+        traced.append([path, ["alignment", working_dir + "_traced", bam,
+                              genome] + flags])
+
+    for label, kernel, args, _kwargs, outputs in device_ops.calls:
+        if kernel == "wavefront" and label in STRESS_PATHS:
+            _wavefront_against_plain(args, outputs, "wavefront call of "
+                                     + label)
+    if not WAVEFRONT_CHECK["calls"]:
+        raise AssertionError("phase 17 recorded no wavefront call")
+    log("stress", "{0} recorded wavefront calls: kernel equal to the plain "
+        "version on the card and to the run's output (max_abs_err {1}); "
+        "the linkage, COLLECT and GENOTYPE calls go to phases 6, 15 and "
+        "16".format(WAVEFRONT_CHECK["calls"],
+                    WAVEFRONT_CHECK["max_abs_err"]))
+
+    log_stress_busy(card, traced)
+    log("stress", "phase 17 took {0:.1f} s".format(
+        time.perf_counter() - started))
+
+
+def log_stress_busy(card, traced):
+    """Runs stress_busy over `traced` ([[path, arguments], ...]) in a
+    process of its own and logs each path's device busy time."""
+    process = subprocess.run(
+        [sys.executable, "-c", _BUSY_SCRIPT, ROOT, json.dumps(traced)],
+        capture_output=True, text=True)
+    lines = [line for line in process.stdout.splitlines()
+             if line.startswith("BUSY ")]
+    if process.returncode != 0 or not lines:
+        sys.stderr.write(process.stdout[-4000:] + process.stderr[-4000:])
+        raise AssertionError("phase 17's traced runs failed with exit code "
+                             "{0}".format(process.returncode))
+    for path, entry in json.loads(lines[-1][5:]).items():
+        log("stress", "{0}, traced in a process of its own on {1}: device "
+            "busy {2!r} s of a {3!r} s run (kernels, copies and memsets: "
+            "{4!r} s summed); {5} of the port's kernels traced, as many as "
+            "counted".format(path, card, entry["busy_s"], entry["wall_s"],
+                             entry["device_sum_s"], entry["port_kernels"]))
+
+
 def main():
     sys.path.insert(0, ROOT)
     card = phase_environment()
@@ -4210,6 +4609,8 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
                                                           makers)
     with collect_calls.recording("tiefree"):
         phase_tiefree(card, recorder, makers)
+    # phase 17 runs here so that phases 6, 15 and 16 take its calls too
+    phase_stress(card, makers, recorder, collect_calls)
     ins_timings = phase_linkage(recorder, slice_designs)
     rescan_design = rescan_design_library()
     phase_resources(rescan_design)
@@ -4238,7 +4639,7 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
         raise AssertionError("the port imported jax")
     log("paths", "kernel launches per path: {0}".format(
         json.dumps(PATH_LAUNCHES)))
-    log("time", "phases 2-16 took {0:.1f} s".format(
+    log("time", "phases 2-17 took {0:.1f} s".format(
         time.perf_counter() - started))
 
     import torch
@@ -4270,7 +4671,9 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
         "launches": PATH_LAUNCHES["bench_wavefront"][
             "wavefront_banded_distance"],
         "launches_by_path": by_path("wavefront_banded_distance"),
-        "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "max_abs_err": max(max_abs_err, WAVEFRONT_CHECK["max_abs_err"]),
+        "compared_main_path_calls": WAVEFRONT_CHECK["calls"],
+        "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "shape": "B={0},L={1},W={2}".format(*MAIN_SHAPE)}, {
         "name": "span_distance_matrix", "route": "cuda",

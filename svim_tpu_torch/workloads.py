@@ -13,8 +13,18 @@
   resolved on the host).
 
 All three write a coordinate-sorted BGZF BAM and a FASTA genome and return
-(bam_path, genome_path).  Three rewrites of a BAM serve the port's other
-input paths:
+(bam_path, genome_path).  The two accuracy harnesses of
+scripts/eval_accuracy.py, which hold all six SV classes and a truth set:
+
+- `stress_workload`: its `--big` stress simulation (sim.py; 54 Mb over
+  five contigs, 15% of each contig under repeat arrays, 12% per-base read
+  noise, cut&paste DUP:INT);
+- `independent_workload`: its `--independent` donor-genome projection
+  (sim2.py; reads from both strands and both haplotypes).
+
+Both return (genome_path, bam_path, truth) as the simulators do and write
+the truth set as truth.json beside the BAM (`load_truth` reads it back).
+Three rewrites of a BAM serve the port's other input paths:
 
 - `reblock_stored`: the same BAM as level-0 (stored) BGZF, so its size on
   disk is its inflated size and a 25 MB BAM crosses the 96 MiB streaming
@@ -35,6 +45,7 @@ into a real BGZF BAM with this package's io layer.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import random
 import stat
@@ -62,6 +73,61 @@ def golden_workload(directory):
 
     genome, bam, _truth = simulate(directory, SimConfig(**GOLDEN_SIM))
     return bam, genome
+
+
+# the SimConfig of scripts/eval_accuracy.py --big, but for its seed
+STRESS_SIM = dict(genome_length=18_000_000, second_contig_length=4_000_000,
+                  extra_contigs=(14_000_000, 10_000_000, 8_000_000),
+                  coverage=8, n_del=50, n_ins=50, n_inv=35, n_tan=35,
+                  n_dup_int=15, n_dup_int_cutpaste=10, n_bnd=20,
+                  n_background=2500, error_rate=0.12, repeat_fraction=0.15)
+TRUTH_FILE = "truth.json"
+
+
+def _save_truth(directory, generator, truth):
+    with open(os.path.join(directory, TRUTH_FILE), "w") as handle:
+        json.dump({"generator": generator,
+                   "records": [variant._asdict() for variant in truth]},
+                  handle)
+
+
+def load_truth(directory):
+    """The truth set that stress_workload or independent_workload wrote
+    into `directory`, as the simulator's records."""
+    from svim_tpu_torch.sim import TruthVariant
+    from svim_tpu_torch.sim2 import Truth
+
+    with open(os.path.join(directory, TRUTH_FILE)) as handle:
+        saved = json.load(handle)
+    record = {"sim": TruthVariant, "sim2": Truth}[saved["generator"]]
+    return [record(**fields) for fields in saved["records"]]
+
+
+def stress_workload(directory, seed=1, **changes):
+    """scripts/eval_accuracy.py --big at `seed`: sim.simulate with
+    STRESS_SIM, written into `directory` with its truth set.  `changes`
+    replace fields of the configuration (the CPU tests' smaller sizes).
+    Returns (genome_path, bam_path, truth)."""
+    from svim_tpu_torch.sim import SimConfig, simulate
+
+    config = SimConfig(seed=seed, **dict(STRESS_SIM, **changes))
+    genome, bam, truth = simulate(directory, config)
+    _save_truth(directory, "sim", truth)
+    return genome, bam, truth
+
+
+def independent_workload(directory, seed=1, **changes):
+    """scripts/eval_accuracy.py --independent at `seed`:
+    sim2.simulate_independent with Sim2Config(seed=seed), written into
+    `directory` with its truth set.  `changes` replace fields of the
+    configuration (the CPU tests' smaller sizes).  Returns (genome_path,
+    bam_path, truth)."""
+    from svim_tpu_torch.sim2 import Sim2Config, simulate_independent
+
+    genome, bam, truth = simulate_independent(
+        directory, Sim2Config(seed=seed, **changes))
+    _save_truth(directory, "sim2", truth)
+    return genome, bam, truth
 
 
 def _noisy_cigar(rng, sv=None):

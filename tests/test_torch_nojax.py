@@ -8,7 +8,10 @@ delivered in chunks so that partitions are reused), so lazy imports on all
 three paths count; after a two-rank --distributed run, in each rank's
 interpreter; statically over every source file of the port and
 chip_smoke.py; and select_device refuses to carry on without a card unless
-the CPU was asked for."""
+the CPU was asked for.  The port's accuracy harness
+(scripts/eval_accuracy_torch.py) and its generators run in an interpreter
+where importing jax or svim_tpu fails, and the script raises before it
+simulates anything when there is no card and the CPU was not asked for."""
 
 import ast
 import glob
@@ -122,7 +125,8 @@ def _imported_modules(path):
 def _port_sources():
     sources = sorted(glob.glob(os.path.join(REPO, "svim_tpu_torch", "**",
                                             "*.py"), recursive=True))
-    return sources + [os.path.join(REPO, "chip_smoke.py")]
+    return sources + [os.path.join(REPO, "chip_smoke.py"),
+                      os.path.join(REPO, "scripts", "eval_accuracy_torch.py")]
 
 
 def test_port_sources_import_neither_jax_nor_svim_tpu():
@@ -181,3 +185,84 @@ def test_cli_refuses_to_run_without_a_card(tmp_path, monkeypatch):
     genome.write_text(">chr1\n" + "ACGT" * 250 + "\n")
     with pytest.raises(RuntimeError, match="SVIM_TORCH_DEVICE=cpu"):
         cli.main(["alignment", str(tmp_path / "wd"), str(sam), str(genome)])
+
+
+_HARNESS_SCRIPT = """
+import json, runpy, sys
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "svim_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+sys.path.insert(0, {repo!r})
+from svim_tpu_torch.workloads import (independent_workload, load_truth,
+                                      stress_workload)
+
+stress = stress_workload({work!r} + "/stress", 3, genome_length=300_000,
+                         second_contig_length=100_000,
+                         extra_contigs=(100_000,), coverage=4, n_del=1,
+                         n_ins=1, n_inv=1, n_tan=1, n_dup_int=1,
+                         n_dup_int_cutpaste=1, n_bnd=1, n_background=10)
+independent = independent_workload({work!r} + "/independent", 3,
+                                   contig_lengths=(150_000, 100_000),
+                                   coverage=2, n_del=1, n_ins=1, n_inv=1,
+                                   n_tan=1, n_tan_short=0, n_dup_int=1,
+                                   n_dup_int_cutpaste=0, n_bnd=1)
+print("TRUTH " + json.dumps([
+    load_truth({work!r} + "/stress") == stress[2],
+    load_truth({work!r} + "/independent") == independent[2]]))
+sys.argv = ["eval_accuracy_torch.py", "3"]
+runpy.run_path({script!r}, run_name="__main__")
+print("LOADED " + json.dumps(sorted(
+    name for name in sys.modules
+    if name.split(".")[0] in ("jax", "jaxlib", "svim_tpu"))))
+"""
+HARNESS = os.path.join(REPO, "scripts", "eval_accuracy_torch.py")
+
+
+def test_accuracy_harness_runs_without_jax(tmp_path):
+    """The generators and the harness at a small seed on the CPU, in an
+    interpreter that cannot import jax or svim_tpu: the truth sets read
+    back, and the harness prints one JSON line a class."""
+    for name in ("stress", "independent"):
+        (tmp_path / name).mkdir()
+    env = dict(os.environ, SVIM_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1",
+               TMPDIR=str(tmp_path))
+    env.pop("PYTHONPATH", None)
+    result = subprocess.run(
+        [sys.executable, "-c", _HARNESS_SCRIPT.format(
+            repo=REPO, work=str(tmp_path), script=HARNESS)],
+        capture_output=True, text=True, timeout=600, env=env, cwd=tmp_path)
+    assert result.returncode == 0, result.stderr[-4000:]
+    lines = result.stdout.strip().splitlines()
+    assert "TRUTH [true, true]" in lines
+    assert lines[-1] == "LOADED []"
+    classes = [json.loads(line) for line in lines
+               if line.startswith('{"svtype"')]
+    assert [entry["svtype"] for entry in classes] == [
+        "ALL", "BND", "DEL", "DUP:INT", "DUP:TANDEM", "INS", "INV"]
+    assert all(set(entry) == {"svtype", "tp", "fp", "fn", "f1"}
+               for entry in classes)
+
+
+def test_accuracy_harness_needs_a_card_unless_cpu_is_asked(tmp_path,
+                                                          monkeypatch):
+    """Without a card and without SVIM_TORCH_DEVICE=cpu the harness raises
+    before it simulates or writes anything."""
+    import runpy
+    import tempfile
+
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("SVIM_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    monkeypatch.setattr(sys, "argv", [HARNESS, "1", "--big"])
+    with pytest.raises(RuntimeError, match="SVIM_TORCH_DEVICE=cpu"):
+        runpy.run_path(HARNESS, run_name="__main__")
+    assert os.listdir(tmp_path) == []
