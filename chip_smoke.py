@@ -211,6 +211,30 @@ Phases, each of which raises (non-zero exit) on failure:
      partitions by type, the DUP_INT candidate round, the wavefront calls'
      shapes and variants), each run's stage seconds and, from a traced run
      of each path in a process of its own, its device busy time.
+ 18. (run after 17, for the same reason) a chromosome of a 30x sample at
+     the scale a user runs it: svim_tpu_torch.workloads.sample_workload at
+     its defaults (~114,000 ONT-like reads of 3,001 CIGAR ops on a contig
+     the length of GRCh38 chr20, split partners on one the length of chr21,
+     280 DEL and 280 INS loci of 12-30 reads whose breakpoints differ, a
+     1.1 GB BAM of 4.3 GB inflated), made by a background maker from the
+     start of the run, whose inflated stream must hash to svim_tpu's input
+     (SAMPLE_INFLATED_SHA256).  The BAM is over the streaming threshold, so
+     COLLECT streams it (no mid-scan clustering, as in svim_tpu), on
+     SAMPLE_PATHS: the CLI's defaults (sample_auto) and --edit_backend
+     wavefront --incremental_cluster off (sample_wavefront: the resident
+     INS route).  Each VCF must hash to svim_tpu's (SAMPLE_VCF_SHA256), its
+     per-class (tp, fp, fn) (SAMPLE_CLASSES), telemetry and accepted
+     labelings by route (SAMPLE_TELEMETRY) must equal svim_tpu's; the
+     COLLECT, classify, GENOTYPE and agglomeration kernels must run on both
+     paths, the wavefront and INS matrix kernels on sample_wavefront; every
+     device call is recorded as in phase 17 (phases 6, 15 and 16 replay
+     the linkage, COLLECT and GENOTYPE calls, the wavefront calls are
+     replayed here).  Logs the generation's seconds and bytes, windows and
+     batches streamed, resident and shared memory at each batch, scans and
+     overflows, partitions by route and pad bucket, the GENOTYPE joins'
+     shapes and table rows, wavefront launches by kernel variant, stage
+     seconds, reads/s through COLLECT+CLUSTER and, from a traced run of
+     each path in a process of its own, device busy time.
 The script imports torch and the port, never jax or the JAX package: the
 inputs come from svim_tpu_torch.workloads.
 Then one JSON line describing the kernels, the card line, and the last
@@ -303,6 +327,35 @@ STRESS_CLASSES = {
 STRESS_TELEMETRY = dict(_NO_TELEMETRY, pre_tie=174, pre_wall=25, post_tie=1,
                         resident_relink=50)
 STRESS_DEVICE_BY_ROUTE = {}
+# a chromosome of a 30x sample (svim_tpu_torch.workloads.sample_workload at
+# its defaults and SAMPLE_SEED: ~114,000 reads on a contig the length of
+# chr20, 560 DEL and INS loci, a BAM over the streaming threshold) and the
+# paths phase 18 drives on it: their flags.  From svim_tpu's CPU runs: the
+# sha256 of the generator's inflated BAM stream, and for each path the
+# sha256 of svim_tpu's variants.vcf (##fileDate lines left out), its
+# per-class (tp, fp, fn) from evaluate_vcf, its clustering telemetry and
+# its accepted labelings by route (a streamed input clusters nothing
+# mid-scan, so both are the same on every run).  svim_tpu took 19 s with
+# the defaults and 3,081 s with --edit_backend wavefront (its jnp
+# wavefront on the CPU), the same VCF on either path
+SAMPLE_SEED = 1
+SAMPLE_PATHS = {"sample_auto": [],
+                "sample_wavefront": ["--edit_backend", "wavefront",
+                                     "--incremental_cluster", "off"]}
+SAMPLE_INFLATED_SHA256 = ("b73e25de74462c7879ba6bc94ba08301"
+                          "f597f268a1990bca3f5fdca04876f7d8")
+SAMPLE_VCF_SHA256 = {path: ("fa923cb6f07ab7b1a0e1c984833542bc"
+                            "a0ddf89d341ac3b5fe765f0ad8f0f02c")
+                     for path in SAMPLE_PATHS}
+SAMPLE_CLASSES = {path: {"ALL": (560, 56, 0), "DEL": (280, 0, 0),
+                         "INS": (280, 56, 0)} for path in SAMPLE_PATHS}
+SAMPLE_TELEMETRY = {"sample_auto": (dict(_NO_TELEMETRY, device=160,
+                                         pre_tie=163, post_tie=237),
+                                    {"fused": 99, "matrix": 61}),
+                    "sample_wavefront": (dict(_NO_TELEMETRY, device=206,
+                                              pre_tie=51, post_tie=130,
+                                              resident_relink=173),
+                                         {"fused": 99, "resident": 107})}
 # (B, P) of the distance kernel's JSON timing: the largest listed shape
 DISTANCE_MAIN_SHAPE = (8192, 128)
 LINKAGE_OPS = ("span_position_agglomerate_batched", "agglomerate_batched",
@@ -930,7 +983,9 @@ getattr(workloads, sys.argv[2] + "_workload")(sys.argv[3], int(sys.argv[4]))
 WORKLOADS = {"bench": (BENCH_READS, "bench.bam"),
              "tiefree": (TIEFREE_READS, "tiefree.bam"),
              "stress": (STRESS_SEED, "reads.bam", "truth.json"),
-             "independent": (STRESS_SEED, "reads.bam", "truth.json")}
+             "independent": (STRESS_SEED, "reads.bam", "truth.json"),
+             "sample": (SAMPLE_SEED, "sample.bam", "truth.json",
+                        "sample.json")}
 
 
 def _workload_paths(name):
@@ -1688,20 +1743,18 @@ def _host_labels(matrix, count, threshold):
         device_cluster.average_linkage(condensed), threshold)
 
 
-def phase_linkage(recorder, first_designs):
-    import numpy as np
-    import torch
-
-    from svim_tpu_torch.cluster import device_cluster
+def linkage_calls_against_plain(calls):
+    """Every recorded linkage call (LinkageRecorder.calls) again: on the
+    CPU, where the outputs must agree with the card's, and through the
+    kernel and the plain version on the card, bit-equal to each other and
+    to the run's own outputs.  Returns (ops seen, kernel rows by op, the
+    largest difference from the CPU)."""
     from svim_tpu_torch.ops import linkage_kernel
 
-    if not recorder.calls:
-        raise AssertionError("the main path made no linkage op call")
     seen = set()
     kernel_rows = {}
     max_error = 0.0
-    for number, (name, args, kwargs, got, devices) in enumerate(
-            recorder.calls):
+    for number, (name, args, kwargs, got, devices) in enumerate(calls):
         if devices != {"cuda"}:
             raise AssertionError("{0} ran on {1}, not the card".format(
                 name, sorted(devices)))
@@ -1716,7 +1769,7 @@ def phase_linkage(recorder, first_designs):
                 raise AssertionError(where + ": the card's matrices differ "
                                      "from the CPU's off the diagonal")
             following = next(
-                (call for call in recorder.calls[number + 1:]
+                (call for call in calls[number + 1:]
                  if call[0] == "agglomerate_batched"
                  and _bit_equal(call[1][0], got)), None)
             if following is None:
@@ -1724,8 +1777,6 @@ def phase_linkage(recorder, first_designs):
                                      "these matrices follows")
             _ins_against_plain(args, where, valid=following[1][1],
                                recorded=got)
-            kernel_rows[name] = kernel_rows.get(name, 0) + int(
-                args[0].shape[0])
         else:
             max_error = max(max_error, _same_linkage(got, want, where)[1])
             # the same inputs through the kernel and the plain version on
@@ -1735,9 +1786,22 @@ def phase_linkage(recorder, first_designs):
             if not all(_bit_equal(a.cpu(), b) for a, b in zip(again, got)):
                 raise AssertionError(where + ": the run's outputs differ "
                                      "from the kernel's on the same inputs")
-            rows = int(args[0].shape[0])
-            kernel_rows[name] = kernel_rows.get(name, 0) + rows
+        kernel_rows[name] = kernel_rows.get(name, 0) + int(args[0].shape[0])
         seen.add(name)
+    return seen, kernel_rows, max_error
+
+
+def phase_linkage(recorder, first_designs):
+    import numpy as np
+    import torch
+
+    from svim_tpu_torch.cluster import device_cluster
+    from svim_tpu_torch.ops import linkage_kernel
+
+    if not recorder.calls:
+        raise AssertionError("the main path made no linkage op call")
+    seen, kernel_rows, max_error = linkage_calls_against_plain(
+        recorder.calls)
     # partitions resolved on the host at dispatch (telemetry pre_*) never
     # reach an op: the fused route's calls come from the tie-free workload
     log("linkage", "{0} main-path calls ({1}) agree with the CPU; not "
@@ -4378,8 +4442,8 @@ chip_smoke.stress_busy(sys.argv[2])
 
 
 def stress_busy(runs):
-    """Phase 17's device busy time, in a process of its own so that its
-    torch.profiler session is the process's first (see
+    """Phases 17 and 18's device busy time, in a process of its own so
+    that its torch.profiler session is the process's first (see
     start_kernels_a_call): the CLI runs of `runs` (JSON [[path, arguments],
     ...]) one after another under one session, each inside a
     record_function range.  Busy is the union of the kernel, copy and
@@ -4409,7 +4473,7 @@ def stress_busy(runs):
             for module, attribute in counters.values():
                 setattr(module, attribute, 0)
             started = time.perf_counter()
-            with record_function("stress_path:" + path):
+            with record_function("smoke_path:" + path):
                 code = _run_port(arguments)
                 torch.cuda.synchronize()
             if code != 0:
@@ -4428,7 +4492,7 @@ def stress_busy(runs):
     for event in events:
         name = event.get("name", "")
         if event.get("cat") != "user_annotation" \
-                or not name.startswith("stress_path:"):
+                or not name.startswith("smoke_path:"):
             continue
         low, high = event["ts"], event["ts"] + event["dur"]
         inside = [(max(start, low), min(end, high)) for start, end in device
@@ -4543,14 +4607,15 @@ def phase_stress(card, makers, recorder, device_ops):
         "16".format(WAVEFRONT_CHECK["calls"],
                     WAVEFRONT_CHECK["max_abs_err"]))
 
-    log_stress_busy(card, traced)
+    log_busy("stress", card, traced)
     log("stress", "phase 17 took {0:.1f} s".format(
         time.perf_counter() - started))
 
 
-def log_stress_busy(card, traced):
+def log_busy(phase, card, traced):
     """Runs stress_busy over `traced` ([[path, arguments], ...]) in a
-    process of its own and logs each path's device busy time."""
+    process of its own and logs each path's device busy time under
+    `phase`.  Returns {path: busy entry}."""
     process = subprocess.run(
         [sys.executable, "-c", _BUSY_SCRIPT, ROOT, json.dumps(traced)],
         capture_output=True, text=True)
@@ -4558,14 +4623,222 @@ def log_stress_busy(card, traced):
              if line.startswith("BUSY ")]
     if process.returncode != 0 or not lines:
         sys.stderr.write(process.stdout[-4000:] + process.stderr[-4000:])
-        raise AssertionError("phase 17's traced runs failed with exit code "
-                             "{0}".format(process.returncode))
-    for path, entry in json.loads(lines[-1][5:]).items():
-        log("stress", "{0}, traced in a process of its own on {1}: device "
+        raise AssertionError("the traced runs of {0} failed with exit code "
+                             "{1}".format(phase, process.returncode))
+    report = json.loads(lines[-1][5:])
+    for path, entry in report.items():
+        log(phase, "{0}, traced in a process of its own on {1}: device "
             "busy {2!r} s of a {3!r} s run (kernels, copies and memsets: "
             "{4!r} s summed); {5} of the port's kernels traced, as many as "
             "counted".format(path, card, entry["busy_s"], entry["wall_s"],
                              entry["device_sum_s"], entry["port_kernels"]))
+    return report
+
+
+def _linkage_shapes(path, linkage):
+    """The recorded linkage calls of `path` by op and pad bucket P: calls,
+    partitions (slots with a valid member) and, for the INS matrices, pairs."""
+    shapes = {}
+    for _, name, args, _kwargs in linkage.of([path]):
+        valid = {"span_position_agglomerate_batched": 3,
+                 "agglomerate_batched": 1}.get(name)
+        entry = shapes.setdefault("{0} P={1}".format(
+            name, int(args[0].shape[1])), {"calls": 0, "partitions": 0})
+        entry["calls"] += 1
+        if valid is not None:
+            entry["partitions"] += int(args[valid].any(dim=1).sum())
+        else:
+            entry["partitions"] += int(args[0].shape[0])
+            entry["pairs"] = entry.get("pairs", 0) + int(args[2].shape[0])
+    return shapes
+
+
+def _sample_calls(path, calls, linkage):
+    """_stress_calls of `path`, with the linkage calls by pad bucket, the
+    GENOTYPE joins' shapes (C candidates, S support ids, slice_len, table
+    rows) and jobs left to the host join, and the wavefront launches by
+    kernel variant."""
+    summary = _stress_calls(path, calls, linkage)
+    summary["linkage_by_bucket"] = _linkage_shapes(path, linkage)
+    summary["genotype_joins"] = [
+        [int(args[7].shape[0]), int(args[7].shape[1]), int(args[-1]),
+         int(args[8].shape[0])]
+        for label, kernel, args, _kwargs, _outputs in calls
+        if label == path and kernel == "genotype_support"]
+    summary["genotype_host_jobs"] = sum(
+        sum(count is None for count in outputs)
+        for label, kernel, _args, _kwargs, outputs in calls
+        if label == path and kernel == "genotype_jobs")
+    variants = {}
+    for _b, _length, _band, variant in summary["wavefront"]:
+        variants[variant] = variants.get(variant, 0) + 1
+    summary["wavefront_by_variant"] = variants
+    summary["wavefront_pairs"] = sum(b for b, *_ in summary["wavefront"])
+    return summary
+
+
+def _resident_mib():
+    """(resident, shared) MiB of this process (/proc/self/statm): shared
+    pages are file-backed or shared mappings, such as the BAM's map."""
+    with open("/proc/self/statm") as handle:
+        _size, resident, shared = (int(field) for field in
+                                   handle.read().split()[:3])
+    page = os.sysconf("SC_PAGE_SIZE")
+    return resident * page >> 20, shared * page >> 20
+
+
+class WindowMemory:
+    """While active, samples this process's resident and shared memory
+    (_resident_mib) at every batch the streaming scan
+    (io.bamstream.stream_bam) yields: what the pipeline holds across
+    windows, beside the BAM's mapped pages (page cache the kernel can
+    drop)."""
+
+    def __enter__(self):
+        from svim_tpu_torch.io import bamstream
+
+        self.module = bamstream
+        self.original = bamstream.stream_bam
+        self.samples = []
+
+        def sampled(*args, **kwargs):
+            for index, item in enumerate(self.original(*args, **kwargs)):
+                if index:   # the header comes first
+                    self.samples.append(_resident_mib())
+                yield item
+        bamstream.stream_bam = sampled
+        return self
+
+    def __exit__(self, *exc):
+        self.module.stream_bam = self.original
+
+    def summary(self):
+        resident = [sample[0] for sample in self.samples]
+        shared = [sample[1] for sample in self.samples]
+        return {"batches": len(self.samples),
+                "resident_mib_first_last_max": [resident[0], resident[-1],
+                                                max(resident)],
+                "shared_mib_first_last_max": [shared[0], shared[-1],
+                                              max(shared)]}
+
+
+def phase_sample(card, makers, recorder, device_ops):
+    """Phase 18: a chromosome of a 30x sample (workloads.sample_workload,
+    made by a background maker from the start of the run) through the CLI
+    on the card, on SAMPLE_PATHS: the BAM is over the streaming threshold,
+    so COLLECT streams it.  The maker's inflated stream must hash to
+    SAMPLE_INFLATED_SHA256; each run's VCF must hash to svim_tpu's, and its
+    per-class (tp, fp, fn), telemetry and accepted labelings by route must
+    equal svim_tpu's (SAMPLE_*).  Every device call is recorded as in phase
+    17 (the linkage ops for phase 6, COLLECT and GENOTYPE for phases 15 and
+    16, the wavefront calls replayed here); the COLLECT, classify, GENOTYPE
+    and agglomeration kernels must run on both paths, the wavefront and INS
+    matrix kernels on sample_wavefront.  Logs the generation, the windows
+    and batches streamed, what the calls held (_sample_calls), each run's
+    stage seconds and reads/s through COLLECT+CLUSTER, and from a traced run
+    of each path in a process of its own its device busy time."""
+    import resource
+
+    from svim_tpu_torch import workloads
+    from svim_tpu_torch.collect.packed import STREAMING_THRESHOLD_BYTES
+    from svim_tpu_torch.io import bamstream
+    from svim_tpu_torch.sim import evaluate_vcf
+
+    started = time.perf_counter()
+    directory, bam, genome = _workload(makers, "sample")
+    with open(os.path.join(directory, workloads.SAMPLE_FILE)) as handle:
+        made = json.load(handle)
+    log("sample", "the sample: {0} reads ({1} supporting {2} loci, {3} "
+        "split), {4} bytes of BAM, {5} inflated, made in {6!r} s by the "
+        "maker's own clock".format(
+            made["reads"], made["supporting_reads"],
+            json.dumps(made["loci"]), made["split_reads"],
+            made["bam_bytes"], made["inflated_bytes"], made["seconds"]))
+    if made["inflated_sha256"] != SAMPLE_INFLATED_SHA256:
+        raise AssertionError("the sample's inflated stream hashes to {0}, "
+                             "not to the pinned {1}: the generator drew "
+                             "differently".format(made["inflated_sha256"],
+                                                  SAMPLE_INFLATED_SHA256))
+    if os.path.getsize(bam) <= STREAMING_THRESHOLD_BYTES:
+        raise AssertionError("the sample's BAM does not cross the streaming "
+                             "threshold")
+    truth = workloads.load_truth(directory)
+    traced = []
+    for path, flags in SAMPLE_PATHS.items():
+        working_dir = os.path.join(directory, "wd_" + path)
+        bamstream.BATCHES = bamstream.WINDOWS = 0
+        recorder.label = path
+        with recorder, device_ops.recording(path,
+                                            RECORDED_OPS + WAVEFRONT_OP), \
+                RouteCounter() as routes, ClusterTally() as tally, \
+                WindowMemory() as memory:
+            _drive(path, ["alignment", working_dir, bam, genome,
+                          "--profile"] + flags)
+        launches = PATH_LAUNCHES[path]
+        seconds = _stage_seconds(working_dir)
+        telemetry = _telemetry()
+        by_route = {route: count for route, count in routes.device.items()
+                    if count}
+        classes = {svtype: tuple(counts) for svtype, counts in evaluate_vcf(
+            os.path.join(working_dir, "variants.vcf"), truth).items()}
+        log("sample", "{0} on {1}: stages {2}; {3!r} reads/s through "
+            "COLLECT+CLUSTER; {4} windows in {5} batches streamed; per class "
+            "(tp, fp, fn) {6}; telemetry {7}; labelings accepted by route "
+            "{8}; fused-entry partitions by type {9}; launches {10}; "
+            "resident and shared memory at the streamed batches {11}; peak "
+            "resident memory of the smoke so far {12} MiB".format(
+                path, card, json.dumps(seconds),
+                made["reads"] / (seconds["collect"] + seconds["cluster"]),
+                bamstream.WINDOWS, bamstream.BATCHES, json.dumps(classes),
+                json.dumps(telemetry), json.dumps(by_route),
+                json.dumps(tally.fused), json.dumps(launches),
+                json.dumps(memory.summary()),
+                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024))
+        if not bamstream.BATCHES:
+            raise AssertionError(path + ": COLLECT did not stream")
+        digest = _vcf_sha256(working_dir)
+        if digest != SAMPLE_VCF_SHA256[path]:
+            raise AssertionError("{0}: variants.vcf (sha256 {1}) differs "
+                                 "from svim_tpu's".format(path, digest))
+        if classes != SAMPLE_CLASSES[path]:
+            raise AssertionError("{0}: per-class counts {1}, svim_tpu's "
+                                 "{2}".format(path, classes,
+                                              SAMPLE_CLASSES[path]))
+        if (telemetry, by_route) != SAMPLE_TELEMETRY[path]:
+            raise AssertionError("{0}: telemetry {1} and labelings by route "
+                                 "{2}, svim_tpu's {3}".format(
+                                     path, telemetry, by_route,
+                                     SAMPLE_TELEMETRY[path]))
+        needed = ["collect_scan", "classify_segments", "genotype_support",
+                  "agglomerate"]
+        if path == "sample_wavefront":
+            needed += ["wavefront_banded_distance", "ins_matrices"]
+        idle = [name for name in needed if launches[name] <= 0]
+        if idle:
+            raise AssertionError("{0} launched no {1} kernel".format(
+                path, ", ".join(idle)))
+        log("sample", "{0}: VCF hashes to svim_tpu's; per-class counts, "
+            "telemetry and labelings by route equal svim_tpu's; calls: {1}"
+            .format(path, json.dumps(_sample_calls(path, device_ops.calls,
+                                                   recorder))))
+        traced.append([path, ["alignment", working_dir + "_traced", bam,
+                              genome] + flags])
+
+    compared = WAVEFRONT_CHECK["calls"]
+    for label, kernel, args, _kwargs, outputs in device_ops.calls:
+        if kernel == "wavefront" and label in SAMPLE_PATHS:
+            _wavefront_against_plain(args, outputs, "wavefront call of "
+                                     + label)
+    if WAVEFRONT_CHECK["calls"] == compared:
+        raise AssertionError("phase 18 recorded no wavefront call")
+    log("sample", "{0} recorded wavefront calls: kernel equal to the plain "
+        "version on the card and to the run's output (max_abs_err {1}); "
+        "the linkage, COLLECT and GENOTYPE calls go to phases 6, 15 and "
+        "16".format(WAVEFRONT_CHECK["calls"] - compared,
+                    WAVEFRONT_CHECK["max_abs_err"]))
+    log_busy("sample", card, traced)
+    log("sample", "phase 18 took {0:.1f} s".format(
+        time.perf_counter() - started))
 
 
 def main():
@@ -4609,8 +4882,10 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
                                                           makers)
     with collect_calls.recording("tiefree"):
         phase_tiefree(card, recorder, makers)
-    # phase 17 runs here so that phases 6, 15 and 16 take its calls too
+    # phases 17 and 18 run here so that phases 6, 15 and 16 take their
+    # calls too
     phase_stress(card, makers, recorder, collect_calls)
+    phase_sample(card, makers, recorder, collect_calls)
     ins_timings = phase_linkage(recorder, slice_designs)
     rescan_design = rescan_design_library()
     phase_resources(rescan_design)
@@ -4639,7 +4914,7 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
         raise AssertionError("the port imported jax")
     log("paths", "kernel launches per path: {0}".format(
         json.dumps(PATH_LAUNCHES)))
-    log("time", "phases 2-17 took {0:.1f} s".format(
+    log("time", "phases 2-18 took {0:.1f} s".format(
         time.perf_counter() - started))
 
     import torch

@@ -32,6 +32,7 @@ from svim_tpu_torch.io.sam import AlignmentHeader
 WINDOW_UNCOMPRESSED = 128 * 1024 * 1024
 
 BATCHES = 0   # batches consumed by collect_streaming (chip_smoke reads it)
+WINDOWS = 0   # windows of inflated stream read by the streaming scans
 
 FUNMAP = 0x4
 FSECONDARY = 0x100
@@ -296,6 +297,7 @@ def _stream_bam_fused(data, min_mapq: int, batch_reads: int,
     pending_out = 0
 
     def next_raw():
+        global WINDOWS
         nonlocal pending_blocks, pending_out
         for block in block_iter:
             pending_blocks.append(block)
@@ -304,6 +306,7 @@ def _stream_bam_fused(data, min_mapq: int, batch_reads: int,
                 break
         if not pending_blocks:
             return None
+        WINDOWS += 1
         raw = bytes(data[pending_blocks[0][0]:
                          pending_blocks[-1][0] + pending_blocks[-1][1]])
         pending_blocks = []
@@ -375,6 +378,7 @@ def _stream_bam_carve(data, min_mapq: int, batch_reads: int,
     pending_out = 0
 
     def next_window(prefix=b"") -> Optional[bytes]:
+        global WINDOWS
         nonlocal pending_blocks, pending_out
         for block in block_iter:
             pending_blocks.append(block)
@@ -383,6 +387,7 @@ def _stream_bam_carve(data, min_mapq: int, batch_reads: int,
                 break
         if not pending_blocks:
             return None
+        WINDOWS += 1
         window = _decompress_window(data, pending_blocks, prefix)
         pending_blocks = []
         pending_out = 0

@@ -24,6 +24,13 @@ scripts/eval_accuracy.py, which hold all six SV classes and a truth set:
 
 Both return (genome_path, bam_path, truth) as the simulators do and write
 the truth set as truth.json beside the BAM (`load_truth` reads it back).
+At the scale a user runs:
+
+- `sample_workload`: a chromosome of a 30x ONT-like sample (~114,000 reads
+  of _noisy_cigar's distribution on a contig the length of GRCh38 chr20,
+  560 DEL and INS loci whose reads do not share breakpoints, split
+  partners on a second contig), built as arrays and written as BAM record
+  bytes; a 1.1 GB BAM that the CLI streams, with truth.json.
 Three rewrites of a BAM serve the port's other input paths:
 
 - `reblock_stored`: the same BAM as level-0 (stored) BGZF, so its size on
@@ -49,6 +56,7 @@ import json
 import os
 import random
 import stat
+import struct
 import sys
 import zlib
 
@@ -407,6 +415,373 @@ def tiefree_workload(directory, reads=8192, wide_loci=TIEFREE_WIDE_LOCI):
 
     return _write_workload(directory, "tiefree.bam", header, records,
                            genome_span)
+
+
+# sample_workload: a chromosome of a 30x ONT-like sample, at the widths of
+# _noisy_cigar's reads
+SAMPLE = dict(contig_length=64_444_167,    # GRCh38 chr20, the SV host
+              partner_length=46_709_983,   # GRCh38 chr21: split partners
+              depth=30,
+              loci=None,             # per type; None: a locus a 115 kb
+              ins_sizes=(50, 3000))  # bp, log-uniform
+SAMPLE_DEL_SIZES = (50, 5000)   # bp, log-uniform
+SAMPLE_COVERAGE = (12, 30)      # reads a locus
+SAMPLE_LOCUS_GAP = 5000         # bp from a locus's end to the next
+SAMPLE_SPLIT_EVERY = 12         # background reads per SA-tagged one
+SAMPLE_CONTIGS = ("chr20", "chr21")
+SAMPLE_LOCUS_SPAN = 115_000   # bp of contig per SV locus, of either type
+SAMPLE_MARGIN = 50_000        # bp kept free of loci at either end of the host
+# _noisy_cigar's read: NOISE_PAIRS (match, indel) pairs and a closing 20M
+NOISE_PAIRS = READ_LENGTH_OPS // 2
+SAMPLE_OPS = READ_LENGTH_OPS + 1
+SAMPLE_MEAN_SPAN = NOISE_PAIRS * 9 + NOISE_PAIRS // 2 * 9 // 2 + 20   # bp
+SAMPLE_SPLIT_SPAN = 500       # bp of a split partner's alignment
+SAMPLE_CHUNK = 2048           # reads built and written at a time
+SAMPLE_BGZF_LEVEL = 1
+SAMPLE_FILE = "sample.json"
+_BASE_CODES = np.array([1, 2, 4, 8], dtype=np.uint8)   # BAM's A, C, G, T
+_CIGAR_I, _CIGAR_D = 1, 2
+
+
+def _distinct_offsets(rng, reach, count):
+    """`count` distinct integers in [-reach, reach]."""
+    return rng.choice(2 * reach + 1, size=count, replace=False) - reach
+
+
+def _sample_loci(rng, config):
+    """(ops, positions, sizes, per-locus (shifts, resizes, motif)): DEL and
+    INS loci placed uniformly over the host contig, SAMPLE_LOCUS_GAP
+    apart."""
+    length = config["contig_length"]
+    per_type = config["loci"]
+    if per_type is None:
+        per_type = round(length / (2 * SAMPLE_LOCUS_SPAN))
+    ops = rng.permutation(np.repeat(
+        np.array([_CIGAR_D, _CIGAR_I], dtype=np.int64), per_type))
+    low = np.where(ops == _CIGAR_D, SAMPLE_DEL_SIZES[0],
+                   config["ins_sizes"][0])
+    high = np.where(ops == _CIGAR_D, SAMPLE_DEL_SIZES[1],
+                    config["ins_sizes"][1])
+    sizes = np.rint(np.exp(rng.uniform(np.log(low), np.log(high)))).astype(
+        np.int64)
+    spacing = SAMPLE_LOCUS_GAP + np.where(ops == _CIGAR_D, sizes, 0)
+    free = length - 2 * SAMPLE_MARGIN - int(spacing.sum())
+    if free < 0:
+        raise ValueError("{0} loci do not fit a {1} bp contig".format(
+            len(ops), length))
+    positions = (SAMPLE_MARGIN + np.sort(rng.integers(0, free + 1, len(ops)))
+                 + np.concatenate([[0], np.cumsum(spacing)[:-1]]))
+    low_cover, high_cover = SAMPLE_COVERAGE
+    offsets = []
+    for op, size in zip(ops.tolist(), sizes.tolist()):
+        coverage = int(rng.integers(low_cover, high_cover + 1))
+        shift = max(TIEFREE_POSITION_JITTER["D" if op == _CIGAR_D else "I"],
+                    coverage // 2)
+        reach = max(int(size * TIEFREE_SIZE_JITTER), coverage)
+        shifts = _distinct_offsets(rng, shift, coverage)
+        resizes = _distinct_offsets(rng, reach, coverage)
+        motif = (rng.integers(0, 4, size + reach, dtype=np.uint8)
+                 if op == _CIGAR_I else None)
+        offsets.append((shifts, resizes, motif))
+    return ops, positions, sizes, offsets
+
+
+def _noise_rows(rng, count):
+    """_noisy_cigar's draws for `count` reads, a byte an (M, indel) pair:
+    M length (3-15) in the high nibble, 1 for an insertion in bit 3, the
+    indel's length less one (0-7) in the low bits."""
+    rows = np.empty((count, NOISE_PAIRS), dtype=np.uint8)
+    for low in range(0, count, 8192):
+        high = min(count, low + 8192)
+        shape = (high - low, NOISE_PAIRS)
+        rows[low:high] = ((rng.integers(3, 16, shape, dtype=np.uint8) << 4)
+                          | (rng.integers(0, 2, shape, dtype=np.uint8) << 3)
+                          | rng.integers(0, 8, shape, dtype=np.uint8))
+    return rows
+
+
+def _noise_fields(rows):
+    """(M lengths, 1 for an insertion, indel lengths) of noise rows."""
+    return rows >> 4, (rows >> 3) & 1, (rows & 7) + 1
+
+
+def _noise_sums(rows, sv_at, block=8192):
+    """Per read: its noise's (M, inserted, deleted) bases; and per
+    supporting read (the first len(sv_at)), the indel at its sv_at (length,
+    1 for an insertion) and the reference and sequence bases before its SV
+    op.  Summed a block of rows at a time."""
+    sums = np.empty((3, len(rows)), dtype=np.int64)
+    heads = np.empty((4, len(sv_at)), dtype=np.int64)
+    for low in range(0, len(rows), block):
+        m, is_ins, indel = _noise_fields(rows[low:low + block])
+        inserted = indel * is_ins
+        sums[:, low:low + block] = [m.sum(axis=1, dtype=np.int64),
+                                    inserted.sum(axis=1, dtype=np.int64),
+                                    (indel - inserted).sum(axis=1,
+                                                           dtype=np.int64)]
+        at = sv_at[low:low + block]
+        if not len(at):
+            continue
+        count = len(at)
+        m, is_ins, indel, inserted = (m[:count], is_ins[:count],
+                                      indel[:count], inserted[:count])
+        column = np.arange(NOISE_PAIRS)[None, :]
+        before = column < at[:, None]
+        rows_at = np.arange(count)
+        head_m = (m * (column <= at[:, None])).sum(axis=1, dtype=np.int64)
+        heads[:, low:low + count] = [
+            indel[rows_at, at], is_ins[rows_at, at],
+            head_m + ((indel - inserted) * before).sum(axis=1,
+                                                       dtype=np.int64),
+            head_m + (inserted * before).sum(axis=1, dtype=np.int64)]
+    return sums, heads
+
+
+def check_inside(starts, spans, length, contig):
+    """Refuses a read that starts before 0 or ends past its contig's LN."""
+    starts = np.asarray(starts)
+    ends = starts + np.asarray(spans)
+    outside = np.flatnonzero((starts < 0) | (ends > length))
+    if len(outside):
+        raise ValueError("{0} reads lie outside {1} (LN {2}): the first "
+                         "covers [{3}, {4})".format(
+                             len(outside), contig, length,
+                             int(starts[outside[0]]), int(ends[outside[0]])))
+
+
+class _BgzfWriter:
+    """Writes an inflated BAM stream as BGZF members of 0xFF00 bytes,
+    deflated by a pool of threads (zlib lets go of the GIL), and keeps the
+    stream's sha256 and size."""
+
+    def __init__(self, path):
+        from concurrent.futures import ThreadPoolExecutor
+        import hashlib
+
+        self.handle = open(path, "wb")
+        self.pool = ThreadPoolExecutor(max_workers=os.cpu_count() or 1)
+        self.pending = []
+        self.carry = b""
+        self.digest = hashlib.sha256()
+        self.inflated = 0
+
+    def _member(self, data):
+        compressor = zlib.compressobj(SAMPLE_BGZF_LEVEL, zlib.DEFLATED, -15)
+        payload = compressor.compress(data) + compressor.flush()
+        return (struct.pack("<BBBBIBBHBBHH", 0x1F, 0x8B, 8, 4, 0, 0, 0xFF, 6,
+                            ord("B"), ord("C"), 2, len(payload) + 25)
+                + payload + struct.pack("<II", zlib.crc32(data), len(data)))
+
+    def _drain(self, keep):
+        while len(self.pending) > keep:
+            self.handle.write(self.pending.pop(0).result())
+
+    def write(self, data):
+        self.digest.update(data)
+        self.inflated += len(data)
+        data = self.carry + data
+        full = len(data) - len(data) % 0xFF00
+        for start in range(0, full, 0xFF00):
+            self.pending.append(self.pool.submit(
+                self._member, data[start:start + 0xFF00]))
+        self.carry = data[full:]
+        self._drain(4 * (os.cpu_count() or 1))
+
+    def close(self):
+        if self.carry:
+            self.pending.append(self.pool.submit(self._member, self.carry))
+        self._drain(0)
+        self.pool.shutdown()
+        self.handle.write(bamio.BGZF_EOF)
+        self.handle.close()
+
+
+def _bam_header(contigs):
+    text = _header_text(AlignmentHeader({}, [name for name, _ in contigs],
+                                        [size for _, size in contigs], ""),
+                        "coordinate").encode()
+    parts = [b"BAM\x01", struct.pack("<i", len(text)), text,
+             struct.pack("<i", len(contigs))]
+    for name, size in contigs:
+        name_bytes = name.encode() + b"\x00"
+        parts += [struct.pack("<i", len(name_bytes)), name_bytes,
+                  struct.pack("<i", size)]
+    return b"".join(parts)
+
+
+def _write_genome(path, contigs, seed):
+    """Random bases, 60 a line, for each (name, length)."""
+    rng = np.random.default_rng([seed, 2])
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    with open(path, "wb") as handle:
+        for name, length in contigs:
+            handle.write(">{0}\n".format(name).encode())
+            for low in range(0, length, 60 << 20):
+                high = min(length, low + (60 << 20))
+                bases = letters[rng.integers(0, 4, high - low,
+                                             dtype=np.uint8)]
+                full = len(bases) - len(bases) % 60
+                lines = np.empty((full // 60, 61), dtype=np.uint8)
+                lines[:, :60] = bases[:full].reshape(-1, 60)
+                lines[:, 60] = ord("\n")
+                handle.write(lines.tobytes())
+                if full < len(bases):
+                    handle.write(bases[full:].tobytes() + b"\n")
+
+
+def sample_workload(directory, seed=1, **changes):
+    """A chromosome of a 30x ONT-like sample, at the scale a user runs:
+    SAMPLE_CONTIGS[0] the length of GRCh38 chr20 holds the reads and the
+    SV loci, SAMPLE_CONTIGS[1] the length of chr21 the partners of split
+    reads.  Reads have _noisy_cigar's distribution (3,001 CIGAR ops,
+    ~16.9 kb of reference and of sequence), random bases and no QUAL; the
+    host is covered `depth` times over.  One locus of each type per
+    2 * SAMPLE_LOCUS_SPAN bp: DEL sizes log-uniform over SAMPLE_DEL_SIZES,
+    INS over `ins_sizes`, placed uniformly with SAMPLE_LOCUS_GAP bp between
+    one locus's end and the next; each has SAMPLE_COVERAGE reads whose
+    position and size offsets are drawn without repeats as in
+    tiefree_workload, so that the device labels partitions as it would on
+    a real sample; an INS read carries its locus's motif with
+    tiefree_workload's per-read base noise.  One background read in
+    SAMPLE_SPLIT_EVERY carries an SA:Z partner on the second contig.  Every
+    read lies inside its contig's LN (check_inside).
+
+    Built as arrays, the BAM's record bytes written directly (no SAM text)
+    and deflated by threads.  `changes` replace fields of SAMPLE (the CPU
+    tests' smaller samples).  Writes sample.bam, genome.fa, truth.json (the
+    DEL and INS loci, for load_truth and sim.evaluate_vcf) and sample.json
+    (reads, loci, BAM and inflated bytes, the inflated stream's sha256,
+    seconds).  Returns (bam_path, genome_path)."""
+    import time
+
+    from svim_tpu_torch.sim import TruthVariant
+
+    unknown = set(changes) - set(SAMPLE)
+    if unknown:
+        raise TypeError("unknown sample fields: {0}".format(sorted(unknown)))
+    config = dict(SAMPLE, **changes)
+    started = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    host, partner = SAMPLE_CONTIGS
+    length, partner_length = config["contig_length"], config["partner_length"]
+    ops, positions, sizes, offsets = _sample_loci(rng, config)
+    coverages = np.array([len(shifts) for shifts, _, _ in offsets],
+                         dtype=np.int64)
+    n_support = int(coverages.sum())
+    total = round(length * config["depth"] / SAMPLE_MEAN_SPAN)
+    n_reads = n_support + max(0, total - n_support)
+    rows = _noise_rows(rng, n_reads)
+
+    # the supporting reads come first, locus by locus; the SV op takes the
+    # place of the noise indel at sv_at, as in _noisy_cigar
+    locus_of = np.repeat(np.arange(len(ops)), coverages)
+    sv_op = ops[locus_of]
+    sv_len = sizes[locus_of] + np.concatenate(
+        [resizes for _, resizes, _ in offsets]).astype(np.int64)
+    sv_at = rng.integers(NOISE_PAIRS // 4, 3 * NOISE_PAIRS // 4 + 1, n_support)
+    (match, inserted, deleted), (at_len, at_ins, ref_before, sv_seq_pos) = \
+        _noise_sums(rows, sv_at)
+    inserted[:n_support] += np.where(sv_op == _CIGAR_I, sv_len, 0) \
+        - at_len * at_ins
+    deleted[:n_support] += np.where(sv_op == _CIGAR_D, sv_len, 0) \
+        - at_len * (1 - at_ins)
+    spans = match + deleted + 20
+    seq_lens = match + inserted + 20
+
+    starts = np.empty(n_reads, dtype=np.int64)
+    starts[:n_support] = positions[locus_of] - ref_before + np.concatenate(
+        [shifts for shifts, _, _ in offsets])
+    starts[n_support:] = np.floor(rng.random(n_reads - n_support) * (
+        length - spans[n_support:] + 1)).astype(np.int64)
+    check_inside(starts, spans, length, host)
+    background = np.arange(n_reads - n_support)
+    split = n_support + background[background % SAMPLE_SPLIT_EVERY == 0]
+    partners = rng.integers(1, partner_length - SAMPLE_SPLIT_SPAN + 2,
+                            len(split))
+    check_inside(partners - 1, np.full(len(split), SAMPLE_SPLIT_SPAN),
+                 partner_length, partner)
+    # BAM's SA tag: its name, type Z, the text, NUL
+    tags = {int(read): b"SAZ" + "{0},{1},+,{2}S{3}M,60,0;".format(
+        partner, int(position), int(seq_lens[read]) - SAMPLE_SPLIT_SPAN,
+        SAMPLE_SPLIT_SPAN).encode() + b"\x00"
+        for read, position in zip(split, partners)}
+    inserts = {}
+    for locus in np.flatnonzero(ops == _CIGAR_I).tolist():
+        _, resizes, motif = offsets[locus]
+        for read, resize in zip(np.flatnonzero(locus_of == locus).tolist(),
+                                resizes.tolist()):
+            insert = motif[:sizes[locus] + resize].copy()
+            noise = int(rng.integers(0, 5))
+            insert[rng.integers(0, len(insert), noise)] = rng.integers(
+                0, 4, noise, dtype=np.uint8)
+            inserts[read] = insert
+
+    os.makedirs(directory, exist_ok=True)
+    bam_path = os.path.join(directory, "sample.bam")
+    writer = _BgzfWriter(bam_path)
+    writer.write(_bam_header([(host, length), (partner, partner_length)]))
+    order = np.argsort(starts, kind="stable")
+    for low in range(0, n_reads, SAMPLE_CHUNK):
+        reads = order[low:low + SAMPLE_CHUNK]
+        chunk_m, chunk_ins, chunk_indel = (
+            field.astype(np.uint32) for field in _noise_fields(rows[reads]))
+        words = np.empty((len(reads), SAMPLE_OPS), dtype=np.uint32)
+        words[:, 0:READ_LENGTH_OPS:2] = chunk_m << 4
+        words[:, 1:READ_LENGTH_OPS:2] = (chunk_indel << 4) | (
+            _CIGAR_D - chunk_ins)
+        words[:, READ_LENGTH_OPS] = 20 << 4
+        sv = np.flatnonzero(reads < n_support)
+        words[sv, 2 * sv_at[reads[sv]] + 1] = (sv_len[reads[sv]] << 4) \
+            | sv_op[reads[sv]]
+        # random bases, each read's run padded to an even count (the pad
+        # is BAM's 0 nibble), each INS read's insert at its SV op
+        lengths = seq_lens[reads]
+        padded = lengths + lengths % 2
+        read_starts = np.concatenate([[0], np.cumsum(padded)[:-1]])
+        codes = _BASE_CODES[rng.integers(0, 4, int(padded.sum()),
+                                         dtype=np.uint8)]
+        codes[(read_starts + lengths)[lengths % 2 == 1]] = 0
+        for index in sv.tolist():
+            insert = inserts.get(int(reads[index]))
+            if insert is not None:
+                at = read_starts[index] + sv_seq_pos[reads[index]]
+                codes[at:at + len(insert)] = _BASE_CODES[insert]
+        packed = (codes[0::2] << 4) | codes[1::2]   # BAM's two a byte
+        packed_at = read_starts // 2
+        parts = []
+        for index, read in enumerate(reads.tolist()):
+            name = "read{0}".format(low + index).encode() + b"\x00"
+            l_seq = int(lengths[index])
+            tag = tags.get(read, b"")
+            seq = packed[packed_at[index]:packed_at[index] + (l_seq + 1) // 2]
+            size = 32 + len(name) + 4 * SAMPLE_OPS + len(seq) + l_seq \
+                + len(tag)
+            parts += [struct.pack("<iiiBBHHHiiii", size, 0,
+                                  int(starts[read]), len(name), 60, 0,
+                                  SAMPLE_OPS, 0, l_seq, -1, -1, 0),
+                      name, words[index].tobytes(), seq.tobytes(),
+                      b"\xff" * l_seq, tag]
+        writer.write(b"".join(parts))
+    writer.close()
+
+    genome_path = os.path.join(directory, "genome.fa")
+    _write_genome(genome_path, [(host, length), (partner, partner_length)],
+                  seed)
+    truth = [TruthVariant("DEL" if op == _CIGAR_D else "INS", host,
+                          int(position), int(size))
+             for op, position, size in zip(ops.tolist(), positions.tolist(),
+                                           sizes.tolist())]
+    _save_truth(directory, "sim", truth)
+    with open(os.path.join(directory, SAMPLE_FILE), "w") as handle:
+        json.dump({"reads": n_reads, "supporting_reads": n_support,
+                   "split_reads": len(split),
+                   "loci": {"DEL": int((ops == _CIGAR_D).sum()),
+                            "INS": int((ops == _CIGAR_I).sum())},
+                   "bam_bytes": os.path.getsize(bam_path),
+                   "inflated_bytes": writer.inflated,
+                   "inflated_sha256": writer.digest.hexdigest(),
+                   "seconds": time.perf_counter() - started}, handle)
+    return bam_path, genome_path
 
 
 def reblock_stored(bam, out):
