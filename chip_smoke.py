@@ -235,6 +235,23 @@ Phases, each of which raises (non-zero exit) on failure:
      shapes and table rows, wavefront launches by kernel variant, stage
      seconds, reads/s through COLLECT+CLUSTER and, from a traced run of
      each path in a process of its own, device busy time.
+ 19. (run after 18, for the same reason) the same chromosome with loci of
+     all six classes: svim_tpu_torch.workloads.sample_classes_workload (60
+     loci of each of INV, DUP:TANDEM, DUP:INT, three of its sources copied
+     to 3, 4 and 5 destinations, and BND beside the 280 DEL and 280 INS
+     loci; three loci a class of 40-100 or 40-60 reads; no split-read
+     partition with an exact tie), made by a background maker, whose
+     inflated stream must hash to svim_tpu's input
+     (SAMPLE_CLASSES_INFLATED_SHA256), through the CLI at its defaults
+     (SAMPLE_CLASSES_PATH, streamed).  The VCF's sha256, per-class (tp,
+     fp, fn), telemetry and accepted labelings by route must equal
+     svim_tpu's (SAMPLE_CLASSES_*); partitions of each of DEL, INV,
+     DUP_TAN, DUP_INT and BND must reach the agglomeration kernel's fused
+     entry, one fused launch must run at P = 128, and the DUP_INT
+     candidate round must call the matrix entry and launch it.  Every
+     device call is recorded as in phase 18 (phases 6, 15 and 16 replay
+     them).  Logs what phase 18 logs, with the fused-entry partitions by
+     type and pad bucket and the candidate round's calls.
 The script imports torch and the port, never jax or the JAX package: the
 inputs come from svim_tpu_torch.workloads.
 Then one JSON line describing the kernels, the card line, and the last
@@ -356,6 +373,30 @@ SAMPLE_TELEMETRY = {"sample_auto": (dict(_NO_TELEMETRY, device=160,
                                               pre_tie=51, post_tie=130,
                                               resident_relink=173),
                                          {"fused": 99, "resident": 107})}
+# the sample with loci of all six classes (phase 19:
+# svim_tpu_torch.workloads.sample_classes_workload at SAMPLE_SEED, 60 loci of
+# each split-read class beside the DEL and INS loci) and the path phase 19
+# drives on it, the CLI's defaults.  From svim_tpu's CPU run: the
+# sha256 of the generator's inflated BAM stream and of variants.vcf
+# (##fileDate lines left out), its per-class (tp, fp, fn) from evaluate_vcf,
+# its clustering telemetry (the DUP_INT candidate round's included) and its
+# accepted labelings by route
+SAMPLE_CLASSES_PATH = "sample_classes_auto"
+SAMPLE_CLASSES_INFLATED_SHA256 = ("1ea8004973774e5823378235adb59b5f"
+                                  "929b31da839eb771f8c46095b2150d2b")
+SAMPLE_CLASSES_VCF_SHA256 = ("64d0a3d4d1b88349ec06252b91a912bd"
+                             "caed2cc9a341ab18426ae93ac2ef97a4")
+SAMPLE_CLASSES_CLASSES = {"ALL": (1099, 58, 1), "BND": (359, 3, 1),
+                          "DEL": (280, 0, 0), "DUP:INT": (60, 0, 0),
+                          "DUP:TANDEM": (60, 0, 0), "INS": (280, 55, 0),
+                          "INV": (60, 0, 0)}
+SAMPLE_CLASSES_TELEMETRY = (dict(_NO_TELEMETRY, device=208, pre_tie=152,
+                                 pre_wall=60, post_tie=443),
+                            {"fused": 135, "matrix": 73})
+# the signature types whose partitions phase 19 must see on the
+# agglomeration kernel's fused entry (named here, not read from the port's
+# device_cluster.FUSED_TYPES: the check does not follow the code it checks)
+FUSED_ENTRY_TYPES = ("DEL", "INV", "DUP_TAN", "DUP_INT", "BND")
 # (B, P) of the distance kernel's JSON timing: the largest listed shape
 DISTANCE_MAIN_SHAPE = (8192, 128)
 LINKAGE_OPS = ("span_position_agglomerate_batched", "agglomerate_batched",
@@ -985,7 +1026,9 @@ WORKLOADS = {"bench": (BENCH_READS, "bench.bam"),
              "stress": (STRESS_SEED, "reads.bam", "truth.json"),
              "independent": (STRESS_SEED, "reads.bam", "truth.json"),
              "sample": (SAMPLE_SEED, "sample.bam", "truth.json",
-                        "sample.json")}
+                        "sample.json"),
+             "sample_classes": (SAMPLE_SEED, "sample.bam", "truth.json",
+                                "sample.json")}
 
 
 def _workload_paths(name):
@@ -4317,9 +4360,11 @@ PORT_KERNEL_NAMES = ("agglomerate_fused_kernel", "agglomerate_matrix_kernel",
 
 class ClusterTally:
     """While active, counts what the CLUSTER stage sent to the agglomeration
-    kernel: the partitions registered on its fused entry, by signature type,
-    and the DUP_INT candidate round's calls, the partitions they offered and
-    the agglomeration launches they made (on the matrix entry)."""
+    kernel: the partitions registered on its fused entry, by signature type
+    (and by type and pad bucket P), the fused-entry labelings the float32
+    guard accepted, by type, and the DUP_INT candidate round's calls, the
+    partitions they offered and the agglomeration launches they made (on
+    the matrix entry)."""
 
     def __init__(self):
         from svim_tpu_torch.cluster import device_cluster
@@ -4328,18 +4373,36 @@ class ClusterTally:
         self.module = device_cluster
         self.kernels = linkage_kernel
         self.fused = {}
+        self.buckets = {}
+        self.accepted = {}
         self.candidates = {"calls": 0, "partitions": 0, "launches": 0}
 
     def __enter__(self):
         self.originals = (self.module._dispatch_fused,
+                          self.module._consume_fused,
                           self.module.cluster_candidates_device)
-        dispatch, candidates = self.originals
+        dispatch, consume, candidates = self.originals
+        types = {}
 
         def counted_dispatch(samples, element_type, *args, **kwargs):
             pending = dispatch(samples, element_type, *args, **kwargs)
+            types[id(pending)] = element_type
             self.fused[element_type] = (self.fused.get(element_type, 0)
                                         + len(pending.fused))
+            for _index, _survivors, _dropped, (_route, pad, _row) \
+                    in pending.fused:
+                bucket = "{0} P={1}".format(element_type, pad)
+                self.buckets[bucket] = self.buckets.get(bucket, 0) + 1
             return pending
+
+        def counted_consume(pending, *args, **kwargs):
+            before = self.module.TELEMETRY.device
+            results = consume(pending, *args, **kwargs)
+            element_type = types[id(pending)]
+            self.accepted[element_type] = (
+                self.accepted.get(element_type, 0)
+                + self.module.TELEMETRY.device - before)
+            return results
 
         def counted_candidates(samples, *args, **kwargs):
             before = self.kernels.LAUNCHES
@@ -4350,11 +4413,12 @@ class ClusterTally:
             return results
 
         self.module._dispatch_fused = counted_dispatch
+        self.module._consume_fused = counted_consume
         self.module.cluster_candidates_device = counted_candidates
         return self
 
     def __exit__(self, *exc):
-        (self.module._dispatch_fused,
+        (self.module._dispatch_fused, self.module._consume_fused,
          self.module.cluster_candidates_device) = self.originals
 
 
@@ -4442,7 +4506,7 @@ chip_smoke.stress_busy(sys.argv[2])
 
 
 def stress_busy(runs):
-    """Phases 17 and 18's device busy time, in a process of its own so
+    """Phases 17-19's device busy time, in a process of its own so
     that its torch.profiler session is the process's first (see
     start_kernels_a_call): the CLI runs of `runs` (JSON [[path, arguments],
     ...]) one after another under one session, each inside a
@@ -4722,6 +4786,112 @@ class WindowMemory:
                                               max(shared)]}
 
 
+def _sample_made(makers, name, inflated_sha256):
+    """(directory, bam, genome, sample.json) of a sample workload (`name`
+    in WORKLOADS), made by its background maker: logs the generation, and
+    fails unless its inflated stream hashes to `inflated_sha256` and its
+    BAM crosses the streaming threshold."""
+    from svim_tpu_torch import workloads
+    from svim_tpu_torch.collect.packed import STREAMING_THRESHOLD_BYTES
+
+    directory, bam, genome = _workload(makers, name)
+    with open(os.path.join(directory, workloads.SAMPLE_FILE)) as handle:
+        made = json.load(handle)
+    log(name, "the sample: {0} reads ({1} supporting {2} loci, {3} "
+        "split), {4} bytes of BAM, {5} inflated, made in {6!r} s by the "
+        "maker's own clock".format(
+            made["reads"], made["supporting_reads"],
+            json.dumps(made["loci"]), made["split_reads"],
+            made["bam_bytes"], made["inflated_bytes"], made["seconds"]))
+    if made["inflated_sha256"] != inflated_sha256:
+        raise AssertionError("the {0} workload's inflated stream hashes to "
+                             "{1}, not to the pinned {2}: the generator drew "
+                             "differently".format(name,
+                                                  made["inflated_sha256"],
+                                                  inflated_sha256))
+    if os.path.getsize(bam) <= STREAMING_THRESHOLD_BYTES:
+        raise AssertionError("the {0} workload's BAM does not cross the "
+                             "streaming threshold".format(name))
+    return directory, bam, genome, made
+
+
+def _sample_path(card, phase, sample, path, flags, recorder, device_ops):
+    """One run of the CLI on a sample ((directory, bam, genome, made) of
+    _sample_made) on the card, every device call recorded as in phase 17
+    (the linkage ops for phase 6, COLLECT and GENOTYPE for phases 15 and
+    16, the wavefront calls for the caller); logs the stage seconds,
+    reads/s through COLLECT+CLUSTER, the windows and batches streamed, the
+    per-class counts, telemetry, accepted labelings by route, fused-entry
+    partitions by type, the candidate round, the launches and the memory at
+    each batch.  Fails unless COLLECT streamed.  Returns {"launches",
+    "telemetry", "by_route", "classes", "digest", "tally", "working_dir"}."""
+    import resource
+
+    from svim_tpu_torch import workloads
+    from svim_tpu_torch.io import bamstream
+    from svim_tpu_torch.sim import evaluate_vcf
+
+    directory, bam, genome, made = sample
+    working_dir = os.path.join(directory, "wd_" + path)
+    bamstream.BATCHES = bamstream.WINDOWS = 0
+    recorder.label = path
+    with recorder, device_ops.recording(path, RECORDED_OPS + WAVEFRONT_OP), \
+            RouteCounter() as routes, ClusterTally() as tally, \
+            WindowMemory() as memory:
+        _drive(path, ["alignment", working_dir, bam, genome, "--profile"]
+               + flags)
+    seconds = _stage_seconds(working_dir)
+    result = {
+        "launches": PATH_LAUNCHES[path], "telemetry": _telemetry(),
+        "by_route": {route: count for route, count in routes.device.items()
+                     if count},
+        "classes": {svtype: tuple(counts) for svtype, counts in evaluate_vcf(
+            os.path.join(working_dir, "variants.vcf"),
+            workloads.load_truth(directory)).items()},
+        "digest": _vcf_sha256(working_dir), "tally": tally,
+        "working_dir": working_dir}
+    log(phase, "{0} on {1}: stages {2}; {3!r} reads/s through "
+        "COLLECT+CLUSTER; {4} windows in {5} batches streamed; per class "
+        "(tp, fp, fn) {6}; telemetry {7}; labelings accepted by route "
+        "{8}; fused-entry partitions by type {9}, by pad bucket {10} and "
+        "accepted by type {15}; DUP_INT candidate round {11}; launches {12}; "
+        "resident and shared memory at the streamed batches {13}; peak "
+        "resident memory of the smoke so far {14} MiB".format(
+            path, card, json.dumps(seconds),
+            made["reads"] / (seconds["collect"] + seconds["cluster"]),
+            bamstream.WINDOWS, bamstream.BATCHES,
+            json.dumps(result["classes"]), json.dumps(result["telemetry"]),
+            json.dumps(result["by_route"]), json.dumps(tally.fused),
+            json.dumps(tally.buckets), json.dumps(tally.candidates),
+            json.dumps(result["launches"]), json.dumps(memory.summary()),
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024,
+            json.dumps(tally.accepted)))
+    if not bamstream.BATCHES:
+        raise AssertionError(path + ": COLLECT did not stream")
+    return result
+
+
+def _sample_pins(path, result, digest, classes, telemetry, needed):
+    """Fails unless a _sample_path result holds svim_tpu's pins (the VCF's
+    sha256, the per-class counts, (telemetry, labelings by route)) and
+    launched every kernel of `needed`."""
+    if result["digest"] != digest:
+        raise AssertionError("{0}: variants.vcf (sha256 {1}) differs from "
+                             "svim_tpu's".format(path, result["digest"]))
+    if result["classes"] != classes:
+        raise AssertionError("{0}: per-class counts {1}, svim_tpu's "
+                             "{2}".format(path, result["classes"], classes))
+    if (result["telemetry"], result["by_route"]) != telemetry:
+        raise AssertionError("{0}: telemetry {1} and labelings by route "
+                             "{2}, svim_tpu's {3}".format(
+                                 path, result["telemetry"],
+                                 result["by_route"], telemetry))
+    idle = [name for name in needed if result["launches"][name] <= 0]
+    if idle:
+        raise AssertionError("{0} launched no {1} kernel".format(
+            path, ", ".join(idle)))
+
+
 def phase_sample(card, makers, recorder, device_ops):
     """Phase 18: a chromosome of a 30x sample (workloads.sample_workload,
     made by a background maker from the start of the run) through the CLI
@@ -4737,92 +4907,24 @@ def phase_sample(card, makers, recorder, device_ops):
     and batches streamed, what the calls held (_sample_calls), each run's
     stage seconds and reads/s through COLLECT+CLUSTER, and from a traced run
     of each path in a process of its own its device busy time."""
-    import resource
-
-    from svim_tpu_torch import workloads
-    from svim_tpu_torch.collect.packed import STREAMING_THRESHOLD_BYTES
-    from svim_tpu_torch.io import bamstream
-    from svim_tpu_torch.sim import evaluate_vcf
-
     started = time.perf_counter()
-    directory, bam, genome = _workload(makers, "sample")
-    with open(os.path.join(directory, workloads.SAMPLE_FILE)) as handle:
-        made = json.load(handle)
-    log("sample", "the sample: {0} reads ({1} supporting {2} loci, {3} "
-        "split), {4} bytes of BAM, {5} inflated, made in {6!r} s by the "
-        "maker's own clock".format(
-            made["reads"], made["supporting_reads"],
-            json.dumps(made["loci"]), made["split_reads"],
-            made["bam_bytes"], made["inflated_bytes"], made["seconds"]))
-    if made["inflated_sha256"] != SAMPLE_INFLATED_SHA256:
-        raise AssertionError("the sample's inflated stream hashes to {0}, "
-                             "not to the pinned {1}: the generator drew "
-                             "differently".format(made["inflated_sha256"],
-                                                  SAMPLE_INFLATED_SHA256))
-    if os.path.getsize(bam) <= STREAMING_THRESHOLD_BYTES:
-        raise AssertionError("the sample's BAM does not cross the streaming "
-                             "threshold")
-    truth = workloads.load_truth(directory)
+    sample = _sample_made(makers, "sample", SAMPLE_INFLATED_SHA256)
     traced = []
     for path, flags in SAMPLE_PATHS.items():
-        working_dir = os.path.join(directory, "wd_" + path)
-        bamstream.BATCHES = bamstream.WINDOWS = 0
-        recorder.label = path
-        with recorder, device_ops.recording(path,
-                                            RECORDED_OPS + WAVEFRONT_OP), \
-                RouteCounter() as routes, ClusterTally() as tally, \
-                WindowMemory() as memory:
-            _drive(path, ["alignment", working_dir, bam, genome,
-                          "--profile"] + flags)
-        launches = PATH_LAUNCHES[path]
-        seconds = _stage_seconds(working_dir)
-        telemetry = _telemetry()
-        by_route = {route: count for route, count in routes.device.items()
-                    if count}
-        classes = {svtype: tuple(counts) for svtype, counts in evaluate_vcf(
-            os.path.join(working_dir, "variants.vcf"), truth).items()}
-        log("sample", "{0} on {1}: stages {2}; {3!r} reads/s through "
-            "COLLECT+CLUSTER; {4} windows in {5} batches streamed; per class "
-            "(tp, fp, fn) {6}; telemetry {7}; labelings accepted by route "
-            "{8}; fused-entry partitions by type {9}; launches {10}; "
-            "resident and shared memory at the streamed batches {11}; peak "
-            "resident memory of the smoke so far {12} MiB".format(
-                path, card, json.dumps(seconds),
-                made["reads"] / (seconds["collect"] + seconds["cluster"]),
-                bamstream.WINDOWS, bamstream.BATCHES, json.dumps(classes),
-                json.dumps(telemetry), json.dumps(by_route),
-                json.dumps(tally.fused), json.dumps(launches),
-                json.dumps(memory.summary()),
-                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024))
-        if not bamstream.BATCHES:
-            raise AssertionError(path + ": COLLECT did not stream")
-        digest = _vcf_sha256(working_dir)
-        if digest != SAMPLE_VCF_SHA256[path]:
-            raise AssertionError("{0}: variants.vcf (sha256 {1}) differs "
-                                 "from svim_tpu's".format(path, digest))
-        if classes != SAMPLE_CLASSES[path]:
-            raise AssertionError("{0}: per-class counts {1}, svim_tpu's "
-                                 "{2}".format(path, classes,
-                                              SAMPLE_CLASSES[path]))
-        if (telemetry, by_route) != SAMPLE_TELEMETRY[path]:
-            raise AssertionError("{0}: telemetry {1} and labelings by route "
-                                 "{2}, svim_tpu's {3}".format(
-                                     path, telemetry, by_route,
-                                     SAMPLE_TELEMETRY[path]))
+        result = _sample_path(card, "sample", sample, path, flags, recorder,
+                              device_ops)
         needed = ["collect_scan", "classify_segments", "genotype_support",
                   "agglomerate"]
         if path == "sample_wavefront":
             needed += ["wavefront_banded_distance", "ins_matrices"]
-        idle = [name for name in needed if launches[name] <= 0]
-        if idle:
-            raise AssertionError("{0} launched no {1} kernel".format(
-                path, ", ".join(idle)))
+        _sample_pins(path, result, SAMPLE_VCF_SHA256[path],
+                     SAMPLE_CLASSES[path], SAMPLE_TELEMETRY[path], needed)
         log("sample", "{0}: VCF hashes to svim_tpu's; per-class counts, "
             "telemetry and labelings by route equal svim_tpu's; calls: {1}"
             .format(path, json.dumps(_sample_calls(path, device_ops.calls,
                                                    recorder))))
-        traced.append([path, ["alignment", working_dir + "_traced", bam,
-                              genome] + flags])
+        traced.append([path, ["alignment", result["working_dir"] + "_traced",
+                              sample[1], sample[2]] + flags])
 
     compared = WAVEFRONT_CHECK["calls"]
     for label, kernel, args, _kwargs, outputs in device_ops.calls:
@@ -4838,6 +4940,63 @@ def phase_sample(card, makers, recorder, device_ops):
                     WAVEFRONT_CHECK["max_abs_err"]))
     log_busy("sample", card, traced)
     log("sample", "phase 18 took {0:.1f} s".format(
+        time.perf_counter() - started))
+
+
+def phase_sample_classes(card, makers, recorder, device_ops):
+    """Phase 19: the sample with loci of all six classes
+    (workloads.sample_classes_workload: 60 loci of each split-read class
+    beside the DEL and INS loci, no split-read partition with an exact
+    tie), made by a background maker, through the CLI at its defaults on
+    the card (SAMPLE_CLASSES_PATH; COLLECT streams it).  Its inflated
+    stream, the VCF's sha256, the per-class (tp, fp, fn), telemetry and
+    accepted labelings by route must equal svim_tpu's (SAMPLE_CLASSES_*);
+    every device call is recorded as in phase 18 (phases 6, 15 and 16
+    replay them).  The path must show, on the card: partitions of each of
+    FUSED_ENTRY_TYPES registered on the agglomeration kernel's fused entry,
+    a fused launch at P = 128, and the DUP_INT candidate round calling the
+    matrix entry and launching it; a class that never reaches the card is
+    the generator's fault.  Logs the generation, what the calls held
+    (_sample_calls: scans and overflows, the linkage calls by pad bucket,
+    the GENOTYPE join's shape), stage seconds, reads/s through
+    COLLECT+CLUSTER and, from a traced run in a process of its own, device
+    busy time."""
+    started = time.perf_counter()
+    path = SAMPLE_CLASSES_PATH
+    sample = _sample_made(makers, "sample_classes",
+                          SAMPLE_CLASSES_INFLATED_SHA256)
+    result = _sample_path(card, "sample_classes", sample, path, [],
+                          recorder, device_ops)
+    _sample_pins(path, result, SAMPLE_CLASSES_VCF_SHA256,
+                 SAMPLE_CLASSES_CLASSES, SAMPLE_CLASSES_TELEMETRY,
+                 ["collect_scan", "classify_segments", "genotype_support",
+                  "agglomerate"])
+    tally = result["tally"]
+    missing = [element_type for element_type in FUSED_ENTRY_TYPES
+               if not tally.fused.get(element_type)]
+    if missing:
+        raise AssertionError("{0}: no {1} partition reached the fused entry "
+                             "(the generator is at fault)".format(
+                                 path, ", ".join(missing)))
+    if not tally.candidates["calls"] or not tally.candidates["launches"]:
+        raise AssertionError("{0}: the DUP_INT candidate round made no call "
+                             "and launch on the matrix entry: {1}".format(
+                                 path, json.dumps(tally.candidates)))
+    calls = _sample_calls(path, device_ops.calls, recorder)
+    wide = calls["linkage_by_bucket"].get(
+        "span_position_agglomerate_batched P=128", {}).get("calls", 0)
+    if not wide:
+        raise AssertionError("{0}: no fused launch at P = 128".format(path))
+    log("sample_classes", "{0}: VCF hashes to svim_tpu's; per-class counts, "
+        "telemetry and labelings by route equal svim_tpu's; fused-entry "
+        "partitions of all of {1}, {2} fused launches at P = 128, candidate "
+        "round {3}; calls: {4}".format(
+            path, ", ".join(FUSED_ENTRY_TYPES), wide,
+            json.dumps(tally.candidates), json.dumps(calls)))
+    log_busy("sample_classes", card, [[path, [
+        "alignment", result["working_dir"] + "_traced", sample[1],
+        sample[2]]]])
+    log("sample_classes", "phase 19 took {0:.1f} s".format(
         time.perf_counter() - started))
 
 
@@ -4882,10 +5041,11 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
                                                           makers)
     with collect_calls.recording("tiefree"):
         phase_tiefree(card, recorder, makers)
-    # phases 17 and 18 run here so that phases 6, 15 and 16 take their
+    # phases 17, 18 and 19 run here so that phases 6, 15 and 16 take their
     # calls too
     phase_stress(card, makers, recorder, collect_calls)
     phase_sample(card, makers, recorder, collect_calls)
+    phase_sample_classes(card, makers, recorder, collect_calls)
     ins_timings = phase_linkage(recorder, slice_designs)
     rescan_design = rescan_design_library()
     phase_resources(rescan_design)
@@ -4914,7 +5074,7 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
         raise AssertionError("the port imported jax")
     log("paths", "kernel launches per path: {0}".format(
         json.dumps(PATH_LAUNCHES)))
-    log("time", "phases 2-18 took {0:.1f} s".format(
+    log("time", "phases 2-19 took {0:.1f} s".format(
         time.perf_counter() - started))
 
     import torch

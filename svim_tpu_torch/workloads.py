@@ -30,7 +30,11 @@ At the scale a user runs:
   of _noisy_cigar's distribution on a contig the length of GRCh38 chr20,
   560 DEL and INS loci whose reads do not share breakpoints, split
   partners on a second contig), built as arrays and written as BAM record
-  bytes; a 1.1 GB BAM that the CLI streams, with truth.json.
+  bytes; a 1.1 GB BAM that the CLI streams, with truth.json;
+- `sample_classes_workload`: the same with 60 loci of each split-read
+  class (INV, DUP:TANDEM, DUP:INT with multi-copy sources, BND) beside the
+  DEL and INS loci, their reads' breakpoints drawn so that no split-read
+  partition has an exact tie: all six classes labelled on the device.
 Three rewrites of a BAM serve the port's other input paths:
 
 - `reblock_stored`: the same BAM as level-0 (stored) BGZF, so its size on
@@ -52,6 +56,7 @@ into a real BGZF BAM with this package's io layer.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import random
@@ -423,7 +428,8 @@ SAMPLE = dict(contig_length=64_444_167,    # GRCh38 chr20, the SV host
               partner_length=46_709_983,   # GRCh38 chr21: split partners
               depth=30,
               loci=None,             # per type; None: a locus a 115 kb
-              ins_sizes=(50, 3000))  # bp, log-uniform
+              ins_sizes=(50, 3000),  # bp, log-uniform
+              split_loci=None)       # loci a split-read class; None: none
 SAMPLE_DEL_SIZES = (50, 5000)   # bp, log-uniform
 SAMPLE_COVERAGE = (12, 30)      # reads a locus
 SAMPLE_LOCUS_GAP = 5000         # bp from a locus's end to the next
@@ -440,7 +446,29 @@ SAMPLE_CHUNK = 2048           # reads built and written at a time
 SAMPLE_BGZF_LEVEL = 1
 SAMPLE_FILE = "sample.json"
 _BASE_CODES = np.array([1, 2, 4, 8], dtype=np.uint8)   # BAM's A, C, G, T
-_CIGAR_I, _CIGAR_D = 1, 2
+_CIGAR_I, _CIGAR_D, _CIGAR_S = 1, 2, 4
+# the split-read loci (`split_loci`), placed between the DEL and INS loci
+SAMPLE_SPLIT_CLASSES = ("INV", "DUP:TANDEM", "DUP:INT", "BND")
+SAMPLE_SPLIT_SIZES = {"INV": (300, 10_000), "DUP:TANDEM": (100, 5_000),
+                      "DUP:INT": (200, 5_000)}   # bp, log-uniform
+# reads of a wide locus, which takes the 128-slot bucket: INV, DUP:TANDEM
+# and DUP:INT; BND, whose n reads need n(n-1)/2 distinct integer breakpoint
+# distances (_ruler_offsets), so that their spread grows as n^2
+SAMPLE_WIDE_COVERAGE = {"span": (40, 100), "ruler": (40, 60)}
+SAMPLE_SIZE_PER_READ = {False: 8, True: 25}   # bp of SV at least, by wide
+# a class's wide loci, and the DUP:INT sources copied to several
+# destinations (this many each): one of each per 20 split-read loci, 1 to 3
+SAMPLE_DUP_COPIES = (3, 4, 5)
+SAMPLE_END_JITTER = 120       # bp each way of an INV or DUP:TANDEM end, most
+SAMPLE_TAIL = (400, 900)      # bp a supplementary runs past its breakpoint
+# bp between a DUP:INT source and its destinations at least: past
+# --max_sv_size (100 kb), so that the read's segments pair as two
+# translocations (collect/inter.py) rather than a deletion or a tandem
+SAMPLE_SOURCE_DISTANCE = 150_000
+# read kinds of the split-read loci: the primary's breakpoint is its
+# reference end (a soft clip after it), or its start (INV_RIGHT: a reverse
+# primary, the clip before it)
+_INV_LEFT, _INV_RIGHT, _DUP_TAN, _DUP_INT, _BND = range(5)
 
 
 def _distinct_offsets(rng, reach, count):
@@ -484,6 +512,317 @@ def _sample_loci(rng, config):
                  if op == _CIGAR_I else None)
         offsets.append((shifts, resizes, motif))
     return ops, positions, sizes, offsets
+
+
+def _prime_factors(value):
+    factors = []
+    divisor = 2
+    while divisor * divisor <= value:
+        if value % divisor == 0:
+            factors.append(divisor)
+            while value % divisor == 0:
+                value //= divisor
+        divisor += 1
+    return factors + ([value] if value > 1 else [])
+
+
+@functools.lru_cache(maxsize=None)
+def _golomb_marks(n):
+    """n increasing integers from 0 whose pairwise differences are all
+    distinct, no two consecutive ones closer than 2: the shortest such
+    window of n marks over the rotations of Bose's modular Golomb ruler for
+    the least prime p above n (the p exponents k < p^2 - 1 at which
+    theta^k - theta lies in GF(p), theta a primitive element of GF(p^2) =
+    GF(p)[x] / (x^2 - r)); ~n^2 long (931 at n = 30)."""
+    p = n + 1
+    while _prime_factors(p) != [p]:
+        p += 1
+    r = next(r for r in range(2, p) if pow(r, (p - 1) // 2, p) == p - 1)
+
+    def times(x, y):
+        return ((x[0] * y[0] + r * x[1] * y[1]) % p,
+                (x[0] * y[1] + x[1] * y[0]) % p)
+
+    def power(x, exponent):
+        result = (1, 0)
+        while exponent:
+            if exponent & 1:
+                result = times(result, x)
+            x = times(x, x)
+            exponent >>= 1
+        return result
+
+    order = p * p - 1
+    factors = _prime_factors(order)
+    theta = next((a, b) for b in range(1, p) for a in range(p)
+                 if all(power((a, b), order // q) != (1, 0)
+                        for q in factors))
+    marks = []
+    value = (1, 0)
+    for exponent in range(order):
+        if value[1] == theta[1]:
+            marks.append(exponent)
+        value = times(value, theta)
+    windows = (sorted((mark - origin) % order for mark in marks)[:n]
+               for origin in marks)
+    return tuple(min((window for window in windows
+                      if min(np.diff(window)) >= 2),
+                     key=lambda window: window[-1]))
+
+
+def _ruler_offsets(rng, n):
+    """Two offset columns of n reads, each strictly increasing, whose sums
+    are Golomb marks (_golomb_marks, mirrored at random): no two pairs of
+    reads share |d first| + |d second|, so a BND partition, whose distance
+    is that sum over 3,000, has no exact tie.  Each gap between marks is
+    split at random between the columns; both are centred on 0."""
+    marks = np.asarray(_golomb_marks(n), dtype=np.int64)
+    if rng.integers(0, 2):
+        marks = marks[-1] - marks[::-1]
+    gaps = np.diff(marks)
+    first = rng.integers(1, gaps)
+    columns = [np.concatenate([[0], np.cumsum(part)])
+               for part in (first, gaps - first)]
+    return [column - int(round(column.mean())) for column in columns]
+
+
+def _span_offsets(rng, n, size, reach, columns=2):
+    """Start and end offsets (and with columns=3 destination offsets), each
+    in [-reach, reach] and none repeated in its column, of n reads whose SV
+    spans [start, size + end): drawn read by read, a draw refused when it
+    repeats an offset or when one of its distances to the reads before it
+    equals another distance of the partition, which then has no exact tie.
+    The distances are cluster/accel.py's in float64 at the default
+    --position_distance_normalizer: |d center| / 900 (+ |d destination| /
+    900 for DUP:INT) + |d span| / max span."""
+    drawn = np.empty((0, columns), dtype=np.int64)
+    seen = set()
+    while len(drawn) < n:
+        draw = rng.integers(-reach, reach + 1, columns)
+        if (drawn == draw).any():
+            continue
+        start, end = int(draw[0]), size + int(draw[1])
+        starts, ends = drawn[:, 0], size + drawn[:, 1]
+        spans = ends - starts
+        distances = np.abs((starts + ends) // 2 - (start + end) // 2) / 900
+        if columns == 3:
+            distances = distances + np.abs(drawn[:, 2] - draw[2]) / 900
+        distances = distances + (np.abs(spans - (end - start))
+                                 / np.maximum(spans, end - start))
+        new = set(distances.tolist())
+        if len(new) < len(distances) or new & seen:
+            continue
+        seen |= new
+        drawn = np.vstack([drawn, draw])
+    return drawn.T
+
+
+def _cut(intervals, low, high):
+    """Half-open `intervals` less [low, high)."""
+    return [piece for a, b in intervals
+            for piece in ((a, min(b, low)), (max(a, high), b))
+            if piece[0] < piece[1]]
+
+
+def _place(rng, free, width, avoid=()):
+    """A left edge x, uniform over the places where [x, x + width] lies in
+    one of the half-open `free` intervals and outside every [low, high) of
+    `avoid`; the free intervals lose [x - SAMPLE_LOCUS_GAP, x + width +
+    SAMPLE_LOCUS_GAP)."""
+    pieces = free
+    for low, high in avoid:
+        pieces = _cut(pieces, low, high)
+    room = [(a, b - width - a) for a, b in pieces if b - a > width]
+    if not room:
+        raise ValueError("the split-read loci do not fit the host contig")
+    pick = int(rng.integers(0, sum(size for _, size in room)))
+    for a, size in room:
+        if pick < size:
+            x = a + pick
+            break
+        pick -= size
+    free[:] = _cut(free, x - SAMPLE_LOCUS_GAP, x + width + SAMPLE_LOCUS_GAP)
+    return x
+
+
+def _split_plan(rng, config, ops, positions, sizes):
+    """The split-read loci of sample_workload: `split_loci` a class of
+    SAMPLE_SPLIT_CLASSES, 1 to 3 of each wide (SAMPLE_WIDE_COVERAGE reads),
+    placed uniformly in the room the DEL and INS loci leave,
+    SAMPLE_LOCUS_GAP from every other locus and SAMPLE_MARGIN from the
+    host's ends.  The first DUP:INT loci are copies of 1 to 3 sources, the
+    sources copied to SAMPLE_DUP_COPIES destinations.  Every DUP:INT destination lies SAMPLE_SOURCE_DISTANCE or
+    more before its source: a read's two breakends then both normalise to
+    the destination (pos1 < pos2), where their opposite directions wall the
+    BND partition (host linkage, as every DUP:INT of sim.py); a source
+    before its destination would put them into two unwalled partitions at
+    the source.  BND partners lie on SAMPLE_CONTIGS[1].
+
+    A read's breakpoints are offsets drawn without repeats: INV, DUP:TANDEM
+    and DUP:INT (with its destination) by _span_offsets, BND (host,
+    partner) by _ruler_offsets; so no partition of these classes has an
+    exact float64 tie.  Returns (reads, truth, loci): reads a dict of
+    per-read columns (kind, bp: the primary's breakpoint, seg_pos and
+    seg_len: the first supplementary segment, tail: a DUP:INT read's right
+    flank, at: the noise pair whose M the primary ends or starts on), truth
+    the loci as sim.TruthVariant records, loci the count a class."""
+    from svim_tpu_torch.sim import TruthVariant
+
+    per_class = config["split_loci"]
+    wide = max(1, min(3, per_class // 20))
+    copies = SAMPLE_DUP_COPIES[:wide]
+    if per_class < sum(copies) + wide:
+        raise ValueError("{0} DUP:INT loci cannot hold {1} copies and {2} "
+                         "wide loci".format(per_class, sum(copies), wide))
+    host, partner = SAMPLE_CONTIGS
+    length, partner_length = config["contig_length"], config["partner_length"]
+    free = []
+    low = SAMPLE_MARGIN
+    ends = positions + np.where(ops == _CIGAR_D, sizes, 0)
+    for start, end in zip(positions.tolist(), ends.tolist()):
+        free.append((low, start - SAMPLE_LOCUS_GAP))
+        low = end + SAMPLE_LOCUS_GAP
+    free = [(a, b) for a, b in free + [(low, length - SAMPLE_MARGIN)]
+            if a < b]
+
+    def coverage(is_wide, route="span"):
+        low_cover, high_cover = (SAMPLE_WIDE_COVERAGE[route] if is_wide
+                                 else SAMPLE_COVERAGE)
+        return int(rng.integers(low_cover, high_cover + 1))
+
+    def size_of(svtype, n, is_wide):
+        low_size, high_size = SAMPLE_SPLIT_SIZES[svtype]
+        low_size = max(low_size, n * SAMPLE_SIZE_PER_READ[is_wide])
+        return int(np.rint(np.exp(rng.uniform(np.log(low_size),
+                                              np.log(high_size)))))
+
+    def span_locus(svtype, is_wide, columns=2, size=None):
+        n = coverage(is_wide)
+        if size is None:
+            size = size_of(svtype, n, is_wide)
+        reach = max(n, min(SAMPLE_END_JITTER, size // 25))
+        return size, _span_offsets(rng, n, size, reach, columns)
+
+    loci = [(svtype, kinds) + span_locus(svtype, index < wide)
+            for svtype, kinds in (("INV", (_INV_LEFT, _INV_RIGHT)),
+                                  ("DUP:TANDEM", (_DUP_TAN,)))
+            for index in range(per_class)]
+    # a source's size, and each destination's (start, end, destination)
+    # offsets of its reads
+    sources = []
+    for index, count in enumerate(copies + (1,) * (per_class - sum(copies))):
+        is_wide = count == 1 and index - len(copies) < wide
+        size, drawn = span_locus("DUP:INT", is_wide, 3)
+        drawn = [drawn] + [span_locus("DUP:INT", False, 3, size)[1]
+                           for _ in range(count - 1)]
+        sources.append((size, drawn))
+    bnds = [_ruler_offsets(rng, coverage(index < wide, "ruler"))
+            for index in range(per_class)]
+
+    columns = []   # (kind, bp, seg_pos, seg_len) of each read
+    truth = []
+    for size, drawn in sources:
+        low_offset = min(int(offsets[0].min()) for offsets in drawn)
+        width = size + max(int(offsets[1].max()) for offsets in drawn) \
+            - low_offset
+        # room before the source for its destinations
+        room = SAMPLE_SOURCE_DISTANCE + len(drawn) * 2 * SAMPLE_LOCUS_SPAN
+        source = _place(rng, free, width, avoid=[
+            (0, SAMPLE_MARGIN + room)]) - low_offset
+        for starts, ends, dest_offsets in drawn:
+            dest_low = int(dest_offsets.min()) - 1
+            destination = _place(rng, free, int(dest_offsets.max())
+                                 - dest_low, avoid=[
+                (source + low_offset - SAMPLE_SOURCE_DISTANCE,
+                 length)]) - dest_low
+            truth += [TruthVariant("DUP:INT", host, source, size,
+                                   dest_contig=host, dest_pos=destination),
+                      TruthVariant("BND", host, destination - 1, 0),
+                      TruthVariant("BND", host, destination, 0),
+                      TruthVariant("BND", host, source, 0),
+                      TruthVariant("BND", host, source + size - 1, 0)]
+            columns += [(_DUP_INT, destination + dest, source + start,
+                         size + end - start)
+                        for start, end, dest in zip(starts.tolist(),
+                                                    ends.tolist(),
+                                                    dest_offsets.tolist())]
+    for svtype, kinds, size, (starts, ends) in loci:
+        low_offset = int(starts.min())
+        position = _place(rng, free, size + int(ends.max()) - low_offset) \
+            - low_offset
+        truth.append(TruthVariant(svtype, host, position, size))
+        for read, (start, end) in enumerate(zip(starts.tolist(),
+                                                ends.tolist())):
+            kind = kinds[read % len(kinds)]
+            bp = position + (start if kind == _INV_LEFT else size + end)
+            columns.append((kind, bp, position + start, size + end - start))
+    for host_offsets, partner_offsets in bnds:
+        low_offset = int(host_offsets.min()) - 1
+        position = _place(rng, free, int(host_offsets.max())
+                          - low_offset) - low_offset
+        mate = int(rng.integers(SAMPLE_MARGIN - int(partner_offsets.min()),
+                                partner_length - SAMPLE_MARGIN
+                                - int(partner_offsets.max())))
+        truth += [TruthVariant("BND", host, position - 1, 0,
+                               dest_contig=partner, dest_pos=mate),
+                  TruthVariant("BND", partner, mate, 0)]
+        columns += [(_BND, position + offset, mate + mate_offset, 0)
+                    for offset, mate_offset in zip(host_offsets.tolist(),
+                                                   partner_offsets.tolist())]
+
+    kind, bp, seg_pos, seg_len = (np.asarray(column, dtype=np.int64)
+                                  for column in zip(*columns))
+    # the supplementary's run past its breakpoint: a DUP:TANDEM copy's
+    # second flank, a DUP:INT read's right flank, a BND partner segment
+    tails = rng.integers(SAMPLE_TAIL[0], SAMPLE_TAIL[1] + 1, len(kind))
+    seg_len = np.where(kind == _DUP_TAN, seg_len + tails,
+                       np.where(kind == _BND, tails, seg_len))
+    at = rng.integers(NOISE_PAIRS // 4, 3 * NOISE_PAIRS // 4 + 1, len(kind))
+    return (dict(kind=kind, bp=bp, seg_pos=seg_pos, seg_len=seg_len,
+                 tail=np.where(kind == _DUP_INT, tails, 0), at=at), truth,
+            {svtype: per_class for svtype in SAMPLE_SPLIT_CLASSES})
+
+
+def _split_records(reads, ref_spans, query_spans):
+    """Per split read, given its primary's reference and query bases: (the
+    primary's start, its SEQ length, the soft clip, and the SA:Z tag as BAM
+    tag bytes)."""
+    host, partner = SAMPLE_CONTIGS
+    kind, bp, seg_pos, seg_len, tail = (reads[name] for name in (
+        "kind", "bp", "seg_pos", "seg_len", "tail"))
+    clip = seg_len + tail
+    starts = np.where(kind == _INV_RIGHT, bp, bp - ref_spans)
+    tags = []
+    for read_kind, position, first, run, right, query in zip(
+            kind.tolist(), bp.tolist(), seg_pos.tolist(), seg_len.tolist(),
+            tail.tolist(), query_spans.tolist()):
+        if read_kind == _INV_LEFT:
+            text = "{0},{1},-,{2}M{3}S,60,0;".format(host, first + 1, run,
+                                                     query)
+        elif read_kind == _DUP_INT:
+            text = ("{0},{1},+,{2}S{3}M{4}S,60,0;"
+                    "{0},{5},+,{6}S{4}M,60,0;").format(
+                        host, first + 1, query, run, right, position + 1,
+                        query + run)
+        else:
+            text = "{0},{1},+,{2}S{3}M,60,0;".format(
+                partner if read_kind == _BND else host, first + 1, query, run)
+        tags.append(b"SAZ" + text.encode() + b"\x00")
+    return starts, query_spans + clip, clip, tags
+
+
+def _check_split_segments(reads, lengths):
+    """check_inside for the supplementary segments of the split reads: the
+    first (on the partner for BND) and a DUP:INT read's right flank."""
+    host, partner = SAMPLE_CONTIGS
+    kind = reads["kind"]
+    bnd = kind == _BND
+    for contig, rows in ((host, ~bnd), (partner, bnd)):
+        check_inside(reads["seg_pos"][rows], reads["seg_len"][rows],
+                     lengths[contig], contig)
+    flank = kind == _DUP_INT
+    check_inside(reads["bp"][flank], reads["tail"][flank], lengths[host],
+                 host)
 
 
 def _noise_rows(rng, count):
@@ -643,13 +982,18 @@ def sample_workload(directory, seed=1, **changes):
     tiefree_workload, so that the device labels partitions as it would on
     a real sample; an INS read carries its locus's motif with
     tiefree_workload's per-read base noise.  One background read in
-    SAMPLE_SPLIT_EVERY carries an SA:Z partner on the second contig.  Every
-    read lies inside its contig's LN (check_inside).
+    SAMPLE_SPLIT_EVERY carries an SA:Z partner on the second contig.  With
+    `split_loci`, loci of INV, DUP:TANDEM, DUP:INT and BND too
+    (_split_plan), drawn from a stream of their own: a supporting read's
+    primary is the first pairs of a _noisy_cigar read ending (or, reversed,
+    starting) in a soft clip at its breakpoint, and its SA:Z tag places the
+    other segments in sim.py's shapes.  Every segment of every read lies
+    inside its contig's LN (check_inside).
 
     Built as arrays, the BAM's record bytes written directly (no SAM text)
     and deflated by threads.  `changes` replace fields of SAMPLE (the CPU
     tests' smaller samples).  Writes sample.bam, genome.fa, truth.json (the
-    DEL and INS loci, for load_truth and sim.evaluate_vcf) and sample.json
+    loci, for load_truth and sim.evaluate_vcf) and sample.json
     (reads, loci, BAM and inflated bytes, the inflated stream's sha256,
     seconds).  Returns (bam_path, genome_path)."""
     import time
@@ -667,30 +1011,48 @@ def sample_workload(directory, seed=1, **changes):
     ops, positions, sizes, offsets = _sample_loci(rng, config)
     coverages = np.array([len(shifts) for shifts, _, _ in offsets],
                          dtype=np.int64)
-    n_support = int(coverages.sum())
+    n_sv = int(coverages.sum())
+    # the split-read loci draw from a stream of their own, so that without
+    # them every draw is as it was
+    plan, split_truth, split_loci = (
+        _split_plan(np.random.default_rng([seed, 3]), config, ops,
+                    positions, sizes)
+        if config["split_loci"] else (None, [], {}))
+    n_support = n_sv + (len(plan["kind"]) if plan else 0)
     total = round(length * config["depth"] / SAMPLE_MEAN_SPAN)
     n_reads = n_support + max(0, total - n_support)
     rows = _noise_rows(rng, n_reads)
 
-    # the supporting reads come first, locus by locus; the SV op takes the
-    # place of the noise indel at sv_at, as in _noisy_cigar
+    # the supporting reads come first, locus by locus, the split reads after
+    # them; the SV op takes the place of the noise indel at sv_at, as in
+    # _noisy_cigar; a split read's primary ends (or, reversed, starts) on
+    # the M of its noise pair `at`, the soft clip beyond it
     locus_of = np.repeat(np.arange(len(ops)), coverages)
     sv_op = ops[locus_of]
     sv_len = sizes[locus_of] + np.concatenate(
         [resizes for _, resizes, _ in offsets]).astype(np.int64)
-    sv_at = rng.integers(NOISE_PAIRS // 4, 3 * NOISE_PAIRS // 4 + 1, n_support)
+    sv_at = rng.integers(NOISE_PAIRS // 4, 3 * NOISE_PAIRS // 4 + 1, n_sv)
     (match, inserted, deleted), (at_len, at_ins, ref_before, sv_seq_pos) = \
-        _noise_sums(rows, sv_at)
-    inserted[:n_support] += np.where(sv_op == _CIGAR_I, sv_len, 0) \
-        - at_len * at_ins
-    deleted[:n_support] += np.where(sv_op == _CIGAR_D, sv_len, 0) \
-        - at_len * (1 - at_ins)
+        _noise_sums(rows, np.concatenate([sv_at, plan["at"]]) if plan
+                    else sv_at)
+    inserted[:n_sv] += np.where(sv_op == _CIGAR_I, sv_len, 0) \
+        - at_len[:n_sv] * at_ins[:n_sv]
+    deleted[:n_sv] += np.where(sv_op == _CIGAR_D, sv_len, 0) \
+        - at_len[:n_sv] * (1 - at_ins[:n_sv])
     spans = match + deleted + 20
     seq_lens = match + inserted + 20
 
     starts = np.empty(n_reads, dtype=np.int64)
-    starts[:n_support] = positions[locus_of] - ref_before + np.concatenate(
+    starts[:n_sv] = positions[locus_of] - ref_before[:n_sv] + np.concatenate(
         [shifts for shifts, _, _ in offsets])
+    tags = {}
+    if plan:
+        spans[n_sv:n_support] = ref_before[n_sv:]
+        (starts[n_sv:n_support], seq_lens[n_sv:n_support], clips,
+         split_tags) = _split_records(plan, ref_before[n_sv:],
+                                      sv_seq_pos[n_sv:])
+        _check_split_segments(plan, {host: length, partner: partner_length})
+        tags.update(zip(range(n_sv, n_support), split_tags))
     starts[n_support:] = np.floor(rng.random(n_reads - n_support) * (
         length - spans[n_support:] + 1)).astype(np.int64)
     check_inside(starts, spans, length, host)
@@ -701,10 +1063,10 @@ def sample_workload(directory, seed=1, **changes):
     check_inside(partners - 1, np.full(len(split), SAMPLE_SPLIT_SPAN),
                  partner_length, partner)
     # BAM's SA tag: its name, type Z, the text, NUL
-    tags = {int(read): b"SAZ" + "{0},{1},+,{2}S{3}M,60,0;".format(
+    tags.update((int(read), b"SAZ" + "{0},{1},+,{2}S{3}M,60,0;".format(
         partner, int(position), int(seq_lens[read]) - SAMPLE_SPLIT_SPAN,
-        SAMPLE_SPLIT_SPAN).encode() + b"\x00"
-        for read, position in zip(split, partners)}
+        SAMPLE_SPLIT_SPAN).encode() + b"\x00")
+        for read, position in zip(split, partners))
     inserts = {}
     for locus in np.flatnonzero(ops == _CIGAR_I).tolist():
         _, resizes, motif = offsets[locus]
@@ -730,7 +1092,7 @@ def sample_workload(directory, seed=1, **changes):
         words[:, 1:READ_LENGTH_OPS:2] = (chunk_indel << 4) | (
             _CIGAR_D - chunk_ins)
         words[:, READ_LENGTH_OPS] = 20 << 4
-        sv = np.flatnonzero(reads < n_support)
+        sv = np.flatnonzero(reads < n_sv)
         words[sv, 2 * sv_at[reads[sv]] + 1] = (sv_len[reads[sv]] << 4) \
             | sv_op[reads[sv]]
         # random bases, each read's run padded to an even count (the pad
@@ -754,12 +1116,23 @@ def sample_workload(directory, seed=1, **changes):
             l_seq = int(lengths[index])
             tag = tags.get(read, b"")
             seq = packed[packed_at[index]:packed_at[index] + (l_seq + 1) // 2]
-            size = 32 + len(name) + 4 * SAMPLE_OPS + len(seq) + l_seq \
+            cigar = words[index]
+            flag = 0
+            if n_sv <= read < n_support:
+                split_read = read - n_sv
+                clip = np.uint32((int(clips[split_read]) << 4) | _CIGAR_S)
+                aligned = words[index, :2 * int(plan["at"][split_read]) + 1]
+                if plan["kind"][split_read] == _INV_RIGHT:
+                    cigar = np.concatenate([[clip], aligned])
+                    flag = 16
+                else:
+                    cigar = np.concatenate([aligned, [clip]])
+            size = 32 + len(name) + 4 * len(cigar) + len(seq) + l_seq \
                 + len(tag)
             parts += [struct.pack("<iiiBBHHHiiii", size, 0,
                                   int(starts[read]), len(name), 60, 0,
-                                  SAMPLE_OPS, 0, l_seq, -1, -1, 0),
-                      name, words[index].tobytes(), seq.tobytes(),
+                                  len(cigar), flag, l_seq, -1, -1, 0),
+                      name, cigar.tobytes(), seq.tobytes(),
                       b"\xff" * l_seq, tag]
         writer.write(b"".join(parts))
     writer.close()
@@ -771,17 +1144,33 @@ def sample_workload(directory, seed=1, **changes):
                           int(position), int(size))
              for op, position, size in zip(ops.tolist(), positions.tolist(),
                                            sizes.tolist())]
-    _save_truth(directory, "sim", truth)
+    _save_truth(directory, "sim", truth + split_truth)
     with open(os.path.join(directory, SAMPLE_FILE), "w") as handle:
         json.dump({"reads": n_reads, "supporting_reads": n_support,
                    "split_reads": len(split),
-                   "loci": {"DEL": int((ops == _CIGAR_D).sum()),
-                            "INS": int((ops == _CIGAR_I).sum())},
+                   "loci": dict({"DEL": int((ops == _CIGAR_D).sum()),
+                                 "INS": int((ops == _CIGAR_I).sum())},
+                                **split_loci),
                    "bam_bytes": os.path.getsize(bam_path),
                    "inflated_bytes": writer.inflated,
                    "inflated_sha256": writer.digest.hexdigest(),
                    "seconds": time.perf_counter() - started}, handle)
     return bam_path, genome_path
+
+
+# sample-classes-chr20: the sample with loci of all six classes
+SAMPLE_SPLIT_LOCI = 60   # loci a split-read class
+
+
+def sample_classes_workload(directory, seed=1, **changes):
+    """sample_workload with SAMPLE_SPLIT_LOCI loci of each split-read class
+    (INV, DUP:TANDEM, DUP:INT, BND) beside its DEL and INS loci: a
+    chromosome of a 30x sample that carries all six SV classes, whose
+    split-read partitions have no exact tie.  `changes` replace fields of
+    SAMPLE.  Returns (bam_path, genome_path)."""
+    return sample_workload(directory, seed,
+                           **dict({"split_loci": SAMPLE_SPLIT_LOCI},
+                                  **changes))
 
 
 def reblock_stored(bam, out):

@@ -47,6 +47,10 @@ FLAGS = {"auto": [], "wavefront": ["--edit_backend", "wavefront",
                                    "--incremental_cluster", "off"]}
 ROUTES = {"fused": "_consume_fused", "matrix": "_consume_matrix",
           "resident": "_consume_resident"}
+# the SMALL sample's inflated stream: the split-read loci (split_loci) draw
+# from a stream of their own, so without them every byte stays as it was
+SMALL_INFLATED_SHA256 = ("dd4429efee07f07126433db4d41ad785"
+                         "b7c7d1fc03b46cbe35da564fda3c48d4")
 
 
 def _inflated(bam):
@@ -111,6 +115,10 @@ def test_the_same_seed_gives_the_same_stream_without_svim_tpu(sample,
     other_seed = str(tmp_path / "seed2")
     workloads.sample_workload(other_seed, 2, **SMALL)
     assert _made(other_seed)["inflated_sha256"] != first["inflated_sha256"]
+
+
+def test_the_sample_without_split_loci_keeps_its_bytes(sample):
+    assert _made(sample[0])["inflated_sha256"] == SMALL_INFLATED_SHA256
 
 
 def test_every_read_lies_inside_its_contig(sample):
