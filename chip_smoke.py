@@ -252,6 +252,17 @@ Phases, each of which raises (non-zero exit) on failure:
      device call is recorded as in phase 18 (phases 6, 15 and 16 replay
      them).  Logs what phase 18 logs, with the fused-entry partitions by
      type and pad bucket and the candidate round's calls.
+ 20. (run last, on a quiet card) the repo's measuring entry points on the
+     bench workload of phase 5, each in a process of its own:
+     bench_torch.py at 8,192 reads with its defaults must exit 0 behind
+     its gate (its CLI run's variants.vcf hashing to BENCH_VCF_SHA256),
+     print bench.py's four keys with a metric that names cuda and this
+     card, run on this card and launch both COLLECT kernels in its timed
+     rounds (its launches are the path "bench_torch"); then
+     scripts/measure_multihost_torch.py, profile_stream_vs_oneshot_torch.py
+     and profile_ins_torch.py each run once to their JSON lines.  Logs the
+     bench's result, rounds, launches, baseline and card, each script's
+     lines and seconds, and the phase's seconds.
 The script imports torch and the port, never jax or the JAX package: the
 inputs come from svim_tpu_torch.workloads.
 Then one JSON line describing the kernels, the card line, and the last
@@ -259,13 +270,17 @@ line {"ok": true, "device": {...}}.  Scratch files go to
 svim_tpu_torch/_build/smoke (git-ignored).
 """
 
-import hashlib
 import json
 import os
 import re
 import subprocess
 import sys
 import time
+
+# svim_tpu's VCF on the bench workload (shared with bench_torch.py) and the
+# kernels' launch counters
+from svim_tpu_torch.ops import KERNEL_COUNTERS
+from svim_tpu_torch.workloads import BENCH_VCF_SHA256, vcf_sha256
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "svim_tpu_torch", "_build", "smoke")
@@ -288,10 +303,6 @@ GOLDEN_TELEMETRY = dict(_NO_TELEMETRY, pre_tie=11, pre_wall=2,
 BENCH_TELEMETRY = {"wavefront": dict(_NO_TELEMETRY, pre_tie=96,
                                      resident_relink=96),
                    "auto": dict(_NO_TELEMETRY, pre_tie=192)}
-# sha256 of svim_tpu's variants.vcf on the 8192-read workload (##fileDate
-# lines left out), from its CPU run with either edit backend
-BENCH_VCF_SHA256 = ("99228bd778ac48bd69bb95bc04b0ff5c"
-                    "a8cb583bc7200f065cdc2898f1f5fa3e")
 # the same for the golden workload as SAM text (equal to the golden
 # fixture's) and as a queryname-sorted BAM (workloads.sam_text /
 # queryname_bam), from svim_tpu's CPU runs with --edit_backend wavefront
@@ -941,15 +952,6 @@ def _telemetry():
     return {key: counts[key] for key in _NO_TELEMETRY}
 
 
-# each kernel's launch count: (ops module, attribute)
-KERNEL_COUNTERS = {
-    "wavefront_banded_distance": ("wavefront_kernel", "LAUNCHES"),
-    "span_distance_matrix": ("distance_kernel", "LAUNCHES"),
-    "agglomerate": ("linkage_kernel", "LAUNCHES"),
-    "collect_scan": ("cigar_kernel", "LAUNCHES"),
-    "classify_segments": ("segments_kernel", "LAUNCHES"),
-    "genotype_support": ("genotype_kernel", "LAUNCHES"),
-    "ins_matrices": ("linkage_kernel", "INS_LAUNCHES")}
 # launch counts of every kernel, per path the smoke drives
 PATH_LAUNCHES = {}
 
@@ -961,27 +963,21 @@ def _drive(path, arguments, chunk=0):
     claims of that many rows (workloads.chunked_scan).  Returns the
     wavefront kernel's count."""
     import contextlib
-    import importlib
 
     from svim_tpu_torch import workloads
+    from svim_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    counters = {name: (importlib.import_module("svim_tpu_torch.ops." + module),
-                       attribute)
-                for name, (module, attribute) in KERNEL_COUNTERS.items()}
-    for module, attribute in counters.values():
-        setattr(module, attribute, 0)
+    reset_launch_counts()
     with workloads.chunked_scan(chunk) if chunk else contextlib.nullcontext():
         code = _run_port(arguments)
-    PATH_LAUNCHES[path] = {name: getattr(module, attribute)
-                           for name, (module, attribute) in counters.items()}
+    PATH_LAUNCHES[path] = launch_counts()
     if code != 0:
         raise RuntimeError("{0} exited with {1}".format(path, code))
     return PATH_LAUNCHES[path]["wavefront_banded_distance"]
 
 
 def _vcf_sha256(working_dir):
-    return hashlib.sha256("".join(_normalized_vcf(os.path.join(
-        working_dir, "variants.vcf"))).encode()).hexdigest()
+    return vcf_sha256(os.path.join(working_dir, "variants.vcf"))
 
 
 def phase_golden():
@@ -4517,25 +4513,22 @@ def stress_busy(runs):
     be as many as the wrappers counted.  Prints one line "BUSY " + JSON
     {path: {"busy_s", "device_sum_s", "wall_s", "port_kernels",
     "launches"}}."""
-    import importlib
     import importlib.util
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from svim_tpu_torch.ops import launch_counts, reset_launch_counts
+
     spec = importlib.util.spec_from_file_location(
         "profile_port", os.path.join(ROOT, "scripts", "profile_port.py"))
     profile_port = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(profile_port)
-    counters = {name: (importlib.import_module("svim_tpu_torch.ops."
-                                               + module), attribute)
-                for name, (module, attribute) in KERNEL_COUNTERS.items()}
     report = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as trace:
         for path, arguments in json.loads(runs):
-            for module, attribute in counters.values():
-                setattr(module, attribute, 0)
+            reset_launch_counts()
             started = time.perf_counter()
             with record_function("smoke_path:" + path):
                 code = _run_port(arguments)
@@ -4544,9 +4537,7 @@ def stress_busy(runs):
                 raise RuntimeError("traced {0} exited with {1}".format(path,
                                                                       code))
             report[path] = {"wall_s": time.perf_counter() - started,
-                            "launches": sum(getattr(module, attribute)
-                                            for module, attribute
-                                            in counters.values())}
+                            "launches": sum(launch_counts().values())}
     chrome_trace = os.path.join(SCRATCH, "stress_busy_trace.json")
     trace.export_chrome_trace(chrome_trace)
     with open(chrome_trace) as handle:
@@ -5000,6 +4991,85 @@ def phase_sample_classes(card, makers, recorder, device_ops):
         time.perf_counter() - started))
 
 
+# phase 20: the repo's measuring entry points, each run once at bench scale
+# on the bench workload the smoke made (phase 5), in a process of its own
+BENCH_TORCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+MEASURING_SCRIPTS = (
+    ("scripts/measure_multihost_torch.py", "SVIM_SCALE_READS",
+     "SVIM_SCALE_WORKLOAD_DIR"),
+    ("scripts/profile_stream_vs_oneshot_torch.py", "SVIM_BENCH_READS",
+     "SVIM_BENCH_WORKLOAD_DIR"),
+    ("scripts/profile_ins_torch.py", "SVIM_BENCH_READS",
+     "SVIM_BENCH_WORKLOAD_DIR"))
+SCRIPT_TIMEOUT = 600   # seconds, each script
+
+
+def _repo_script(path, environment):
+    """`python3 <path>` of this checkout on the card with `environment`
+    added; its stdout lines.  Raises, with its stderr's tail, unless it
+    exits 0."""
+    env = dict(os.environ, **environment)
+    env.pop("SVIM_TORCH_DEVICE", None)
+    result = subprocess.run([sys.executable, os.path.join(ROOT, path)],
+                            env=env, cwd=ROOT, capture_output=True, text=True,
+                            timeout=SCRIPT_TIMEOUT)
+    if result.returncode != 0:
+        sys.stderr.write(result.stderr[-6000:])
+        raise AssertionError("{0} exited with {1}".format(path,
+                                                          result.returncode))
+    return result.stdout.strip().splitlines()
+
+
+def phase_measuring_scripts(card, makers):
+    """Phase 20: bench_torch.py at BENCH_READS with its defaults must exit
+    0 behind its gate (svim_tpu's VCF), print bench.py's four keys with a
+    metric that names cuda and this card, and launch both COLLECT kernels
+    in its timed rounds (PATH_LAUNCHES["bench_torch"]); then each script of
+    MEASURING_SCRIPTS runs once to its JSON lines."""
+    import torch
+
+    directory = _workload(makers, "bench")[0]
+    started = time.perf_counter()
+    lines = _repo_script("bench_torch.py", {
+        "SVIM_BENCH_READS": str(BENCH_READS),
+        "SVIM_BENCH_WORKLOAD_DIR": directory})
+    result = json.loads(lines[-1])
+    if set(result) != BENCH_TORCH_KEYS:
+        raise AssertionError("bench_torch.py printed the keys {0}".format(
+            sorted(result)))
+    platform = "(1 chip: cuda {0})".format(torch.cuda.get_device_name(0))
+    if not result["metric"].endswith(platform) or not result["value"] > 0:
+        raise AssertionError("bench_torch.py: {0}".format(lines[-1]))
+    earlier = dict(line.split(": ", 1) for line in lines[:-1]
+                   if ": " in line)
+    if earlier.get("card") != card:
+        raise AssertionError("bench_torch.py ran on {0}, not {1}".format(
+            earlier.get("card"), card))
+    if not earlier.get("gate", "").startswith("held: "):
+        raise AssertionError("bench_torch.py's gate: {0}".format(
+            earlier.get("gate")))
+    launches = json.loads(earlier["launches"])
+    for kernel in ("collect_scan", "classify_segments"):
+        if launches[kernel] <= 0:
+            raise AssertionError("bench_torch.py's timed rounds launched no "
+                                 "{0} kernel".format(kernel))
+    PATH_LAUNCHES["bench_torch"] = launches
+    log("bench_torch", "{0}; gate {1}; rounds {2}; launches of the timed "
+        "rounds {3}; baseline {4}; card {5}; {6:.1f} s".format(
+            lines[-1], earlier["gate"], earlier["rounds"], earlier["launches"],
+            earlier["baseline"], earlier["card"],
+            time.perf_counter() - started))
+    for path, reads, workload_dir in MEASURING_SCRIPTS:
+        script_started = time.perf_counter()
+        lines = _repo_script(path, {reads: str(BENCH_READS),
+                                    workload_dir: directory})
+        json.loads(lines[-1])
+        log("bench_torch", "{0} ({1:.1f} s): {2}".format(
+            path, time.perf_counter() - script_started, " | ".join(lines)))
+    log("time", "phase 20 took {0:.1f} s".format(
+        time.perf_counter() - started))
+
+
 def main():
     sys.path.insert(0, ROOT)
     card = phase_environment()
@@ -5070,11 +5140,12 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
     genotype_timings = phase_genotype_kernel(
         collect_calls, slice_designs["genotype_support"])
     finish_kernels_a_call(kernels_a_call_process)
+    phase_measuring_scripts(card, makers)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     log("paths", "kernel launches per path: {0}".format(
         json.dumps(PATH_LAUNCHES)))
-    log("time", "phases 2-19 took {0:.1f} s".format(
+    log("time", "phases 2-20 took {0:.1f} s".format(
         time.perf_counter() - started))
 
     import torch

@@ -396,24 +396,10 @@ def run_pipeline(options, device):
     if timer.enabled:
         # unrounded, for scripts that read the log (chip_smoke.py)
         from svim_tpu_torch.cluster.device_cluster import TELEMETRY
-        from svim_tpu_torch.ops import (
-            cigar_kernel,
-            distance_kernel,
-            genotype_kernel,
-            linkage_kernel,
-            segments_kernel,
-            wavefront_kernel,
-        )
+        from svim_tpu_torch.ops import launch_counts
 
         logging.info("Stage seconds: %s", json.dumps(timer.durations))
-        logging.info("Kernel launches: %s", json.dumps({
-            "wavefront_banded_distance": wavefront_kernel.LAUNCHES,
-            "span_distance_matrix": distance_kernel.LAUNCHES,
-            "agglomerate": linkage_kernel.LAUNCHES,
-            "collect_scan": cigar_kernel.LAUNCHES,
-            "classify_segments": segments_kernel.LAUNCHES,
-            "genotype_support": genotype_kernel.LAUNCHES,
-            "ins_matrices": linkage_kernel.INS_LAUNCHES}))
+        logging.info("Kernel launches: %s", json.dumps(launch_counts()))
         logging.info("Cluster telemetry: %s", json.dumps(
             dict(TELEMETRY.as_dict(), eligible=TELEMETRY.eligible)))
         if options.distributed:

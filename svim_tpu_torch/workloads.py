@@ -234,6 +234,40 @@ def bench_workload(directory, reads):
                            genome_span)
 
 
+# sha256 of svim_tpu's variants.vcf on bench_workload at BENCH_PINNED_READS
+# reads (##fileDate lines left out), from its CPU run with either edit
+# backend: the gate of chip_smoke.py and bench_torch.py
+BENCH_PINNED_READS = 8192
+BENCH_VCF_SHA256 = ("99228bd778ac48bd69bb95bc04b0ff5c"
+                    "a8cb583bc7200f065cdc2898f1f5fa3e")
+# above this many reads bench_workload places reads past chr1's LN (its
+# genome span grows by 6,000 bp a read; chr1 is declared 200 Mb long)
+BENCH_MAX_READS = 33_333
+
+
+def vcf_sha256(path):
+    """sha256 of a variants.vcf without its ##fileDate lines."""
+    import hashlib
+
+    with open(path) as handle:
+        text = "".join(line for line in handle
+                       if not line.startswith("##fileDate"))
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def shared_bench_workload(directory, reads):
+    """bench_workload's (bam, genome) in `directory`: the files an earlier
+    call left there, else written now.  Scripts that time the same input
+    share one copy this way (8,192 reads take over a minute to write)."""
+    bam = os.path.join(directory, "bench.bam")
+    genome = os.path.join(directory, "genome.fa")
+    # the genome is written after the BAM, so its presence means both are
+    if os.path.exists(bam) and os.path.exists(genome):
+        return bam, genome
+    os.makedirs(directory, exist_ok=True)
+    return bench_workload(directory, reads)
+
+
 def _write_workload(directory, bam_name, header, records, genome_span):
     """The records as a coordinate-sorted BGZF BAM and a random genome FASTA
     whose chr1 covers `genome_span`.  Returns (bam_path, genome_path)."""

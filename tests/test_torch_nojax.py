@@ -7,7 +7,7 @@ mid-scan incremental clustering at work (the default, with the scan
 delivered in chunks so that partitions are reused), so lazy imports on all
 three paths count; after a two-rank --distributed run, in each rank's
 interpreter; statically over every source file of the port,
-chip_smoke.py and the port's scripts (scripts/*_torch.py); and
+chip_smoke.py, bench_torch.py and the port's scripts (scripts/*_torch.py); and
 select_device refuses to carry on without a card unless
 the CPU was asked for.  The port's accuracy harness
 (scripts/eval_accuracy_torch.py) and its generators run in an interpreter
@@ -126,7 +126,8 @@ def _imported_modules(path):
 def _port_sources():
     sources = sorted(glob.glob(os.path.join(REPO, "svim_tpu_torch", "**",
                                             "*.py"), recursive=True))
-    return sources + [os.path.join(REPO, "chip_smoke.py")] + sorted(
+    return sources + [os.path.join(REPO, "chip_smoke.py"),
+                      os.path.join(REPO, "bench_torch.py")] + sorted(
         glob.glob(os.path.join(REPO, "scripts", "*_torch.py")))
 
 
@@ -139,8 +140,12 @@ def test_port_sources_import_neither_jax_nor_svim_tpu():
                    "parallel/mesh.py", "cluster/linkage.py",
                    "cluster/reference_path.py"):
         assert os.path.join("svim_tpu_torch", module) in names
-    for script in ("eval_accuracy_torch.py", "tsan_stress_torch.py"):
+    for script in ("eval_accuracy_torch.py", "tsan_stress_torch.py",
+                   "measure_multihost_torch.py",
+                   "profile_stream_vs_oneshot_torch.py",
+                   "profile_ins_torch.py"):
         assert os.path.join("scripts", script) in names
+    assert "bench_torch.py" in names
     offending = []
     for path in sources:
         for name in _imported_modules(path):
