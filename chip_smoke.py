@@ -263,6 +263,35 @@ Phases, each of which raises (non-zero exit) on failure:
      and profile_ins_torch.py each run once to their JSON lines.  Logs the
      bench's result, rounds, launches, baseline and card, each script's
      lines and seconds, and the phase's seconds.
+ 21. (run after 19, for the same reason as 17) the long tail of a real
+     sample: svim_tpu_torch.workloads.longtail_workload (the sample with a
+     collapsed repeat of 100 kb at 1,000x over the background, reads of 8
+     diverged copies carrying 3-12 DEL and INS of 40-300 bp each, and 8
+     loci of 40-80 kb reads across 5-30 kb insertions; a BAM COLLECT
+     streams) and longtail_region_workload (the same on a 1.2 Mb host, a
+     BAM under 96 MiB: one-shot COLLECT with mid-scan clustering), made by
+     background makers whose inflated streams must hash to svim_tpu's
+     inputs, on LONGTAIL_PATHS: the CLI's defaults and --edit_backend
+     wavefront --incremental_cluster off on the long tail, the defaults on
+     the region.  Each VCF must hash to svim_tpu's with its per-class (tp,
+     fp, fn), the streamed paths' telemetry and accepted labelings by
+     route must equal svim_tpu's (workloads.LONGTAIL_*); each path's route
+     counters (a [paths] line: COLLECT's re-runs with their counts and
+     bounds, wavefront launches by variant, GENOTYPE's candidates joined by
+     the kernel and by the host, partitions subsampled by type) must show
+     a re-run, subsampled DEL and INS partitions and both joins, and
+     longtail_wavefront the wavefront kernel's global-scratch variant and
+     an agglomeration launch at P = 128 (the subsampled INS partitions on
+     the resident route).
+     Every device call is recorded (phases 6, 15 and 16 replay the linkage,
+     COLLECT, re-runs included, and GENOTYPE calls); the wavefront calls
+     are replayed here: warp launches through the plain version, cta and
+     global ones through the kernel again and against the native edit
+     distance on every pair, and a seeded sample of their pairs
+     (LONGTAIL_PLAIN_PAIRS) through the plain version.  Logs what the calls
+     held, stage seconds, the cta and global variants' device ms a pair
+     beside the bound of the launch and, from a traced run of
+     longtail_wavefront in a process of its own, device busy time.
 The script imports torch and the port, never jax or the JAX package: the
 inputs come from svim_tpu_torch.workloads.
 Then one JSON line describing the kernels, the card line, and the last
@@ -954,12 +983,44 @@ def _telemetry():
 
 # launch counts of every kernel, per path the smoke drives
 PATH_LAUNCHES = {}
+# the port's route counters, per path the smoke drives (_route_counts)
+PATH_ROUTES = {}
+
+
+def _route_modules():
+    from svim_tpu_torch import genotype
+    from svim_tpu_torch.cluster import cluster
+    from svim_tpu_torch.collect import packed
+    from svim_tpu_torch.ops import wavefront_kernel
+
+    return packed, wavefront_kernel, genotype, cluster
+
+
+def _reset_route_counts():
+    packed, wavefront_kernel, genotype, cluster = _route_modules()
+    packed.RERUNS.clear()
+    wavefront_kernel.VARIANT_LAUNCHES.update(
+        dict.fromkeys(wavefront_kernel.VARIANTS, 0))
+    genotype.JOINED.update(kernel=0, host=0)
+    cluster.LARGE_PARTITIONS.clear()
+
+
+def _route_counts():
+    """The port's route counters since the last reset: COLLECT's re-runs
+    (true count, bound before, bound after), the wavefront kernel's
+    launches by variant, the candidates GENOTYPE joined by the kernel and
+    by the host, and the partitions CLUSTER subsampled, by type."""
+    packed, wavefront_kernel, genotype, cluster = _route_modules()
+    return {"collect_reruns": [list(rerun) for rerun in packed.RERUNS],
+            "wavefront_by_variant": dict(wavefront_kernel.VARIANT_LAUNCHES),
+            "genotype_joined": dict(genotype.JOINED),
+            "large_partitions": dict(cluster.LARGE_PARTITIONS)}
 
 
 def _drive(path, arguments, chunk=0):
     """One run of the port's CLI as a path of the smoke: every kernel's
-    launch count is set to 0 just before it and read just after (into
-    PATH_LAUNCHES[path]).  With `chunk` the one-shot scan is delivered in
+    launch count and the route counters are set to 0 just before it and
+    read just after (into PATH_LAUNCHES[path] and PATH_ROUTES[path]).  With `chunk` the one-shot scan is delivered in
     claims of that many rows (workloads.chunked_scan).  Returns the
     wavefront kernel's count."""
     import contextlib
@@ -968,9 +1029,11 @@ def _drive(path, arguments, chunk=0):
     from svim_tpu_torch.ops import launch_counts, reset_launch_counts
 
     reset_launch_counts()
+    _reset_route_counts()
     with workloads.chunked_scan(chunk) if chunk else contextlib.nullcontext():
         code = _run_port(arguments)
     PATH_LAUNCHES[path] = launch_counts()
+    PATH_ROUTES[path] = _route_counts()
     if code != 0:
         raise RuntimeError("{0} exited with {1}".format(path, code))
     return PATH_LAUNCHES[path]["wavefront_banded_distance"]
@@ -1024,7 +1087,11 @@ WORKLOADS = {"bench": (BENCH_READS, "bench.bam"),
              "sample": (SAMPLE_SEED, "sample.bam", "truth.json",
                         "sample.json"),
              "sample_classes": (SAMPLE_SEED, "sample.bam", "truth.json",
-                                "sample.json")}
+                                "sample.json"),
+             "longtail": (SAMPLE_SEED, "sample.bam", "truth.json",
+                          "sample.json"),
+             "longtail_region": (SAMPLE_SEED, "sample.bam", "truth.json",
+                                 "sample.json")}
 
 
 def _workload_paths(name):
@@ -4358,16 +4425,19 @@ class ClusterTally:
     """While active, counts what the CLUSTER stage sent to the agglomeration
     kernel: the partitions registered on its fused entry, by signature type
     (and by type and pad bucket P), the fused-entry labelings the float32
-    guard accepted, by type, and the DUP_INT candidate round's calls, the
+    guard accepted, by type, the DUP_INT candidate round's calls, the
     partitions they offered and the agglomeration launches they made (on
-    the matrix entry)."""
+    the matrix entry), and the partitions over 100 signatures CLUSTER
+    subsampled, by type (cluster.LARGE_PARTITIONS)."""
 
     def __init__(self):
-        from svim_tpu_torch.cluster import device_cluster
+        from svim_tpu_torch.cluster import cluster, device_cluster
         from svim_tpu_torch.ops import linkage_kernel
 
         self.module = device_cluster
         self.kernels = linkage_kernel
+        self.cluster = cluster
+        self.large_partitions = {}
         self.fused = {}
         self.buckets = {}
         self.accepted = {}
@@ -4411,11 +4481,13 @@ class ClusterTally:
         self.module._dispatch_fused = counted_dispatch
         self.module._consume_fused = counted_consume
         self.module.cluster_candidates_device = counted_candidates
+        self.cluster.LARGE_PARTITIONS.clear()
         return self
 
     def __exit__(self, *exc):
         (self.module._dispatch_fused, self.module._consume_fused,
          self.module.cluster_candidates_device) = self.originals
+        self.large_partitions = dict(self.cluster.LARGE_PARTITIONS)
 
 
 def _classify_ref_ids(args):
@@ -4768,6 +4840,8 @@ class WindowMemory:
         self.module.stream_bam = self.original
 
     def summary(self):
+        if not self.samples:   # a one-shot scan streams no batch
+            return {"batches": 0}
         resident = [sample[0] for sample in self.samples]
         shared = [sample[1] for sample in self.samples]
         return {"batches": len(self.samples),
@@ -4777,11 +4851,12 @@ class WindowMemory:
                                               max(shared)]}
 
 
-def _sample_made(makers, name, inflated_sha256):
+def _sample_made(makers, name, inflated_sha256, streamed=True):
     """(directory, bam, genome, sample.json) of a sample workload (`name`
     in WORKLOADS), made by its background maker: logs the generation, and
     fails unless its inflated stream hashes to `inflated_sha256` and its
-    BAM crosses the streaming threshold."""
+    BAM crosses the streaming threshold (stays under it, unless
+    `streamed`)."""
     from svim_tpu_torch import workloads
     from svim_tpu_torch.collect.packed import STREAMING_THRESHOLD_BYTES
 
@@ -4800,13 +4875,15 @@ def _sample_made(makers, name, inflated_sha256):
                              "differently".format(name,
                                                   made["inflated_sha256"],
                                                   inflated_sha256))
-    if os.path.getsize(bam) <= STREAMING_THRESHOLD_BYTES:
-        raise AssertionError("the {0} workload's BAM does not cross the "
-                             "streaming threshold".format(name))
+    if (os.path.getsize(bam) > STREAMING_THRESHOLD_BYTES) != streamed:
+        raise AssertionError("the {0} workload's BAM is {1} the streaming "
+                             "threshold".format(name, "under" if streamed
+                                                else "over"))
     return directory, bam, genome, made
 
 
-def _sample_path(card, phase, sample, path, flags, recorder, device_ops):
+def _sample_path(card, phase, sample, path, flags, recorder, device_ops,
+                 streamed=True):
     """One run of the CLI on a sample ((directory, bam, genome, made) of
     _sample_made) on the card, every device call recorded as in phase 17
     (the linkage ops for phase 6, COLLECT and GENOTYPE for phases 15 and
@@ -4814,7 +4891,8 @@ def _sample_path(card, phase, sample, path, flags, recorder, device_ops):
     reads/s through COLLECT+CLUSTER, the windows and batches streamed, the
     per-class counts, telemetry, accepted labelings by route, fused-entry
     partitions by type, the candidate round, the launches and the memory at
-    each batch.  Fails unless COLLECT streamed.  Returns {"launches",
+    each batch.  Fails unless COLLECT streamed (did not, and clustered
+    mid-scan, unless `streamed`).  Returns {"launches",
     "telemetry", "by_route", "classes", "digest", "tally", "working_dir"}."""
     import resource
 
@@ -4845,7 +4923,8 @@ def _sample_path(card, phase, sample, path, flags, recorder, device_ops):
         "COLLECT+CLUSTER; {4} windows in {5} batches streamed; per class "
         "(tp, fp, fn) {6}; telemetry {7}; labelings accepted by route "
         "{8}; fused-entry partitions by type {9}, by pad bucket {10} and "
-        "accepted by type {15}; DUP_INT candidate round {11}; launches {12}; "
+        "accepted by type {15}; partitions subsampled by type {16}; DUP_INT "
+        "candidate round {11}; launches {12}; "
         "resident and shared memory at the streamed batches {13}; peak "
         "resident memory of the smoke so far {14} MiB".format(
             path, card, json.dumps(seconds),
@@ -4856,23 +4935,28 @@ def _sample_path(card, phase, sample, path, flags, recorder, device_ops):
             json.dumps(tally.buckets), json.dumps(tally.candidates),
             json.dumps(result["launches"]), json.dumps(memory.summary()),
             resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024,
-            json.dumps(tally.accepted)))
-    if not bamstream.BATCHES:
-        raise AssertionError(path + ": COLLECT did not stream")
+            json.dumps(tally.accepted), json.dumps(tally.large_partitions)))
+    if bool(bamstream.BATCHES) != streamed:
+        raise AssertionError("{0}: COLLECT {1}".format(
+            path, "did not stream" if streamed else "streamed"))
+    if not streamed:
+        log(phase, "{0}: {1} mid-scan partitions reused of {2}".format(
+            path, *_reused(working_dir)))
     return result
 
 
 def _sample_pins(path, result, digest, classes, telemetry, needed):
     """Fails unless a _sample_path result holds svim_tpu's pins (the VCF's
-    sha256, the per-class counts, (telemetry, labelings by route)) and
-    launched every kernel of `needed`."""
+    sha256, the per-class counts, (telemetry, labelings by route) unless
+    that is None) and launched every kernel of `needed`."""
     if result["digest"] != digest:
         raise AssertionError("{0}: variants.vcf (sha256 {1}) differs from "
                              "svim_tpu's".format(path, result["digest"]))
     if result["classes"] != classes:
         raise AssertionError("{0}: per-class counts {1}, svim_tpu's "
                              "{2}".format(path, result["classes"], classes))
-    if (result["telemetry"], result["by_route"]) != telemetry:
+    if telemetry is not None and \
+            (result["telemetry"], result["by_route"]) != telemetry:
         raise AssertionError("{0}: telemetry {1} and labelings by route "
                              "{2}, svim_tpu's {3}".format(
                                  path, result["telemetry"],
@@ -4989,6 +5073,280 @@ def phase_sample_classes(card, makers, recorder, device_ops):
         sample[2]]]])
     log("sample_classes", "phase 19 took {0:.1f} s".format(
         time.perf_counter() - started))
+
+
+# phase 21: the long tail of a real sample, made by background makers:
+# workloads.longtail_workload (the sample with a collapsed repeat at 1,000x
+# over the background and ultra-long reads across 5-30 kb insertions; a BAM
+# COLLECT streams) and workloads.longtail_region_workload (the same on a
+# host cut short: one-shot, with mid-scan clustering), and the paths phase
+# 21 drives on them: the workload and the flags.  The pins are svim_tpu's
+# CPU runs (workloads.LONGTAIL_*)
+LONGTAIL_PATHS = {
+    "longtail_auto": ("longtail", []),
+    "longtail_wavefront": ("longtail", ["--edit_backend", "wavefront",
+                                        "--incremental_cluster", "off"]),
+    "longtail_region_auto": ("longtail_region", [])}
+# pairs of the wavefront kernel's shared-memory ("cta", "cta_unstaged") and
+# global-scratch ("global") launches that phase 21 also runs through the
+# plain version: a seeded sample, since the plain version steps through
+# ~65,000 fronts a pair at L = 32,768; every pair goes through the native
+# edit distance
+LONGTAIL_PLAIN_PAIRS = {"cta": 8, "cta_unstaged": 8, "global": 16}
+# what phase 21 has seen of those launches
+WAVEFRONT_WIDE_CHECK = {"calls": 0, "pairs_native": 0, "pairs_plain": 0,
+                        "max_abs_err": 0}
+
+
+def _code_strings(codes, lengths):
+    """The strings of a wavefront call's (B, L) uint8 codes."""
+    rows = codes.cpu().numpy()
+    return [rows[row, :length].tobytes().decode()
+            for row, length in enumerate(lengths.cpu().tolist())]
+
+
+def _wide_wavefront_against_native(args, recorded, where):
+    """A recorded wavefront call of the cta or global variant: launched
+    again through the kernel, equal to the run's output, and every pair's
+    output equal to the native (exact) edit distance of its two strings:
+    the resident route's band covers the distance, so each output is
+    exact."""
+    import numpy as np
+    import torch
+
+    from svim_tpu_torch import native
+    from svim_tpu_torch.ops import wavefront_kernel
+
+    got = wavefront_kernel.banded_distance_cuda(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, recorded):
+        raise AssertionError(where + ": the wavefront kernel launched again "
+                             "differs from the run's output")
+    a_codes, a_lens, b_codes, b_lens, _band = args
+    exact = np.asarray(native.aligner.edit_distance_batch(list(zip(
+        _code_strings(a_codes, a_lens), _code_strings(b_codes, b_lens)))),
+        dtype=np.int64)
+    values = got.cpu().numpy().astype(np.int64)
+    WAVEFRONT_WIDE_CHECK["calls"] += 1
+    WAVEFRONT_WIDE_CHECK["pairs_native"] += len(values)
+    WAVEFRONT_WIDE_CHECK["max_abs_err"] = max(
+        WAVEFRONT_WIDE_CHECK["max_abs_err"],
+        int(np.abs(values - exact).max(initial=0)))
+    if not np.array_equal(values, exact):
+        raise AssertionError("{0}: {1} of {2} pairs differ from the native "
+                             "edit distance".format(
+                                 where, int((values != exact).sum()),
+                                 len(values)))
+
+
+def _wide_wavefront_against_plain(calls, count, rng, where):
+    """A seeded sample of `count` pairs of the recorded calls ((args,
+    outputs), one variant) through the plain version on the card, a call a
+    (L, band) as the kernel took them: equal to the kernel's outputs."""
+    import numpy as np
+    import torch
+
+    from svim_tpu_torch.ops import wavefront_kernel
+
+    pairs = [(call, row) for call, (args, _outputs) in enumerate(calls)
+             for row in range(int(args[0].shape[0]))]
+    if not pairs:
+        return 0
+    chosen = sorted(rng.choice(len(pairs), size=min(count, len(pairs)),
+                               replace=False).tolist())
+    by_call = {}
+    for index in chosen:
+        call, row = pairs[index]
+        by_call.setdefault(call, []).append(row)
+    for call, rows in by_call.items():
+        args, outputs = calls[call]
+        rows_tensor = torch.as_tensor(rows, device=args[0].device)
+        picked = [arg.index_select(0, rows_tensor).contiguous()
+                  for arg in args[:4]]
+        want = wavefront_kernel.banded_distance_torch(*picked, args[4])
+        got = outputs.index_select(0, rows_tensor)
+        torch.cuda.synchronize()
+        if got.numel():
+            WAVEFRONT_WIDE_CHECK["max_abs_err"] = max(
+                WAVEFRONT_WIDE_CHECK["max_abs_err"],
+                int((got.long() - want.long()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError("{0}: the kernel differs from the plain "
+                                 "version on a sampled pair".format(where))
+    WAVEFRONT_WIDE_CHECK["pairs_plain"] += len(chosen)
+    return len(chosen)
+
+
+def _wavefront_calls_by_variant(path, calls):
+    """The recorded wavefront calls of `path` by kernel variant: {variant:
+    [(args, outputs), ...]}."""
+    from svim_tpu_torch.ops import wavefront_kernel
+
+    by_variant = {}
+    for label, kernel, args, _kwargs, outputs in calls:
+        if label == path and kernel == "wavefront":
+            variant = wavefront_kernel.kernel_variant(int(args[0].shape[1]),
+                                                      int(args[4]))
+            by_variant.setdefault(variant, []).append((args, outputs))
+    return by_variant
+
+
+def _longtail_routes(path, routes):
+    """Fails unless a phase 21 path's route counters show each route of the
+    long tail: a COLLECT re-run, partitions subsampled in DEL and in INS,
+    candidates joined by the kernel and by the host in its GENOTYPE run,
+    and on longtail_wavefront a launch of the global-scratch variant."""
+    missing = []
+    if not routes["collect_reruns"]:
+        missing.append("a COLLECT re-run")
+    for element_type in ("DEL", "INS"):
+        if not routes["large_partitions"].get(element_type):
+            missing.append("a subsampled {0} partition".format(element_type))
+    for route in ("kernel", "host"):
+        if not routes["genotype_joined"][route]:
+            missing.append("a candidate joined by the " + route)
+    if path == "longtail_wavefront" \
+            and not routes["wavefront_by_variant"]["global"]:
+        missing.append("a launch of the wavefront's global variant")
+    if missing:
+        raise AssertionError("{0}: no {1} (route counters {2})".format(
+            path, ", no ".join(missing), json.dumps(routes)))
+
+
+def phase_longtail(card, makers, recorder, device_ops):
+    """Phase 21: the long tail of a real sample on the card.
+    workloads.longtail_workload (streamed) and longtail_region_workload
+    (one-shot, mid-scan clustering), made by background makers, whose
+    inflated streams must hash to svim_tpu's inputs, through the CLI on
+    LONGTAIL_PATHS.  Each VCF must hash to svim_tpu's
+    (workloads.LONGTAIL_VCF_SHA256 for both long-tail paths,
+    LONGTAIL_REGION_VCF_SHA256) with its per-class (tp, fp, fn); the
+    streamed paths' telemetry and accepted labelings by route must equal
+    svim_tpu's (LONGTAIL_TELEMETRY; the mid-scan path's depend on what
+    the scan had delivered when it clustered).  Each path's route counters
+    (a `[paths]` line) must show a COLLECT re-run, subsampled DEL and INS
+    partitions, and candidates joined by the GENOTYPE kernel and by the
+    host join; longtail_wavefront must launch the wavefront kernel's
+    global-scratch variant and the agglomeration at P = 128.  Every device
+    call is recorded (phases 6, 15
+    and 16 replay the linkage, COLLECT and GENOTYPE calls); the wavefront
+    calls are replayed here: warp launches through the plain version in
+    full, cta and global launches through the kernel again and against the
+    native edit distance on every pair, and LONGTAIL_PLAIN_PAIRS of them
+    through the plain version.  Logs what the calls held, the stage
+    seconds, the global and cta variants' device time a pair beside their
+    bound and, from a traced run of longtail_wavefront in a process of its
+    own, device busy time.  Returns {"<variant> L=<L>
+    W=<W>": the largest such launch's pairs, device ms, ms a pair, bound
+    ms, what binds it and its DP cells}."""
+    import numpy as np
+
+    from svim_tpu_torch import workloads
+    from svim_tpu_torch.ops import wavefront_kernel
+
+    started = time.perf_counter()
+    samples = {
+        "longtail": _sample_made(makers, "longtail",
+                                 workloads.LONGTAIL_INFLATED_SHA256),
+        "longtail_region": _sample_made(
+            makers, "longtail_region",
+            workloads.LONGTAIL_REGION_INFLATED_SHA256, streamed=False)}
+    pins = {"longtail": (workloads.LONGTAIL_VCF_SHA256,
+                         workloads.LONGTAIL_CLASSES),
+            "longtail_region": (workloads.LONGTAIL_REGION_VCF_SHA256,
+                                workloads.LONGTAIL_REGION_CLASSES)}
+    traced = []
+    for path, (workload, flags) in LONGTAIL_PATHS.items():
+        sample = samples[workload]
+        streamed = workload == "longtail"
+        result = _sample_path(card, "longtail", sample, path, flags,
+                              recorder, device_ops, streamed=streamed)
+        needed = ["collect_scan", "classify_segments", "genotype_support",
+                  "agglomerate"]
+        telemetry = None
+        if streamed:
+            telemetry = workloads.LONGTAIL_TELEMETRY[
+                "wavefront" if "wavefront" in flags else "auto"]
+        if "wavefront" in flags:
+            needed += ["wavefront_banded_distance", "ins_matrices"]
+        _sample_pins(path, result, *pins[workload], telemetry, needed)
+        log("paths", "{0}: route counters {1}".format(
+            path, json.dumps(PATH_ROUTES[path])))
+        _longtail_routes(path, PATH_ROUTES[path])
+        calls = _sample_calls(path, device_ops.calls, recorder)
+        # the resident route takes the subsampled INS partitions, 100 slots
+        # each, into the agglomeration's P = 128 bucket
+        if "wavefront" in flags and not calls["linkage_by_bucket"].get(
+                "agglomerate_batched P=128"):
+            raise AssertionError("{0}: no agglomeration launch at P = 128"
+                                 .format(path))
+        log("longtail", "{0}: VCF hashes to svim_tpu's; per-class counts{1} "
+            "equal svim_tpu's; every route of the long tail taken; calls: "
+            "{2}".format(path, ", telemetry and labelings by route"
+                         if telemetry else "", json.dumps(calls)))
+        if "wavefront" in flags:
+            traced.append([path, ["alignment",
+                                  result["working_dir"] + "_traced",
+                                  sample[1], sample[2]] + flags])
+
+    by_variant = _wavefront_calls_by_variant("longtail_wavefront",
+                                             device_ops.calls)
+    compared = WAVEFRONT_CHECK["calls"]
+    replay = time.perf_counter()
+    for args, outputs in by_variant.get("warp", []):
+        _wavefront_against_plain(args, outputs,
+                                 "wavefront call of longtail_wavefront")
+    log("longtail", "{0} warp wavefront calls of longtail_wavefront equal to "
+        "the plain version ({1:.1f} s)".format(
+            WAVEFRONT_CHECK["calls"] - compared,
+            time.perf_counter() - replay))
+    replay = time.perf_counter()
+    rng = np.random.default_rng(20261021)
+    timed = {}
+    for variant in wavefront_kernel.VARIANTS[1:]:
+        calls = by_variant.get(variant, [])
+        for args, outputs in calls:
+            _wide_wavefront_against_native(
+                args, outputs, "{0} wavefront call of longtail_wavefront"
+                .format(variant))
+        sampled = _wide_wavefront_against_plain(
+            calls, LONGTAIL_PLAIN_PAIRS[variant], rng,
+            variant + " wavefront calls of longtail_wavefront")
+        log("longtail", "{0} wavefront launches of longtail_wavefront: {1} "
+            "calls, {2} pairs, each equal to the native edit distance; {3} "
+            "sampled pairs equal to the plain version".format(
+                variant, len(calls), sum(int(call[0][0].shape[0])
+                                         for call in calls), sampled))
+        # the device time of the largest launch of each (L, W), beside the
+        # launch's bound on its own inputs
+        largest = {}
+        for args, outputs in calls:
+            shape = (int(args[0].shape[1]), int(args[4]))
+            if shape not in largest \
+                    or args[0].shape[0] > largest[shape][0][0].shape[0]:
+                largest[shape] = (args, outputs)
+        for (length, band), (args, outputs) in sorted(largest.items()):
+            ms, _ = _device_ms(
+                lambda: wavefront_kernel.banded_distance_cuda(*args), 1)
+            bound, bound_by, cells = wavefront_bound_ms(
+                args[1].cpu().numpy(), args[3].cpu().numpy(),
+                outputs.cpu().numpy(), length, band)
+            pairs = int(args[0].shape[0])
+            key = "{0} L={1} W={2}".format(variant, length, band)
+            timed[key] = {"pairs": pairs, "ms": ms, "ms_a_pair": ms / pairs,
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "cells": cells}
+            log("longtail", "{0}: {1!r} ms for {2} pairs on {3}, {4!r} ms a "
+                "pair; bound {5!r} ms by {6} ({7} cells)".format(
+                    key, ms, pairs, card, ms / pairs, bound, bound_by,
+                    cells))
+    log("longtail", "cta and global wavefront calls of longtail_wavefront "
+        "checked and timed in {0:.1f} s: {1}".format(
+            time.perf_counter() - replay, json.dumps(WAVEFRONT_WIDE_CHECK)))
+    log_busy("longtail", card, traced)
+    log("longtail", "phase 21 took {0:.1f} s".format(
+        time.perf_counter() - started))
+    return timed
 
 
 # phase 20: the repo's measuring entry points, each run once at bench scale
@@ -5111,11 +5469,12 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
                                                           makers)
     with collect_calls.recording("tiefree"):
         phase_tiefree(card, recorder, makers)
-    # phases 17, 18 and 19 run here so that phases 6, 15 and 16 take their
-    # calls too
+    # phases 17, 18, 19 and 21 run here so that phases 6, 15 and 16 take
+    # their calls too
     phase_stress(card, makers, recorder, collect_calls)
     phase_sample(card, makers, recorder, collect_calls)
     phase_sample_classes(card, makers, recorder, collect_calls)
+    longtail_wide = phase_longtail(card, makers, recorder, collect_calls)
     ins_timings = phase_linkage(recorder, slice_designs)
     rescan_design = rescan_design_library()
     phase_resources(rescan_design)
@@ -5145,7 +5504,7 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
         raise AssertionError("the port imported jax")
     log("paths", "kernel launches per path: {0}".format(
         json.dumps(PATH_LAUNCHES)))
-    log("time", "phases 2-20 took {0:.1f} s".format(
+    log("time", "phases 2-21 took {0:.1f} s".format(
         time.perf_counter() - started))
 
     import torch
@@ -5177,8 +5536,13 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
         "launches": PATH_LAUNCHES["bench_wavefront"][
             "wavefront_banded_distance"],
         "launches_by_path": by_path("wavefront_banded_distance"),
-        "max_abs_err": max(max_abs_err, WAVEFRONT_CHECK["max_abs_err"]),
+        "max_abs_err": max(max_abs_err, WAVEFRONT_CHECK["max_abs_err"],
+                           WAVEFRONT_WIDE_CHECK["max_abs_err"]),
         "compared_main_path_calls": WAVEFRONT_CHECK["calls"],
+        "longtail_wide_calls": WAVEFRONT_WIDE_CHECK,
+        "longtail_wide_launches": longtail_wide,
+        "longtail_launches_by_variant": PATH_ROUTES["longtail_wavefront"][
+            "wavefront_by_variant"],
         "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "shape": "B={0},L={1},W={2}".format(*MAIN_SHAPE)}, {

@@ -40,6 +40,8 @@ from svim_tpu_torch.utils.exactstats import stdev_half_ints, stdev_ints
 RANDOM_SEED = 1524       # fixed for reproducible subsampling (SVIM_clustering.py:129)
 MAX_PARTITION_SIZE = 100  # larger partitions are subsampled (SVIM_clustering.py:132)
 SUPPORT_CAP = 80          # score support saturates here (SVIM_clustering.py:208-210)
+# partitions over MAX_PARTITION_SIZE that CLUSTER subsampled, by signature type
+LARGE_PARTITIONS = {}
 
 
 def _group_by_labels(elements, labels):
@@ -121,6 +123,9 @@ def dispatch_clusters_from_partitions(partitions, reference, options,
             else:
                 work.samples.append(sample(partition, MAX_PARTITION_SIZE))
             work.large_partitions += 1
+            partition_type = _partition_type(partition)
+            LARGE_PARTITIONS[partition_type] = LARGE_PARTITIONS.get(
+                partition_type, 0) + 1
         else:
             work.samples.append(partition)
 

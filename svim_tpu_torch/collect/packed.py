@@ -52,6 +52,9 @@ from svim_tpu_torch.state import packed_to_torch, to_host
 
 _INV_DIRECTIONS = ("left_fwd", "left_rev", "right_fwd", "right_rev")
 MAX_SEGMENTS = 64  # reads with more alignments fall back to the host analyzer
+# each re-run of _consume_collect: (the batch's true event count, the table
+# size it overflowed, the table size of the re-run)
+RERUNS = []
 
 
 class _SATagSegment:
@@ -697,7 +700,9 @@ def _consume_collect(packed, rerun, max_events, fetched):
          pos_read, lengths, is_ins, count) = fetched
         if count <= max_events:
             break
-        max_events = round_up_pow2(int(count))
+        bound = round_up_pow2(int(count))
+        RERUNS.append((int(count), max_events, bound))
+        max_events = bound
         fetched = to_host(rerun(max_events))
     packed.ref_end = np.asarray(ref_end)
     packed.read_len = np.asarray(read_len)

@@ -14,6 +14,9 @@ import logging
 
 ALIGNMENT_CAP = 500     # alignments inspected per locus (SVIM_genotyping.py:56)
 WINDOW = 1000           # fetch window around the locus (SVIM_genotyping.py:49)
+# candidates whose reference support _finish_genotype_jobs took from the
+# device join ("kernel") and from the host join, _ref_support_host ("host")
+JOINED = {"kernel": 0, "host": 0}
 
 
 def _assign_genotype(candidate, alt_support, ref_support, options):
@@ -175,6 +178,9 @@ def _finish_genotype_jobs(pending, counts, table, options):
         if ref_support is None:
             ref_support = _ref_support_host(per_tid, tid, start, end, type,
                                             support_ids, contig_length)
+            JOINED["host"] += 1
+        else:
+            JOINED["kernel"] += 1
         _assign_genotype(candidate, alt_support, ref_support, options)
 
 

@@ -107,6 +107,8 @@ _max_shared_bytes = None
 _STATIC_SHARED_BYTES = 16   # the CTA kernel's own shared variable, rounded up
 WARP_KERNEL_MAX_SLOTS = 32 * 33   # slots of a front one warp holds in registers
 VARIANTS = ("warp", "cta", "cta_unstaged", "global")
+# LAUNCHES by the code path each launch took (kernel_variant's names)
+VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 
 def _kernel_library():
@@ -250,6 +252,7 @@ def banded_distance_cuda(a_codes, a_lens, b_codes, b_lens, band: int,
             raise ValueError("unknown variant {0!r}".format(variant))
     check_launch("wavefront", code)
     LAUNCHES += 1
+    VARIANT_LAUNCHES[variant] += 1
     return out
 
 

@@ -463,7 +463,9 @@ SAMPLE = dict(contig_length=64_444_167,    # GRCh38 chr20, the SV host
               depth=30,
               loci=None,             # per type; None: a locus a 115 kb
               ins_sizes=(50, 3000),  # bp, log-uniform
-              split_loci=None)       # loci a split-read class; None: none
+              split_loci=None,       # loci a split-read class; None: none
+              pileup=None,           # depth of the collapsed repeat; None: none
+              long_ins=None)         # ultra-long insertion loci; None: none
 SAMPLE_DEL_SIZES = (50, 5000)   # bp, log-uniform
 SAMPLE_COVERAGE = (12, 30)      # reads a locus
 SAMPLE_LOCUS_GAP = 5000         # bp from a locus's end to the next
@@ -679,6 +681,19 @@ def _place(rng, free, width, avoid=()):
     return x
 
 
+def _free_room(length, ops, positions, sizes):
+    """The half-open intervals of the host that lie SAMPLE_LOCUS_GAP from
+    every DEL and INS locus and SAMPLE_MARGIN from either end."""
+    free = []
+    low = SAMPLE_MARGIN
+    ends = positions + np.where(ops == _CIGAR_D, sizes, 0)
+    for start, end in zip(positions.tolist(), ends.tolist()):
+        free.append((low, start - SAMPLE_LOCUS_GAP))
+        low = end + SAMPLE_LOCUS_GAP
+    return [(a, b) for a, b in free + [(low, length - SAMPLE_MARGIN)]
+            if a < b]
+
+
 def _split_plan(rng, config, ops, positions, sizes):
     """The split-read loci of sample_workload: `split_loci` a class of
     SAMPLE_SPLIT_CLASSES, 1 to 3 of each wide (SAMPLE_WIDE_COVERAGE reads),
@@ -710,14 +725,7 @@ def _split_plan(rng, config, ops, positions, sizes):
                          "wide loci".format(per_class, sum(copies), wide))
     host, partner = SAMPLE_CONTIGS
     length, partner_length = config["contig_length"], config["partner_length"]
-    free = []
-    low = SAMPLE_MARGIN
-    ends = positions + np.where(ops == _CIGAR_D, sizes, 0)
-    for start, end in zip(positions.tolist(), ends.tolist()):
-        free.append((low, start - SAMPLE_LOCUS_GAP))
-        low = end + SAMPLE_LOCUS_GAP
-    free = [(a, b) for a, b in free + [(low, length - SAMPLE_MARGIN)]
-            if a < b]
+    free = _free_room(length, ops, positions, sizes)
 
     def coverage(is_wide, route="span"):
         low_cover, high_cover = (SAMPLE_WIDE_COVERAGE[route] if is_wide
@@ -859,14 +867,248 @@ def _check_split_segments(reads, lengths):
                  host)
 
 
-def _noise_rows(rng, count):
-    """_noisy_cigar's draws for `count` reads, a byte an (M, indel) pair:
-    M length (3-15) in the high nibble, 1 for an insertion in bit 3, the
-    indel's length less one (0-7) in the low bits."""
-    rows = np.empty((count, NOISE_PAIRS), dtype=np.uint8)
+# the long tail of a real sample (sample_workload's `pileup` and
+# `long_ins`): reads of diverged copies of a repeat that collapse onto one
+# reference copy, and ultra-long reads across long insertions
+PILEUP_SPAN = 100_000        # bp of the host the collapsed repeat covers
+PILEUP_PAIRS = 600           # noise pairs of a pileup read (~7 kb)
+PILEUP_READ_SPAN = PILEUP_PAIRS * 45 // 4 + 20   # bp, without its events
+PILEUP_COPIES = 8            # diverged copies of the repeat
+PILEUP_SITE_GAP = 1_500      # bp between the sites where the copies differ
+PILEUP_DEL_AT = 500          # bp past a site's insertions, its deletions
+PILEUP_SHIFT = 60            # bp each way a copy's event lies off its site
+PILEUP_EVENT_SIZES = (40, 300)   # bp, log-uniform
+PILEUP_PRESENT = 0.9         # chance that a copy differs at a site, a type
+# long insertion loci: sizes log-uniform over the first range for the first
+# half of the loci (rounded up), over the second for the others
+LONG_INS_SIZES = ((16_700, 30_000), (5_000, 15_000))
+LONG_INS_COVERAGE = (12, 20)   # reads a locus
+LONG_INS_READ_LENGTH = (40_000, 80_000)   # bp of a read's sequence
+LONG_INS_FLANK = 5_000         # bp of sequence at least on either side
+LONG_INS_SIZE_JITTER = 0.02    # of the locus's size, each way
+LONG_INS_NOISE = 0.01          # substitutions a base of a read's copy
+_PAIR_QUERY = 45 / 4   # mean sequence bases of a noise pair (9 + 4.5 / 2)
+
+
+def _extra_read(rng, rows, events=()):
+    """A read of noise `rows` in which each event (pair, op, length, insert
+    codes or None) takes the place of that pair's indel, closed by 20M:
+    (CIGAR words, base codes 0-3)."""
+    m, is_ins, indel = (field.astype(np.int64)
+                        for field in _noise_fields(rows))
+    op = _CIGAR_D - is_ins
+    length = indel.copy()
+    inserts = {}
+    for pair, event_op, event_length, insert in events:
+        op[pair] = event_op
+        length[pair] = event_length
+        if insert is not None:
+            inserts[pair] = insert
+    words = np.empty(2 * len(rows) + 1, dtype=np.uint32)
+    words[0:-1:2] = m << 4
+    words[1:-1:2] = (length << 4) | op
+    words[-1] = 20 << 4
+    inserted = np.where(op == _CIGAR_I, length, 0)
+    query = m + inserted
+    codes = rng.integers(0, 4, int(query.sum()) + 20, dtype=np.uint8)
+    if inserts:
+        # sequence bases up to the end of each pair's M
+        before = np.cumsum(query) - inserted
+        for pair, insert in inserts.items():
+            codes[before[pair]:before[pair] + len(insert)] = insert
+    return words, codes
+
+
+def _log_uniform(rng, low, high, count=None):
+    return np.rint(np.exp(rng.uniform(np.log(low), np.log(high),
+                                      count))).astype(np.int64)
+
+
+def _noisy_copy(rng, motif, substitutions):
+    """`motif` with `substitutions` random bases written over it."""
+    copy = motif.copy()
+    copy[rng.integers(0, len(copy), substitutions)] = rng.integers(
+        0, 4, substitutions, dtype=np.uint8)
+    return copy
+
+
+def _pileup_reads(rng, start, depth):
+    """The collapsed repeat over [start, start + PILEUP_SPAN): PILEUP_COPIES
+    copies, each differing from the reference by an insertion near every
+    site (PILEUP_SITE_GAP apart) and a deletion PILEUP_DEL_AT past it, each
+    with chance PILEUP_PRESENT, PILEUP_SHIFT off the site and of a size of
+    its own; `depth` times over the region, reads of PILEUP_PAIRS noise
+    pairs from a copy drawn at random, each carrying the copy's events it
+    spans (at the first noise pair at or past the event's position; an
+    insertion with the sample's 0-4 substitutions a read).  Returns
+    (starts, [(words, codes)], events per read)."""
+    sites = np.arange(start + PILEUP_SITE_GAP // 2,
+                      start + PILEUP_SPAN - PILEUP_SITE_GAP, PILEUP_SITE_GAP)
+    copies = []
+    for _ in range(PILEUP_COPIES):
+        events = []
+        for op, offset in ((_CIGAR_I, 0), (_CIGAR_D, PILEUP_DEL_AT)):
+            present = rng.random(len(sites)) < PILEUP_PRESENT
+            positions = sites + offset + rng.integers(
+                -PILEUP_SHIFT, PILEUP_SHIFT + 1, len(sites))
+            sizes = _log_uniform(rng, *PILEUP_EVENT_SIZES, len(sites))
+            for position, size in zip(positions[present].tolist(),
+                                      sizes[present].tolist()):
+                events.append((position, op, size, rng.integers(
+                    0, 4, size, dtype=np.uint8) if op == _CIGAR_I else None))
+        copies.append(sorted(events, key=lambda event: event[0]))
+    count = round(depth * PILEUP_SPAN / PILEUP_READ_SPAN)
+    # a read's span stays under 2 * PILEUP_READ_SPAN: the region holds it
+    starts = np.sort(rng.integers(start, start + PILEUP_SPAN
+                                  - 2 * PILEUP_READ_SPAN, count))
+    copy_of = rng.integers(0, PILEUP_COPIES, count)
+    rows = _noise_rows(rng, count, PILEUP_PAIRS)
+    records = []
+    carried = np.empty(count, dtype=np.int64)
+    for read, (read_start, copy) in enumerate(zip(starts.tolist(),
+                                                  copy_of.tolist())):
+        m, is_ins, indel = (field.astype(np.int64)
+                            for field in _noise_fields(rows[read]))
+        deleted = indel * (1 - is_ins)
+        # the reference position of each pair's indel, after its M
+        at = read_start + np.cumsum(m + deleted) - deleted
+        events = []
+        for position, op, size, motif in copies[copy]:
+            if position < read_start:
+                continue
+            pair = int(np.searchsorted(at, position))
+            if pair >= PILEUP_PAIRS - 1:
+                break
+            if pair < 1 or (events and pair <= events[-1][0] + 1):
+                continue
+            at[pair + 1:] += (size if op == _CIGAR_D else 0) - deleted[pair]
+            events.append((pair, op, size, None if motif is None else
+                           _noisy_copy(rng, motif, int(rng.integers(0, 5)))))
+        records.append(_extra_read(rng, rows[read], events))
+        carried[read] = len(events)
+    return starts, records, carried
+
+
+def _long_ins_reads(rng, count, free, length):
+    """`count` loci of one long insertion each, placed in `free` (at least
+    LONG_INS_READ_LENGTH[1] + SAMPLE_MARGIN from the host's ends), with
+    LONG_INS_COVERAGE reads of LONG_INS_READ_LENGTH bases that span it with
+    LONG_INS_FLANK or more on either side; position and size offsets drawn
+    without repeats as in tiefree_workload, each read's copy of the insert
+    with LONG_INS_NOISE substitutions a base.  Returns (starts, [(words,
+    codes)], [(position, size, reads)])."""
+    reach = LONG_INS_READ_LENGTH[1] + SAMPLE_MARGIN
+    starts, records, loci = [], [], []
+    for index in range(count):
+        size = int(_log_uniform(rng, *LONG_INS_SIZES[
+            0 if index < (count + 1) // 2 else 1]))
+        reads = int(rng.integers(LONG_INS_COVERAGE[0],
+                                 LONG_INS_COVERAGE[1] + 1))
+        shifts = _distinct_offsets(rng, max(TIEFREE_POSITION_JITTER["I"],
+                                            reads // 2), reads)
+        resizes = _distinct_offsets(rng, max(int(size * LONG_INS_SIZE_JITTER),
+                                             reads), reads)
+        motif = rng.integers(0, 4, size + int(resizes.max()), dtype=np.uint8)
+        position = _place(rng, free, int(shifts.max() - shifts.min()),
+                          avoid=[(0, reach), (length - reach, length)]) \
+            - int(shifts.min())
+        loci.append((position, size, reads))
+        for shift, resize in zip(shifts.tolist(), resizes.tolist()):
+            insert = motif[:size + resize]
+            insert = _noisy_copy(rng, insert, int(rng.binomial(
+                len(insert), LONG_INS_NOISE)))
+            total = int(rng.integers(max(LONG_INS_READ_LENGTH[0],
+                                         len(insert) + 2 * LONG_INS_FLANK),
+                                     LONG_INS_READ_LENGTH[1] + 1))
+            left = int(rng.integers(LONG_INS_FLANK, total - len(insert)
+                                    - LONG_INS_FLANK + 1))
+            parts = []
+            for bases in (left, total - len(insert) - left):
+                rows = _noise_rows(rng, 1, int(bases / _PAIR_QUERY * 1.25)
+                                   + 32)[0]
+                m, is_ins, indel = _noise_fields(rows)
+                query = np.cumsum(m.astype(np.int64) + indel * is_ins)
+                parts.append(rows[:int(np.searchsorted(query, bases)) + 1])
+            m, is_ins, indel = (field.astype(np.int64)
+                                for field in _noise_fields(parts[0]))
+            # the insertion takes the place of the left run's last indel
+            ref_before = int(m.sum() + (indel * (1 - is_ins))[:-1].sum())
+            starts.append(position + shift - ref_before)
+            records.append(_extra_read(
+                rng, np.concatenate(parts),
+                [(len(parts[0]) - 1, _CIGAR_I, len(insert), insert)]))
+    return np.asarray(starts, dtype=np.int64), records, loci
+
+
+def _longtail_reads(rng, config, ops, positions, sizes, split):
+    """The reads of `pileup` (_pileup_reads) and `long_ins`
+    (_long_ins_reads), placed in the room the DEL, INS and split-read loci
+    leave (SAMPLE_LOCUS_GAP from each), each read inside the host
+    (check_inside).  Returns (starts, [(words, codes)], truth: the long
+    insertions as sim.TruthVariant records, a summary for sample.json)."""
+    from svim_tpu_torch.sim import TruthVariant
+
+    host = SAMPLE_CONTIGS[0]
+    length = config["contig_length"]
+    free = _free_room(length, ops, positions, sizes)
+    if split is not None:
+        for point in np.concatenate([split["bp"], split["seg_pos"]]).tolist():
+            free = _cut(free, point - SAMPLE_LOCUS_GAP,
+                        point + SAMPLE_LOCUS_GAP)
+    starts, records, summary, truth = [], [], {}, []
+    if config["pileup"]:
+        begin = _place(rng, free, PILEUP_SPAN)
+        pileup_starts, pileup_records, carried = _pileup_reads(
+            rng, begin, config["pileup"])
+        starts.append(pileup_starts)
+        records += pileup_records
+        summary["pileup"] = {"start": begin, "span": PILEUP_SPAN,
+                             "reads": len(pileup_records),
+                             "events_per_read": [int(carried.min()),
+                                                 float(carried.mean()),
+                                                 int(carried.max())]}
+    if config["long_ins"]:
+        ins_starts, ins_records, loci = _long_ins_reads(
+            rng, config["long_ins"], free, length)
+        starts.append(ins_starts)
+        records += ins_records
+        summary["long_ins"] = loci
+        truth += [TruthVariant("INS", host, position, size)
+                  for position, size, _reads in loci]
+    starts = np.concatenate(starts)
+    check_inside(starts, [_ref_span(words) for words, _codes in records],
+                 length, host)
+    return starts, records, truth, summary
+
+
+def _ref_span(words):
+    """Reference bases of BAM CIGAR words of M, I and D ops."""
+    op = words & 0xF
+    return int(((words >> 4) * ((op == 0) | (op == _CIGAR_D))).sum())
+
+
+def _record(name, start, words, codes, flag=0, tag=b""):
+    """One BAM record (mapq 60, no QUAL) of base codes 0-3."""
+    bases = _BASE_CODES[codes]
+    if len(bases) % 2:
+        bases = np.append(bases, np.uint8(0))
+    seq = (bases[0::2] << 4) | bases[1::2]
+    size = 32 + len(name) + 4 * len(words) + len(seq) + len(codes) + len(tag)
+    return b"".join([struct.pack("<iiiBBHHHiiii", size, 0, int(start),
+                                 len(name), 60, 0, len(words), flag,
+                                 len(codes), -1, -1, 0),
+                     name, words.astype(np.uint32).tobytes(), seq.tobytes(),
+                     b"\xff" * len(codes), tag])
+
+
+def _noise_rows(rng, count, pairs=NOISE_PAIRS):
+    """_noisy_cigar's draws for `count` reads of `pairs` pairs, a byte an
+    (M, indel) pair: M length (3-15) in the high nibble, 1 for an insertion
+    in bit 3, the indel's length less one (0-7) in the low bits."""
+    rows = np.empty((count, pairs), dtype=np.uint8)
     for low in range(0, count, 8192):
         high = min(count, low + 8192)
-        shape = (high - low, NOISE_PAIRS)
+        shape = (high - low, pairs)
         rows[low:high] = ((rng.integers(3, 16, shape, dtype=np.uint8) << 4)
                           | (rng.integers(0, 2, shape, dtype=np.uint8) << 3)
                           | rng.integers(0, 8, shape, dtype=np.uint8))
@@ -1021,8 +1263,12 @@ def sample_workload(directory, seed=1, **changes):
     (_split_plan), drawn from a stream of their own: a supporting read's
     primary is the first pairs of a _noisy_cigar read ending (or, reversed,
     starting) in a soft clip at its breakpoint, and its SA:Z tag places the
-    other segments in sim.py's shapes.  Every segment of every read lies
-    inside its contig's LN (check_inside).
+    other segments in sim.py's shapes.  With `pileup`, a collapsed repeat
+    of PILEUP_SPAN bp at that extra depth (_pileup_reads), and with
+    `long_ins`, that many loci of ultra-long reads across a long insertion
+    (_long_ins_reads), both from a third stream, their reads merged into
+    the coordinate order.  Every segment of every read lies inside its
+    contig's LN (check_inside).
 
     Built as arrays, the BAM's record bytes written directly (no SAM text)
     and deflated by threads.  `changes` replace fields of SAMPLE (the CPU
@@ -1112,13 +1358,21 @@ def sample_workload(directory, seed=1, **changes):
                 0, 4, noise, dtype=np.uint8)
             inserts[read] = insert
 
+    # the long tail draws from a stream of its own, as the split-read loci
+    extra_starts, extras, extra_truth, extra_summary = (
+        _longtail_reads(np.random.default_rng([seed, 4]), config, ops,
+                        positions, sizes, plan)
+        if config["pileup"] or config["long_ins"]
+        else (np.empty(0, dtype=np.int64), [], [], {}))
+
     os.makedirs(directory, exist_ok=True)
     bam_path = os.path.join(directory, "sample.bam")
     writer = _BgzfWriter(bam_path)
     writer.write(_bam_header([(host, length), (partner, partner_length)]))
-    order = np.argsort(starts, kind="stable")
-    for low in range(0, n_reads, SAMPLE_CHUNK):
-        reads = order[low:low + SAMPLE_CHUNK]
+    order = np.argsort(np.concatenate([starts, extra_starts]), kind="stable")
+    for low in range(0, len(order), SAMPLE_CHUNK):
+        chunk = order[low:low + SAMPLE_CHUNK]
+        reads = chunk[chunk < n_reads]
         chunk_m, chunk_ins, chunk_indel = (
             field.astype(np.uint32) for field in _noise_fields(rows[reads]))
         words = np.empty((len(reads), SAMPLE_OPS), dtype=np.uint32)
@@ -1145,8 +1399,14 @@ def sample_workload(directory, seed=1, **changes):
         packed = (codes[0::2] << 4) | codes[1::2]   # BAM's two a byte
         packed_at = read_starts // 2
         parts = []
-        for index, read in enumerate(reads.tolist()):
-            name = "read{0}".format(low + index).encode() + b"\x00"
+        index = -1   # the read's place in `reads`
+        for place, read in enumerate(chunk.tolist()):
+            name = "read{0}".format(low + place).encode() + b"\x00"
+            if read >= n_reads:
+                parts.append(_record(name, extra_starts[read - n_reads],
+                                     *extras[read - n_reads]))
+                continue
+            index += 1
             l_seq = int(lengths[index])
             tag = tags.get(read, b"")
             seq = packed[packed_at[index]:packed_at[index] + (l_seq + 1) // 2]
@@ -1178,17 +1438,17 @@ def sample_workload(directory, seed=1, **changes):
                           int(position), int(size))
              for op, position, size in zip(ops.tolist(), positions.tolist(),
                                            sizes.tolist())]
-    _save_truth(directory, "sim", truth + split_truth)
+    _save_truth(directory, "sim", truth + split_truth + extra_truth)
     with open(os.path.join(directory, SAMPLE_FILE), "w") as handle:
-        json.dump({"reads": n_reads, "supporting_reads": n_support,
-                   "split_reads": len(split),
-                   "loci": dict({"DEL": int((ops == _CIGAR_D).sum()),
-                                 "INS": int((ops == _CIGAR_I).sum())},
-                                **split_loci),
-                   "bam_bytes": os.path.getsize(bam_path),
-                   "inflated_bytes": writer.inflated,
-                   "inflated_sha256": writer.digest.hexdigest(),
-                   "seconds": time.perf_counter() - started}, handle)
+        json.dump(dict({"reads": len(order), "supporting_reads": n_support,
+                        "split_reads": len(split),
+                        "loci": dict({"DEL": int((ops == _CIGAR_D).sum()),
+                                      "INS": int((ops == _CIGAR_I).sum())},
+                                     **split_loci)}, **extra_summary,
+                       bam_bytes=os.path.getsize(bam_path),
+                       inflated_bytes=writer.inflated,
+                       inflated_sha256=writer.digest.hexdigest(),
+                       seconds=time.perf_counter() - started), handle)
     return bam_path, genome_path
 
 
@@ -1205,6 +1465,72 @@ def sample_classes_workload(directory, seed=1, **changes):
     return sample_workload(directory, seed,
                            **dict({"split_loci": SAMPLE_SPLIT_LOCI},
                                   **changes))
+
+
+# the long tail of a real sample: sample_workload with a collapsed repeat
+# at LONGTAIL_PILEUP times the depth over the background, and
+# LONGTAIL_LONG_INS loci of ultra-long reads across 5-30 kb insertions
+LONGTAIL_PILEUP = 1_000
+LONGTAIL_LONG_INS = 8
+# the same on a host cut short, so that its BAM stays under the 96 MiB
+# streaming threshold (COLLECT one-shot, with mid-scan clustering)
+LONGTAIL_REGION = dict(contig_length=1_200_000, partner_length=1_000_000)
+# svim_tpu's CPU runs on longtail_workload and longtail_region_workload at
+# seed 1: the sha256 of the generator's inflated BAM stream and of
+# variants.vcf (##fileDate lines left out; the CLI's defaults, and for the
+# long tail --edit_backend wavefront --incremental_cluster off too, whose
+# resident route took exact distances from svim_tpu's native batch: one
+# VCF), the per-class (tp, fp, fn) of sim.evaluate_vcf (the pileup's calls
+# are false positives: the truth lists only the DEL and INS loci), and the
+# clustering telemetry with the labelings accepted by route, by edit
+# backend, with --incremental_cluster off (the long tail is streamed, so
+# its default run clusters nothing mid-scan)
+LONGTAIL_INFLATED_SHA256 = ("3db3fbfa5f5f53b45ce41fcffb3fa99c"
+                            "d6ac30dc24e9c627cdcedd8fed7d9820")
+LONGTAIL_VCF_SHA256 = ("0ec0df8e1140011258c4906dac02dbd8"
+                       "17ab79636f03365168cff39371f17e44")
+LONGTAIL_CLASSES = {"ALL": (568, 681, 0), "DEL": (280, 151, 0),
+                    "INS": (288, 530, 0)}
+LONGTAIL_TELEMETRY = {
+    "auto": ({"device": 161, "pre_tie": 288, "pre_wall": 0, "post_tie": 244,
+              "post_wall": 0, "resident_relink": 0},
+             {"fused": 99, "matrix": 62}),
+    "wavefront": ({"device": 207, "pre_tie": 113, "pre_wall": 0,
+                   "post_tie": 130, "post_wall": 0, "resident_relink": 243},
+                  {"fused": 99, "resident": 108})}
+LONGTAIL_REGION_INFLATED_SHA256 = ("324fd849b7005d126e6a9ed99f7871fb"
+                                   "cd2c09e519c4d7f02af3c2b80ba6e671")
+LONGTAIL_REGION_VCF_SHA256 = ("a5059e929a1cad9c8b2eb218a23612b6"
+                              "29f1410310a76315196310b396eaf96b")
+LONGTAIL_REGION_CLASSES = {"ALL": (18, 625, 0), "DEL": (5, 151, 0),
+                           "INS": (13, 474, 0)}
+LONGTAIL_REGION_TELEMETRY = {
+    "auto": ({"device": 5, "pre_tie": 127, "pre_wall": 0, "post_tie": 11,
+              "post_wall": 0, "resident_relink": 0},
+             {"fused": 2, "matrix": 3}),
+    "wavefront": ({"device": 5, "pre_tie": 63, "pre_wall": 0, "post_tie": 2,
+                   "post_wall": 0, "resident_relink": 73},
+                  {"fused": 2, "resident": 3})}
+
+
+def longtail_workload(directory, seed=1, **changes):
+    """sample_workload (chr20 at 30x) with its long tail: a collapsed
+    repeat of PILEUP_SPAN bp at LONGTAIL_PILEUP times the depth (reads of
+    PILEUP_COPIES diverged copies, several DEL and INS of 40-300 bp a
+    read) and LONGTAIL_LONG_INS loci of 40-80 kb reads across 5-30 kb
+    insertions.  A BAM over the streaming threshold.  `changes` replace
+    fields of SAMPLE.  Returns (bam_path, genome_path)."""
+    return sample_workload(directory, seed, **dict(
+        {"pileup": LONGTAIL_PILEUP, "long_ins": LONGTAIL_LONG_INS},
+        **changes))
+
+
+def longtail_region_workload(directory, seed=1, **changes):
+    """longtail_workload on the hosts of LONGTAIL_REGION: the same pileup
+    and long insertions, a BAM under the streaming threshold.  Returns
+    (bam_path, genome_path)."""
+    return longtail_workload(directory, seed,
+                             **dict(LONGTAIL_REGION, **changes))
 
 
 def reblock_stored(bam, out):
