@@ -28,13 +28,20 @@ Phases, each of which raises (non-zero exit) on failure:
   3. kernel vs plain version on the card: banded_distance_cuda against
      banded_distance_torch on seeded inputs (half near-identical pairs, half
      random) at the main path's shapes and at one case per code path of the
-     kernel (warp kernel with a ragged last CTA, CTA kernel with staged and
-     unstaged strings, fronts in global scratch, narrow passes that resolve
-     and that run on to W, empty and one-character strings, and every case
-     of the card tests of tests/test_torch_wavefront.py, which need jax to
-     be collected and so run nowhere); outputs must be exactly equal, above
-     the band too, through the dispatcher as well (one launch a call), and
-     64 resolved entries must equal the O(nm) dynamic program below;
+     kernel (warp kernel with a ragged last CTA, the strip layout with
+     staged and unstaged strings, narrow passes that resolve and that run
+     on to W, empty and one-character strings, and every case of the card
+     tests of tests/test_torch_wavefront.py, which need jax to be collected
+     and so run nowhere); outputs must be exactly equal, above the band
+     too, through the dispatcher as well (one launch a call), and 64
+     resolved entries must equal the O(nm) dynamic program below; then at
+     L = W = 32,768 (WIDE_SHAPES: pairs the ladder resolves and unrelated
+     pairs that run to W, through either strip layout) every pair must
+     equal the native edit distance and a seeded sample of them the plain
+     version; the first design of the kernel (WAVEFRONT_DESIGN_COMMIT, one
+     CTA a pair with a barrier a front) is timed beside the present one in
+     turns at the warp shape MAIN_SHAPE and on unrelated pairs at L = W =
+     16,384 and 32,768 (DESIGN_SHAPES);
   4. golden slice: `alignment --edit_backend wavefront` on the simulated
      workload of tests/test_golden_vcf.py must write a variants.vcf
      byte-equal to tests/golden/variants.golden.vcf (##fileDate aside) and
@@ -280,17 +287,17 @@ Phases, each of which raises (non-zero exit) on failure:
      bounds, wavefront launches by variant, GENOTYPE's candidates joined by
      the kernel and by the host, partitions subsampled by type) must show
      a re-run, subsampled DEL and INS partitions and both joins, and
-     longtail_wavefront the wavefront kernel's global-scratch variant and
-     an agglomeration launch at P = 128 (the subsampled INS partitions on
-     the resident route).
+     longtail_wavefront the wavefront kernel's strip layout at L = 32,768
+     and an agglomeration launch at P = 128 (the subsampled INS partitions
+     on the resident route).
      Every device call is recorded (phases 6, 15 and 16 replay the linkage,
      COLLECT, re-runs included, and GENOTYPE calls); the wavefront calls
-     are replayed here: warp launches through the plain version, cta and
-     global ones through the kernel again and against the native edit
-     distance on every pair, and a seeded sample of their pairs
-     (LONGTAIL_PLAIN_PAIRS) through the plain version.  Logs what the calls
-     held, stage seconds, the cta and global variants' device ms a pair
-     beside the bound of the launch and, from a traced run of
+     are replayed here: warp launches through the plain version, strip
+     ones through the kernel again and against the native edit distance on
+     every pair, and a seeded sample of their pairs (LONGTAIL_PLAIN_PAIRS)
+     through the plain version.  Logs what the calls held, stage seconds,
+     the strip launches' device ms a pair beside the bound of the launch
+     and beside the first design's in turns and, from a traced run of
      longtail_wavefront in a process of its own, device busy time.
 The script imports torch and the port, never jax or the JAX package: the
 inputs come from svim_tpu_torch.workloads.
@@ -698,14 +705,14 @@ def _device_ms(function, repeats):
 def kernel_shapes():
     """(B, L, W, variant): the main path's lengths and pow4 bands at a small
     and a full batch, the full launches of the 8192-read workload, and
-    W=4096 and W=16384 (one CTA per pair, fronts in shared memory), each on
-    the code path the wrapper picks (variant None); then one case per code
-    path of the kernel: the warp kernel with a ragged last CTA (B not a
-    multiple of the 4 pairs a CTA) at a narrow and at the widest band, the
-    shapes of tests/test_torch_wavefront.py's card tests that the list
-    lacked (B = 64 at L, W = 1024, 256; L = 2048), and the CTA kernel forced
-    to each of its three layouts at three shapes (the last one that file's:
-    5 pairs, strings shorter than their rows, W = 300)."""
+    W=4096 and W=16384 (the strip layout), each on the code path the
+    wrapper picks (variant None); then one case per code path of the
+    kernel: the warp kernel with a ragged last CTA (B not a multiple of the
+    4 pairs a CTA) at a narrow and at the widest band, the shapes of
+    tests/test_torch_wavefront.py's card tests that the list lacked (B = 64
+    at L, W = 1024, 256; L = 2048), and the strip layout forced with staged
+    and with unstaged strings at three shapes (the last one that file's: 5
+    pairs, strings shorter than their rows, W = 300)."""
     shapes = [(batch, length, band, None) for length in (512, 1024)
               for band in (64, 128, 256, 1024) for batch in (8, 1024)]
     shapes += [(8192, 512, 64, None), (8192, 512, 256, None),
@@ -714,10 +721,153 @@ def kernel_shapes():
                (2051, 1024, 1024, None), (67, 300, 100, None),
                (64, 1024, 256, None), (8, 2048, 1024, None)]
     shapes += [(batch, length, band, variant)
-               for variant in ("cta", "cta_unstaged", "global")
+               for variant in ("strip", "strip_unstaged")
                for batch, length, band in ((64, 512, 256), (16, 1024, 1024),
                                            (5, 1024, 300))]
     return shapes
+
+
+# phase 3 at the widest band the resident route uses (L = W = 32,768): pairs
+# of 16-32 kb with a few hundred to a few thousand edits, which the ladder's
+# rungs resolve, and unrelated pairs, which run to W; (label, B, edits or
+# None for unrelated), each through both strip layouts
+WIDE_LENGTH = 32768
+WIDE_SHAPES = (("resolved", 64, 1500), ("full band", 16, None))
+WIDE_PLAIN_PAIRS = 2   # pairs of each through the plain version
+# the launches timed beside the first design in phase 3: the warp shape and
+# unrelated pairs of L/2-L characters that run to W (B, L = W)
+DESIGN_SHAPES = ((264, 16384), (132, 32768))
+
+
+def _random_codes(rng, size):
+    import numpy as np
+
+    return np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, size)]
+
+
+def _wide_pairs(rng, batch, length, edits):
+    """(B, L) codes and lengths: strings of L/2 to L characters, each b a
+    copy of a with up to `edits` substitutions and a deletion of up to
+    edits / 4 characters, or (edits None) an unrelated string."""
+    import numpy as np
+
+    a_codes = np.zeros((batch, length), dtype=np.uint8)
+    b_codes = np.zeros((batch, length), dtype=np.uint8)
+    a_lens = np.zeros(batch, dtype=np.int32)
+    b_lens = np.zeros(batch, dtype=np.int32)
+    for row in range(batch):
+        a = _random_codes(rng, int(rng.integers(length // 2, length + 1)))
+        if edits is None:
+            b = _random_codes(rng, int(rng.integers(length // 2,
+                                                    length + 1)))
+        else:
+            b = a.copy()
+            places = rng.integers(0, len(b), int(rng.integers(0, edits + 1)))
+            b[places] = _random_codes(rng, len(places))
+            cut = int(rng.integers(0, edits // 4 + 1))
+            b = np.concatenate([b[:len(b) // 2], b[len(b) // 2 + cut:]])
+        a_codes[row, :len(a)] = a
+        b_codes[row, :len(b)] = b
+        a_lens[row], b_lens[row] = len(a), len(b)
+    return a_codes, a_lens, b_codes, b_lens
+
+
+def _native_distances(a_codes, a_lens, b_codes, b_lens):
+    import numpy as np
+
+    from svim_tpu_torch import native
+
+    pairs = [(a_codes[row, :a_lens[row]].tobytes().decode(),
+              b_codes[row, :b_lens[row]].tobytes().decode())
+             for row in range(len(a_lens))]
+    return np.asarray(native.aligner.edit_distance_batch(pairs),
+                      dtype=np.int64)
+
+
+def phase_wide_kernels(first_design):
+    """Phase 3 at L = W = 32,768 and the first design's times: WIDE_SHAPES
+    through both strip layouts (one launch each, equal to each other and to
+    the native edit distance on every pair; WIDE_PLAIN_PAIRS of each shape
+    through the plain version), then DESIGN_SHAPES and MAIN_SHAPE timed
+    beside the first design in turns.  Returns ({label: ms, first design
+    ms, bound ms, what binds it, pairs resolved on a rung}, max |error|)."""
+    import numpy as np
+    import torch
+
+    from svim_tpu_torch.ops import wavefront_kernel as wk
+
+    from svim_tpu_torch.ops import _build
+
+    paths = {"present": _build.library_path("wavefront")}
+    if first_design is not None:
+        paths["first design"] = first_design.path
+    for which, path in paths.items():
+        for line in _resource_usage(path) or ["cuobjdump not found"]:
+            log("resources", "wavefront, {0}: {1}".format(which, line))
+    rng = np.random.default_rng(20261017)
+    max_abs_err = 0
+    picked = []
+    for label, batch, edits in WIDE_SHAPES:
+        codes = _wide_pairs(rng, batch, WIDE_LENGTH, edits)
+        args = [torch.from_numpy(x).cuda() for x in codes]
+        exact = _native_distances(*codes)
+        for variant in ("strip", "strip_unstaged"):
+            before = wk.VARIANT_LAUNCHES[variant]
+            got = wk.banded_distance_cuda(*args, WIDE_LENGTH, variant=variant)
+            if wk.VARIANT_LAUNCHES[variant] != before + 1:
+                raise AssertionError("the {0} layout was not launched".format(
+                    variant))
+            values = got.cpu().numpy().astype(np.int64)
+            max_abs_err = max(max_abs_err, int(np.abs(values - exact).max()))
+            if not np.array_equal(values, exact):
+                raise AssertionError("{0} pairs at L = W = {1}, {2}: {3} of "
+                                     "{4} differ from the native edit "
+                                     "distance".format(
+                                         label, WIDE_LENGTH, variant,
+                                         int((values != exact).sum()),
+                                         batch))
+        rows = sorted(rng.choice(batch, WIDE_PLAIN_PAIRS,
+                                 replace=False).tolist())
+        picked.append(([x[rows] for x in codes], exact[rows]))
+        log("kernel", "{0} pairs at L = W = {1} (B={2}): both strip layouts "
+            "equal to the native edit distance on every pair (distances "
+            "{3}..{4})".format(label, WIDE_LENGTH, batch, int(exact.min()),
+                               int(exact.max())))
+    sample = [np.concatenate([codes[index] for codes, _ in picked])
+              for index in range(4)]
+    started = time.perf_counter()
+    plain = wk.banded_distance_torch(
+        *[torch.from_numpy(x).cuda() for x in sample],
+        WIDE_LENGTH).cpu().numpy().astype(np.int64)
+    exact = np.concatenate([distances for _, distances in picked])
+    max_abs_err = max(max_abs_err, int(np.abs(plain - exact).max()))
+    if not np.array_equal(plain, exact):
+        raise AssertionError("the plain version differs from the kernel on "
+                             "the sampled pairs at L = W = {0}".format(
+                                 WIDE_LENGTH))
+    log("kernel", "{0} sampled pairs at L = W = {1}: the plain version "
+        "equals the kernel ({2:.1f} s)".format(
+            len(exact), WIDE_LENGTH, time.perf_counter() - started))
+
+    designs = {}
+    timed = [("B={0} L={1} W={2} (warp)".format(*MAIN_SHAPE),
+              _pairs(rng, MAIN_SHAPE[0], MAIN_SHAPE[1]), MAIN_SHAPE[2], 10)]
+    timed += [("B={0} L=W={1} unrelated".format(batch, length),
+               _wide_pairs(rng, batch, length, None), length, 1)
+              for batch, length in DESIGN_SHAPES]
+    for label, codes, band, repeats in timed:
+        args = [torch.from_numpy(x).cuda() for x in codes] + [band]
+        ms, first_ms = time_wavefront_designs(args, first_design, repeats)
+        values = wk.banded_distance_cuda(*args).cpu().numpy()
+        bound, bound_by, cells = wavefront_bound_ms(
+            codes[1], codes[3], values, codes[0].shape[1], band)
+        designs[label] = {"ms": ms, "first_design_ms": first_ms,
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "cells": cells}
+        log("kernel", "{0}: {1!r} ms, the first design {2!r} ms (in turns); "
+            "bound {3!r} ms by {4} ({5} cells)".format(
+                label, ms, first_ms, bound, bound_by, cells))
+    return designs, max_abs_err
 
 
 # int32 operations of one DP cell (a compare, an add, two min, an add-min)
@@ -833,23 +983,27 @@ def phase_kernels(shapes, dp_samples=64):
         bound_ms, bound_by, cells = wavefront_bound_ms(a_lens, b_lens, kernel,
                                                        length, band)
         path = variant or wk.kernel_variant(length, band)
-        # how the in-kernel narrow passes fared: resolved at band 63 or 255
-        # (tried where they are below half the pair's band), or run to W
+        # how the in-kernel rungs fared: resolved at band 63, 255, 1023 or
+        # 4095 (each tried where it is below half the pair's band), or run
+        # to W
         reach = np.minimum(band, np.maximum(a_lens, b_lens))
-        early = int(((kernel <= 63) & (reach > 126)).sum()
-                    + ((kernel > 63) & (kernel <= 255) & (reach > 510)).sum())
+        early, below = 0, -1
+        for rung in (63, 255, 1023, 4095):
+            early += int(((kernel > below) & (kernel <= rung)
+                          & (reach > 2 * rung)).sum())
+            below = rung
         if variant is None:
             timings[(batch, length, band)] = (kernel_ms, plain_ms, bound_ms,
                                               bound_by)
         log("kernel", "B={0} L={1} W={2} path={3}{4}: equal ({5} resolved, "
-            "{6} by a narrow pass, {7} run to W); kernel {8:.3f} ms, plain "
+            "{6} on a rung, {7} run to W); kernel {8:.3f} ms, plain "
             "{9:.3f} ms, bound {10:.4f} ms by {11} ({12} cells)".format(
                 batch, length, band, path, " (forced)" if variant else "",
                 len(resolved), early, batch - early, kernel_ms, plain_ms,
                 bound_ms, bound_by, cells))
-    if wk.kernel_variant(40000, 40000) != "global":
-        raise AssertionError("a band whose fronts exceed shared memory does "
-                             "not take the global-scratch path")
+    if wk.kernel_variant(WIDE_LENGTH, WIDE_LENGTH) != "strip" \
+            or wk.kernel_variant(120000, 4096) != "strip_unstaged":
+        raise AssertionError("the widest bands do not take the strip layout")
     if dp_checked < dp_samples:
         raise AssertionError("only {0} resolved entries checked against the "
                              "DP".format(dp_checked))
@@ -1026,7 +1180,11 @@ def _drive(path, arguments, chunk=0):
     import contextlib
 
     from svim_tpu_torch import workloads
-    from svim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from svim_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+        wavefront_kernel,
+    )
 
     reset_launch_counts()
     _reset_route_counts()
@@ -1696,6 +1854,97 @@ def rescan_design_library():
         getattr(library, name).restype = getattr(present, name).restype
     library.path = library_path
     return library
+
+
+# the commit whose csrc/wavefront.cu runs a band too wide for a warp as one
+# CTA a pair with a block barrier a front (fronts in shared memory, or in
+# device memory above it): timed beside the strip layout, in the same
+# process, wherever its source can be had (see _source_at)
+WAVEFRONT_DESIGN_COMMIT = "8f82aabc7b3f9e9f11c6855408ee8bcd77a75296"
+WAVEFRONT_SOURCE = "svim_tpu_torch/csrc/wavefront.cu"
+
+
+def wavefront_design_library():
+    """The first design of the wavefront kernel, built from its source with
+    the port's nvcc flags into SCRATCH; None when its source cannot be had."""
+    import ctypes
+
+    source = _source_at(WAVEFRONT_DESIGN_COMMIT, WAVEFRONT_SOURCE)
+    if source is None:
+        return None
+    library = _build_designs(os.path.join(SCRATCH, "wavefront_design"),
+                             {"wavefront": source})["wavefront"]
+    pointer, integer = ctypes.c_void_p, ctypes.c_int
+    library.wavefront_banded_distance_warp.argtypes = [
+        pointer, pointer, pointer, pointer, pointer, integer, integer,
+        integer, integer, integer, pointer]
+    library.wavefront_banded_distance_cta.argtypes = [
+        pointer, pointer, pointer, pointer, pointer, pointer, integer,
+        integer, integer, integer, integer, pointer]
+    library.wavefront_max_shared_bytes.argtypes = []
+    library.max_shared = library.wavefront_max_shared_bytes()
+    return library
+
+
+def _first_design_distance(library, a_codes, a_lens, b_codes, b_lens, band):
+    """banded_distance through the first design's library, dispatched as its
+    wrapper did: a warp a pair where the band fits 1056 slots, else a CTA a
+    pair with both fronts (and the strings, where they fit) in shared
+    memory, or the fronts in a (B, 2, stride) device-memory scratch."""
+    import torch
+
+    batch, length = a_codes.shape
+    out = torch.empty(batch, dtype=torch.int32, device=a_codes.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    pointers = (a_codes.data_ptr(), a_lens.data_ptr(), b_codes.data_ptr(),
+                b_lens.data_ptr(), out.data_ptr())
+    room = library.max_shared - 16
+    stride = (min(band, length) + 4) & ~1
+    slots = min(band, length) + 1
+    if slots <= 32 * 33 and 2 * length <= room:
+        warps = 4 if batch >= 2048 else 1
+        while warps > 1 and warps * 2 * length > library.max_shared:
+            warps //= 2
+        code = library.wavefront_banded_distance_warp(
+            *pointers, batch, length, band,
+            3 if slots <= 96 else 9 if slots <= 288 else 33, warps, stream)
+    elif 2 * stride * 4 <= room:
+        code = library.wavefront_banded_distance_cta(
+            *pointers, None, batch, length, band, stride,
+            int(2 * stride * 4 + 2 * length <= room), stream)
+    else:
+        scratch = torch.empty((batch, 2, stride), dtype=torch.int32,
+                              device=a_codes.device)
+        code = library.wavefront_banded_distance_cta(
+            *pointers, scratch.data_ptr(), batch, length, band, stride, 0,
+            stream)
+    if code != 0:
+        raise RuntimeError("the first wavefront design failed: CUDA error "
+                           "{0}".format(code))
+    return out
+
+
+def time_wavefront_designs(args, first_design, repeats):
+    """Device ms of banded_distance_cuda(*args) and, when `first_design` is a
+    library, of the first design on the same inputs in turns
+    (_time_designs: first design, kernel, kernel, first design); their
+    outputs must be equal.  Launch counts are left as they were."""
+    import torch
+
+    from svim_tpu_torch.ops import wavefront_kernel
+
+    variants = dict(wavefront_kernel.VARIANT_LAUNCHES)
+
+    def call():
+        if wavefront_kernel._library is first_design:
+            return _first_design_distance(first_design, *args)
+        return wavefront_kernel.banded_distance_cuda(*args)
+
+    try:
+        return _time_designs(wavefront_kernel, "_library", "LAUNCHES", call,
+                             first_design, torch.equal, repeats=repeats)
+    finally:
+        wavefront_kernel.VARIANT_LAUNCHES.update(variants)
 
 
 def _through(library, function):
@@ -4417,7 +4666,7 @@ WAVEFRONT_CHECK = {"calls": 0, "max_abs_err": 0}
 PORT_KERNEL_NAMES = ("agglomerate_fused_kernel", "agglomerate_matrix_kernel",
                      "classify_groups", "genotype_support_kernel",
                      "ins_matrices_kernel", "scan_and_compact",
-                     "span_distance_kernel", "wavefront_cta_kernel",
+                     "span_distance_kernel", "wavefront_strip_kernel",
                      "wavefront_warp_kernel")
 
 
@@ -4582,15 +4831,20 @@ def stress_busy(runs):
     memset intervals of the exported Chrome trace within the range (the
     rule of scripts/profile_port.py; the profiler's event list leaves out
     the kernels ctypes launched); the port's own kernels in the range must
-    be as many as the wrappers counted.  Prints one line "BUSY " + JSON
-    {path: {"busy_s", "device_sum_s", "wall_s", "port_kernels",
-    "launches"}}."""
+    be as many as the wrappers counted, a wavefront call of the strip
+    layout counting two (its ladder, then its strips).  Prints one line
+    "BUSY " + JSON {path: {"busy_s", "device_sum_s", "wall_s",
+    "port_kernels", "launches", "strip_launches"}}."""
     import importlib.util
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from svim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from svim_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+        wavefront_kernel,
+    )
 
     spec = importlib.util.spec_from_file_location(
         "profile_port", os.path.join(ROOT, "scripts", "profile_port.py"))
@@ -4601,6 +4855,8 @@ def stress_busy(runs):
                              ProfilerActivity.CUDA]) as trace:
         for path, arguments in json.loads(runs):
             reset_launch_counts()
+            wavefront_kernel.VARIANT_LAUNCHES.update(
+                dict.fromkeys(wavefront_kernel.VARIANTS, 0))
             started = time.perf_counter()
             with record_function("smoke_path:" + path):
                 code = _run_port(arguments)
@@ -4608,8 +4864,13 @@ def stress_busy(runs):
             if code != 0:
                 raise RuntimeError("traced {0} exited with {1}".format(path,
                                                                       code))
-            report[path] = {"wall_s": time.perf_counter() - started,
-                            "launches": sum(launch_counts().values())}
+            report[path] = {
+                "wall_s": time.perf_counter() - started,
+                "launches": sum(launch_counts().values()),
+                "strip_launches": sum(
+                    count for variant, count
+                    in wavefront_kernel.VARIANT_LAUNCHES.items()
+                    if variant.startswith("strip"))}
     chrome_trace = os.path.join(SCRATCH, "stress_busy_trace.json")
     trace.export_chrome_trace(chrome_trace)
     with open(chrome_trace) as handle:
@@ -4633,11 +4894,14 @@ def stress_busy(runs):
             and any(part in kernel.get("name", "")
                     for part in PORT_KERNEL_NAMES))
     for path, entry in report.items():
-        if entry.get("port_kernels") != entry["launches"]:
+        kernels = entry["launches"] + entry["strip_launches"]
+        if entry.get("port_kernels") != kernels:
             raise AssertionError("{0}: {1} of the port's kernels in the "
-                                 "trace, {2} counted launches".format(
+                                 "trace, {2} counted launches ({3} of the "
+                                 "strip layout)".format(
                                      path, entry.get("port_kernels"),
-                                     entry["launches"]))
+                                     entry["launches"],
+                                     entry["strip_launches"]))
     print("BUSY " + json.dumps(report), flush=True)
 
 
@@ -4757,8 +5021,10 @@ def log_busy(phase, card, traced):
         log(phase, "{0}, traced in a process of its own on {1}: device "
             "busy {2!r} s of a {3!r} s run (kernels, copies and memsets: "
             "{4!r} s summed); {5} of the port's kernels traced, as many as "
-            "counted".format(path, card, entry["busy_s"], entry["wall_s"],
-                             entry["device_sum_s"], entry["port_kernels"]))
+            "counted ({6} wavefront calls of the strip layout, two kernels "
+            "each)".format(path, card, entry["busy_s"], entry["wall_s"],
+                           entry["device_sum_s"], entry["port_kernels"],
+                           entry["strip_launches"]))
     return report
 
 
@@ -5087,12 +5353,13 @@ LONGTAIL_PATHS = {
     "longtail_wavefront": ("longtail", ["--edit_backend", "wavefront",
                                         "--incremental_cluster", "off"]),
     "longtail_region_auto": ("longtail_region", [])}
-# pairs of the wavefront kernel's shared-memory ("cta", "cta_unstaged") and
-# global-scratch ("global") launches that phase 21 also runs through the
-# plain version: a seeded sample, since the plain version steps through
-# ~65,000 fronts a pair at L = 32,768; every pair goes through the native
-# edit distance
-LONGTAIL_PLAIN_PAIRS = {"cta": 8, "cta_unstaged": 8, "global": 16}
+# pairs of the wavefront kernel's strip-layout launches that phase 21 also
+# runs through the plain version: a seeded sample, since the plain version
+# steps through ~65,000 fronts a pair at L = 32,768; every pair goes
+# through the native edit distance
+LONGTAIL_PLAIN_PAIRS = {"strip": 24, "strip_unstaged": 8}
+# the widest launch the resident route makes on the long tail (L = W)
+LONGTAIL_WIDEST = 32768
 # what phase 21 has seen of those launches
 WAVEFRONT_WIDE_CHECK = {"calls": 0, "pairs_native": 0, "pairs_plain": 0,
                         "max_abs_err": 0}
@@ -5106,7 +5373,7 @@ def _code_strings(codes, lengths):
 
 
 def _wide_wavefront_against_native(args, recorded, where):
-    """A recorded wavefront call of the cta or global variant: launched
+    """A recorded wavefront call of the strip layout: launched
     again through the kernel, equal to the run's output, and every pair's
     output equal to the native (exact) edit distance of its two strings:
     the resident route's band covers the distance, so each output is
@@ -5195,7 +5462,8 @@ def _longtail_routes(path, routes):
     """Fails unless a phase 21 path's route counters show each route of the
     long tail: a COLLECT re-run, partitions subsampled in DEL and in INS,
     candidates joined by the kernel and by the host in its GENOTYPE run,
-    and on longtail_wavefront a launch of the global-scratch variant."""
+    and on longtail_wavefront a launch of the strip layout (phase_longtail
+    checks that one of them was at L = LONGTAIL_WIDEST)."""
     missing = []
     if not routes["collect_reruns"]:
         missing.append("a COLLECT re-run")
@@ -5206,14 +5474,14 @@ def _longtail_routes(path, routes):
         if not routes["genotype_joined"][route]:
             missing.append("a candidate joined by the " + route)
     if path == "longtail_wavefront" \
-            and not routes["wavefront_by_variant"]["global"]:
-        missing.append("a launch of the wavefront's global variant")
+            and not routes["wavefront_by_variant"]["strip"]:
+        missing.append("a launch of the wavefront's strip layout")
     if missing:
         raise AssertionError("{0}: no {1} (route counters {2})".format(
             path, ", no ".join(missing), json.dumps(routes)))
 
 
-def phase_longtail(card, makers, recorder, device_ops):
+def phase_longtail(card, makers, recorder, device_ops, first_design=None):
     """Phase 21: the long tail of a real sample on the card.
     workloads.longtail_workload (streamed) and longtail_region_workload
     (one-shot, mid-scan clustering), made by background makers, whose
@@ -5227,18 +5495,19 @@ def phase_longtail(card, makers, recorder, device_ops):
     (a `[paths]` line) must show a COLLECT re-run, subsampled DEL and INS
     partitions, and candidates joined by the GENOTYPE kernel and by the
     host join; longtail_wavefront must launch the wavefront kernel's
-    global-scratch variant and the agglomeration at P = 128.  Every device
+    strip layout at L = LONGTAIL_WIDEST and the agglomeration at P = 128.  Every device
     call is recorded (phases 6, 15
     and 16 replay the linkage, COLLECT and GENOTYPE calls); the wavefront
     calls are replayed here: warp launches through the plain version in
-    full, cta and global launches through the kernel again and against the
-    native edit distance on every pair, and LONGTAIL_PLAIN_PAIRS of them
-    through the plain version.  Logs what the calls held, the stage
-    seconds, the global and cta variants' device time a pair beside their
-    bound and, from a traced run of longtail_wavefront in a process of its
-    own, device busy time.  Returns {"<variant> L=<L>
-    W=<W>": the largest such launch's pairs, device ms, ms a pair, bound
-    ms, what binds it and its DP cells}."""
+    full, strip launches through the kernel again and against the native
+    edit distance on every pair, and LONGTAIL_PLAIN_PAIRS of them through
+    the plain version.  Logs what the calls held, the stage seconds, the
+    strip launches' device time a pair beside their bound and beside
+    `first_design`'s (a library from wavefront_design_library, or None) in
+    turns and, from a traced run of longtail_wavefront in a process of its
+    own, device busy time.  Returns {"<variant> L=<L> W=<W>": the largest
+    such launch's pairs, device ms, ms a pair, the first design's ms, bound
+    ms, what binds it, its DP cells and the distances it returned}."""
     import numpy as np
 
     from svim_tpu_torch import workloads
@@ -5303,6 +5572,11 @@ def phase_longtail(card, makers, recorder, device_ops):
     replay = time.perf_counter()
     rng = np.random.default_rng(20261021)
     timed = {}
+    widest = [args for args, _ in by_variant.get("strip", [])
+              if int(args[0].shape[1]) == LONGTAIL_WIDEST]
+    if not widest:
+        raise AssertionError("longtail_wavefront: no strip launch at L = {0}"
+                             .format(LONGTAIL_WIDEST))
     for variant in wavefront_kernel.VARIANTS[1:]:
         calls = by_variant.get(variant, [])
         for args, outputs in calls:
@@ -5326,21 +5600,28 @@ def phase_longtail(card, makers, recorder, device_ops):
                     or args[0].shape[0] > largest[shape][0][0].shape[0]:
                 largest[shape] = (args, outputs)
         for (length, band), (args, outputs) in sorted(largest.items()):
-            ms, _ = _device_ms(
-                lambda: wavefront_kernel.banded_distance_cuda(*args), 1)
+            ms, first_ms = time_wavefront_designs(args, first_design, 1)
+            values = outputs.cpu().numpy()
             bound, bound_by, cells = wavefront_bound_ms(
-                args[1].cpu().numpy(), args[3].cpu().numpy(),
-                outputs.cpu().numpy(), length, band)
+                args[1].cpu().numpy(), args[3].cpu().numpy(), values, length,
+                band)
             pairs = int(args[0].shape[0])
             key = "{0} L={1} W={2}".format(variant, length, band)
+            # the distances by the first rung that holds them
+            rungs = np.searchsorted([63, 255, 1023, 4095], values)
+            spread = dict(zip(("<=63", "<=255", "<=1023", "<=4095", ">4095"),
+                              np.bincount(rungs, minlength=5).tolist()))
             timed[key] = {"pairs": pairs, "ms": ms, "ms_a_pair": ms / pairs,
-                          "bound_ms": bound, "bound_by": bound_by,
-                          "cells": cells}
+                          "first_design_ms": first_ms, "bound_ms": bound,
+                          "bound_by": bound_by, "cells": cells,
+                          "distances": spread}
             log("longtail", "{0}: {1!r} ms for {2} pairs on {3}, {4!r} ms a "
-                "pair; bound {5!r} ms by {6} ({7} cells)".format(
-                    key, ms, pairs, card, ms / pairs, bound, bound_by,
-                    cells))
-    log("longtail", "cta and global wavefront calls of longtail_wavefront "
+                "pair; the first design {5!r} ms (in turns); bound {6!r} ms "
+                "by {7} ({8} cells); distances {9}, median {10}".format(
+                    key, ms, pairs, card, ms / pairs, first_ms, bound,
+                    bound_by, cells, json.dumps(spread),
+                    int(np.median(values))))
+    log("longtail", "strip wavefront calls of longtail_wavefront "
         "checked and timed in {0:.1f} s: {1}".format(
             time.perf_counter() - replay, json.dumps(WAVEFRONT_WIDE_CHECK)))
     log_busy("longtail", card, traced)
@@ -5457,8 +5738,10 @@ def run_phases(card, makers):
 def run_later_phases(card, makers, started, kernels_a_call_process,
                      trap_processes):
     slice_designs = slice_design_libraries()
+    wavefront_design = wavefront_design_library()
     phase_slice_resources(slice_designs)
     timings, max_abs_err = phase_kernels(kernel_shapes())
+    wavefront_designs, wide_err = phase_wide_kernels(wavefront_design)
     finish_ins_traps(trap_processes)
     recorder = LinkageRecorder()
     collect_calls = DeviceOpRecorder()
@@ -5474,7 +5757,8 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
     phase_stress(card, makers, recorder, collect_calls)
     phase_sample(card, makers, recorder, collect_calls)
     phase_sample_classes(card, makers, recorder, collect_calls)
-    longtail_wide = phase_longtail(card, makers, recorder, collect_calls)
+    longtail_wide = phase_longtail(card, makers, recorder, collect_calls,
+                                   wavefront_design)
     ins_timings = phase_linkage(recorder, slice_designs)
     rescan_design = rescan_design_library()
     phase_resources(rescan_design)
@@ -5536,11 +5820,13 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
         "launches": PATH_LAUNCHES["bench_wavefront"][
             "wavefront_banded_distance"],
         "launches_by_path": by_path("wavefront_banded_distance"),
-        "max_abs_err": max(max_abs_err, WAVEFRONT_CHECK["max_abs_err"],
+        "max_abs_err": max(max_abs_err, wide_err,
+                           WAVEFRONT_CHECK["max_abs_err"],
                            WAVEFRONT_WIDE_CHECK["max_abs_err"]),
         "compared_main_path_calls": WAVEFRONT_CHECK["calls"],
         "longtail_wide_calls": WAVEFRONT_WIDE_CHECK,
         "longtail_wide_launches": longtail_wide,
+        "beside_first_design": wavefront_designs,
         "longtail_launches_by_variant": PATH_ROUTES["longtail_wavefront"][
             "wavefront_by_variant"],
         "ms": kernel_ms, "plain_ms": plain_ms,

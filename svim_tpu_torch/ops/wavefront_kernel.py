@@ -10,11 +10,12 @@ bucket pairs by proven hints).
 Three layers:
   * `banded_distance_torch` — the plain PyTorch version, a line-for-line
     port of the jnp `banded_distance` (K = 2W+1); runs on any device.
-  * `banded_distance_cuda` — the wrapper of the hand-written CUDA kernel
+  * `banded_distance_cuda` — the wrapper of the hand-written CUDA kernels
     (csrc/wavefront.cu: one warp per pair with the fronts in registers,
-    narrow bands tried first inside the kernel; one CTA per pair for bands
-    too wide for that), equal to the plain version entry for entry, also
-    above the band; counted in `LAUNCHES`.
+    narrow bands tried first inside the kernel; for bands too wide for
+    that, a ladder of narrow bands in warps, then strips of rows a CTA a
+    pair on the pairs it left open), equal to the plain version entry for
+    entry, also above the band; counted in `LAUNCHES`.
   * `banded_distance` — the dispatcher: a CPU tensor takes the plain
     version, a CUDA tensor the kernel.
 """
@@ -104,15 +105,18 @@ def banded_distance_torch(a_codes, a_lens, b_codes, b_lens, band: int):
 
 _library = None
 _max_shared_bytes = None
-_STATIC_SHARED_BYTES = 16   # the CTA kernel's own shared variable, rounded up
+_strip_static_bytes = None
 WARP_KERNEL_MAX_SLOTS = 32 * 33   # slots of a front one warp holds in registers
-VARIANTS = ("warp", "cta", "cta_unstaged", "global")
+STRIP_ROWS = 32 * 32              # rows of a strip (32 lanes, 32 rows a lane)
+STRIP_MAX_WARPS = 8
+STRIP_COUNTER_INTS = 64           # scratch ints before the strip kernel's rows
+VARIANTS = ("warp", "strip", "strip_unstaged")
 # LAUNCHES by the code path each launch took (kernel_variant's names)
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 
 def _kernel_library():
-    global _library, _max_shared_bytes
+    global _library, _max_shared_bytes, _strip_static_bytes
     if _library is None:
         from svim_tpu_torch.ops._build import load
 
@@ -122,18 +126,22 @@ def _kernel_library():
             pointer, pointer, pointer, pointer, pointer, integer, integer,
             integer, integer, integer, pointer]
         library.wavefront_banded_distance_warp.restype = integer
-        library.wavefront_banded_distance_cta.argtypes = [
+        library.wavefront_banded_distance_strip.argtypes = [
             pointer, pointer, pointer, pointer, pointer, pointer, integer,
-            integer, integer, integer, integer, pointer]
-        library.wavefront_banded_distance_cta.restype = integer
-        library.wavefront_max_shared_bytes.argtypes = []
-        library.wavefront_max_shared_bytes.restype = integer
-        library.wavefront_uses_dpx.argtypes = []
-        library.wavefront_uses_dpx.restype = integer
+            integer, integer, integer, integer, integer, integer, integer,
+            pointer]
+        library.wavefront_banded_distance_strip.restype = integer
+        library.wavefront_strip_grid.argtypes = [integer] * 4
+        library.wavefront_strip_grid.restype = integer
+        for name in ("wavefront_max_shared_bytes",
+                     "wavefront_strip_static_bytes", "wavefront_uses_dpx"):
+            getattr(library, name).argtypes = []
+            getattr(library, name).restype = integer
         _max_shared_bytes = library.wavefront_max_shared_bytes()
         if _max_shared_bytes <= 0:
             raise RuntimeError("cannot query the per-block shared-memory "
                                "limit of the CUDA device")
+        _strip_static_bytes = library.wavefront_strip_static_bytes()
         _library = library
     return _library
 
@@ -144,39 +152,44 @@ def uses_dpx() -> bool:
     return bool(_kernel_library().wavefront_uses_dpx())
 
 
-def _front_stride(length: int, band: int) -> int:
-    """int32 slots of one front of the CTA kernel: one per diagonal of one
-    parity within min(band, length) and a margin slot on either side, made
-    even so that the strings staged behind two fronts start 16-byte aligned."""
-    return (min(band, length) + 4) & ~1
-
-
 def kernel_variant(length: int, band: int) -> str:
     """The code path a launch of this shape takes: "warp" (fronts in
-    registers, one warp per pair), "cta" (one CTA per pair, fronts and
-    strings in shared memory), "cta_unstaged" (fronts in shared memory,
-    strings read from global memory) or "global" (fronts in a global
-    scratch buffer)."""
+    registers, one warp per pair, strings staged in shared memory),
+    "strip" (the ladder of narrow bands in warps, then strips of rows a
+    CTA a pair, strings staged) or "strip_unstaged" (the same with the
+    strings read from global memory, where two of them do not fit shared
+    memory)."""
     _kernel_library()
-    room = _max_shared_bytes - _STATIC_SHARED_BYTES
-    if min(band, length) + 1 <= WARP_KERNEL_MAX_SLOTS and 2 * length <= room:
+    if min(band, length) + 1 <= WARP_KERNEL_MAX_SLOTS \
+            and 2 * length <= _max_shared_bytes:
         return "warp"
-    fronts = 2 * _front_stride(length, band) * 4
-    if fronts + 2 * length <= room:
-        return "cta"
-    if fronts <= room:
-        return "cta_unstaged"
-    return "global"
+    if 2 * length <= _max_shared_bytes - _strip_static_bytes:
+        return "strip"
+    return "strip_unstaged"
 
 
-def _warps_per_cta(batch: int, length: int) -> int:
+def _warps_per_cta(batch: int, length: int, staged: bool = True) -> int:
     """Pairs a CTA of the warp kernel: four where the batch fills the card
     several times over and their staged strings fit, else fewer, so that a
     small batch spreads over as many SMs as it has pairs."""
     warps = 4 if batch >= 2048 else 1
-    while warps > 1 and warps * 2 * length > _max_shared_bytes:
+    while staged and warps > 1 and warps * 2 * length > _max_shared_bytes:
         warps //= 2
     return warps
+
+
+def _ladder_stages(length: int) -> bool:
+    """Whether the strip layout's ladder stages its strings: where four
+    warps' strings fit one SM's shared memory; above that (L > 29,056 on
+    the H100) reading them from global memory lets more warps run at once
+    than staging would."""
+    return 4 * 2 * length <= _max_shared_bytes
+
+
+def _strip_warps(length: int) -> int:
+    """Warps a CTA of the strip kernel: one a strip of the longest string,
+    at most STRIP_MAX_WARPS."""
+    return max(1, min(STRIP_MAX_WARPS, -(-length // STRIP_ROWS)))
 
 
 def banded_distance_cuda(a_codes, a_lens, b_codes, b_lens, band: int,
@@ -224,30 +237,32 @@ def banded_distance_cuda(a_codes, a_lens, b_codes, b_lens, band: int,
         stream = torch.cuda.current_stream(device).cuda_stream
         pointers = (a_codes.data_ptr(), a_lens.data_ptr(), b_codes.data_ptr(),
                     b_lens.data_ptr(), out.data_ptr())
-        room = _max_shared_bytes - _STATIC_SHARED_BYTES
-        stride = _front_stride(length, band)
         if variant == "warp":
             slots = min(band, length) + 1
-            if slots > WARP_KERNEL_MAX_SLOTS or 2 * length > room:
+            if slots > WARP_KERNEL_MAX_SLOTS or 2 * length > _max_shared_bytes:
                 raise ValueError("L={0}, W={1} does not fit the warp "
                                  "kernel".format(length, band))
             slots_per_lane = 3 if slots <= 96 else 9 if slots <= 288 else 33
             code = library.wavefront_banded_distance_warp(
                 *pointers, batch, length, band, slots_per_lane,
                 _warps_per_cta(batch, length), stream)
-        elif variant in ("cta", "cta_unstaged"):
-            stage = int(variant == "cta")
-            if 2 * stride * 4 + stage * 2 * length > room:
-                raise ValueError("L={0}, W={1} does not fit shared-memory "
-                                 "fronts".format(length, band))
-            code = library.wavefront_banded_distance_cta(
-                *pointers, None, batch, length, band, stride, stage, stream)
-        elif variant == "global":
-            scratch = torch.empty((batch, 2, stride), dtype=torch.int32,
-                                  device=device)
-            code = library.wavefront_banded_distance_cta(
-                *pointers, scratch.data_ptr(), batch, length, band, stride,
-                0, stream)
+        elif variant in ("strip", "strip_unstaged"):
+            stage = int(variant == "strip")
+            if stage and 2 * length > _max_shared_bytes - _strip_static_bytes:
+                raise ValueError("L={0} does not fit staged strings".format(
+                    length))
+            warps = _strip_warps(length)
+            grid = library.wavefront_strip_grid(batch, length, warps, stage)
+            if grid < 1:
+                raise RuntimeError("the strip kernel fits no CTA on {0} at "
+                                   "L={1}".format(device, length))
+            scratch = torch.empty(STRIP_COUNTER_INTS + grid * (length + 1),
+                                  dtype=torch.int32, device=device)
+            ladder_stage = int(stage and _ladder_stages(length))
+            code = library.wavefront_banded_distance_strip(
+                *pointers, scratch.data_ptr(), batch, length, band,
+                _warps_per_cta(batch, length, staged=bool(ladder_stage)),
+                ladder_stage, warps, grid, stage, stream)
         else:
             raise ValueError("unknown variant {0!r}".format(variant))
     check_launch("wavefront", code)
@@ -306,9 +321,9 @@ def _pow4_at_least(value: int, floor: int) -> int:
     return result
 
 
-# The kernel runs one warp (wide bands: one CTA) per pair, so a launch wants
-# many pairs in flight; 8192 pairs keep every SM busy and bound the padded
-# codes at 2 x 8192 x L bytes.  The plain version on the CPU holds several (B, 2W+1) int32
+# The kernel runs one warp (wide bands: a ladder of warps, then CTAs) per
+# pair, so a launch wants many pairs in flight; 8192 pairs keep every SM
+# busy and bound the padded codes at 2 x 8192 x L bytes.  The plain version on the CPU holds several (B, 2W+1) int32
 # temporaries per step, so its batch is capped by cells instead.
 CUDA_PAIRS_PER_LAUNCH = 8192
 CPU_BATCH_CHUNK = 1024

@@ -4,7 +4,7 @@ the jnp scan (all entries equal) and the Pallas kernel in interpret mode
 (equal where resolved), the host drivers against the JAX drivers, the
 properties the CUDA kernel's design leans on (narrow bands first, fronts of
 one parity over live cells only, boundaries out of the recurrence) shown on
-the plain version, the vectorised string encoding against the per-string
+the plain version (the strip layout's model: test_torch_wavefront_ladder.py), the vectorised string encoding against the per-string
 one, and the CUDA kernel against the plain version on a card (skipped
 without one).  Every comparison is exact (int32)."""
 
@@ -305,20 +305,30 @@ def test_chunk_goes_up_as_one_buffer_with_the_same_bytes():
 
 def test_kernel_variant_follows_the_shape(monkeypatch):
     """Which code path a launch takes is decided in Python from the shape
-    and the shared-memory limit (227 KB on the H100)."""
+    and the shared-memory limit (227 KB on the H100; the strip kernel's
+    static shared memory, 7,244 bytes, beside its staged strings)."""
     monkeypatch.setattr(torch_wavefront, "_kernel_library", lambda: None)
     monkeypatch.setattr(torch_wavefront, "_max_shared_bytes", 232448)
+    monkeypatch.setattr(torch_wavefront, "_strip_static_bytes", 7244)
     variant = torch_wavefront.kernel_variant
     assert [variant(512, 64), variant(512, 256), variant(1024, 1024),
             variant(1024, 16384), variant(16384, 64)] == ["warp"] * 5
-    assert variant(2048, 2048) == "cta"
-    assert variant(16384, 16384) == "cta"
-    assert variant(120000, 4096) == "cta_unstaged"
-    assert variant(32768, 32768) == "global"
-    assert torch_wavefront._front_stride(512, 256) % 2 == 0
+    assert variant(2048, 2048) == "strip"
+    assert variant(16384, 16384) == "strip"
+    assert variant(32768, 32768) == "strip"
+    assert variant(112000, 112000) == "strip"
+    assert variant(120000, 4096) == "strip_unstaged"
+    assert variant(120000, 64) == "strip_unstaged"
     assert torch_wavefront._warps_per_cta(8192, 1024) == 4
     assert torch_wavefront._warps_per_cta(8, 1024) == 1
     assert torch_wavefront._warps_per_cta(8192, 40000) == 2
+    assert torch_wavefront._warps_per_cta(8192, 200000, staged=False) == 4
+    assert [torch_wavefront._strip_warps(length) for length in (
+        300, 1024, 2048, 4096, 16384, 32768, 120000)] == [1, 1, 2, 4, 8, 8, 8]
+    # the ladder stages its strings where four warps' fit an SM
+    assert torch_wavefront._ladder_stages(16384)
+    assert torch_wavefront._ladder_stages(29056)
+    assert not torch_wavefront._ladder_stages(32768)
 
 
 @pytest.mark.cuda
@@ -337,15 +347,16 @@ def test_cuda_kernel_equals_plain_version(cuda_device, batch, length, band):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["cta", "cta_unstaged", "global"])
+@pytest.mark.parametrize("variant", ["strip", "strip_unstaged"])
 def test_cuda_kernel_global_scratch_fronts(cuda_device, variant):
-    """The CTA-per-pair paths (fronts in shared memory with and without
-    staged strings, fronts in global scratch), forced at a small shape, and
-    a band whose fronts exceed the shared-memory limit."""
+    """The strip layout (the warp ladder, then strips of rows a CTA a pair,
+    with and without staged strings; its top rows between strips in shared
+    rings and a device-memory row), forced at a small shape, and the widest
+    band's layout."""
     pairs = _random_pairs(3, 5, 600, 30, empties=False)
     arrays = [torch.from_numpy(x).to(cuda_device) for x in _codes(pairs, 1024)]
     want = torch_wavefront.banded_distance_torch(*arrays, 300)
     got = torch_wavefront.banded_distance_cuda(*arrays, 300, variant=variant)
     assert torch.equal(got.cpu(), want.cpu())
-    if variant == "global":
-        assert torch_wavefront.kernel_variant(40000, 40000) == "global"
+    if variant == "strip":
+        assert torch_wavefront.kernel_variant(32768, 32768) == "strip"
