@@ -232,13 +232,19 @@ def _collect(options, device):
 
 def run_pipeline(options, device):
     """The four-stage pipeline on `device`; returns the exit code."""
-    root_logger = logging.getLogger()
     trace_requested = getattr(options, "profile_trace", False)
     timer = StageTimer(
         enabled=options.profile or trace_requested,
         trace_dir=(os.path.join(options.working_dir, "traces")
                    if trace_requested else None))
-    if trace_requested:
+    with timer.job():
+        return _stages(options, device, timer)
+
+
+def _stages(options, device, timer):
+    """run_pipeline's stages, `timer` the process's current job."""
+    root_logger = logging.getLogger()
+    if timer.trace_dir:
         logging.warning("--profile_trace instruments host threads; traced "
                         "host-bound stage wall times run above their real "
                         "duration. Use --profile alone for timings.")
@@ -316,7 +322,7 @@ def run_pipeline(options, device):
                                      __version__)
 
     logging.info("****************** STEP 3: COMBINE ******************")
-    with timer.stage("combine"):
+    with timer.stage("combine", trace=True):
         (deletion_candidates, inversion_candidates, int_duplication_candidates,
          tan_dup_candidates, novel_insertion_candidates,
          breakend_candidates) = combine_clusters(signature_clusters, options,
@@ -341,7 +347,7 @@ def run_pipeline(options, device):
             (int_duplication_candidates, "DUP_INT",
              "interspersed duplications"),
         )
-        with timer.stage("genotype"):
+        with timer.stage("genotype", trace=True):
             if hasattr(aln_file, "packed"):
                 # the packed table of a BAM scan (one-shot, streaming, or
                 # the ranks' merged one): one batched interval join on the
@@ -398,7 +404,7 @@ def run_pipeline(options, device):
         from svim_tpu_torch.cluster.device_cluster import TELEMETRY
         from svim_tpu_torch.ops import launch_counts
 
-        logging.info("Stage seconds: %s", json.dumps(timer.durations))
+        logging.info("Stage seconds: %s", json.dumps(timer.record()))
         logging.info("Kernel launches: %s", json.dumps(launch_counts()))
         logging.info("Cluster telemetry: %s", json.dumps(
             dict(TELEMETRY.as_dict(), eligible=TELEMETRY.eligible)))

@@ -35,6 +35,7 @@ from svim_tpu_torch.signatures import (
 )
 from svim_tpu_torch.sigtable import LazyMembers, SignatureSoA
 from svim_tpu_torch.state import to_host
+from svim_tpu_torch.utils import timing
 from svim_tpu_torch.utils.exactstats import stdev_half_ints, stdev_ints
 
 RANDOM_SEED = 1524       # fixed for reproducible subsampling (SVIM_clustering.py:129)
@@ -398,25 +399,32 @@ def cluster_sv_signatures(sv_signatures, options, device):
         for key in dispatch_order:
             if key == "INS":
                 # run the coordinate types' kernels before the INS prep
-                batcher.flush_fused()
-            if soa is not None:
-                table = soa.tables.get(key)
-                partitions = (form_partitions_table(
-                    table, options.partition_max_distance)
-                    if table is not None else [])
-            else:
-                partitions = form_partitions(by_type[key],
-                                             options.partition_max_distance)
-            staged[key] = (partitions, dispatch_clusters_from_partitions(
-                partitions, reference, options, batcher, memo=memo))
-        fetched = to_host(batcher.device_outputs())
+                with timing.span("dispatch"):
+                    batcher.flush_fused()
+            with timing.span("partition"):
+                if soa is not None:
+                    table = soa.tables.get(key)
+                    partitions = (form_partitions_table(
+                        table, options.partition_max_distance)
+                        if table is not None else [])
+                else:
+                    partitions = form_partitions(
+                        by_type[key], options.partition_max_distance)
+            with timing.span("dispatch"):
+                staged[key] = (partitions, dispatch_clusters_from_partitions(
+                    partitions, reference, options, batcher, memo=memo))
+        with timing.span("dispatch"):
+            outputs = batcher.device_outputs()
+        fetched = to_host(outputs)
         consolidated = {}
         for key in ("DEL", "INS", "INV", "DUP_TAN", "DUP_INT", "BND"):
             partitions, work = staged[key]
-            clusters = finish_clusters_from_partitions(
-                work, reference, options, fetched=fetched)
-            consolidated[key] = _consolidate_typed(clusters, partitions,
-                                                   _TYPE_LABELS[key])
+            with timing.span("finish"):
+                clusters = finish_clusters_from_partitions(
+                    work, reference, options, fetched=fetched)
+            with timing.span("consolidate"):
+                consolidated[key] = _consolidate_typed(clusters, partitions,
+                                                       _TYPE_LABELS[key])
         device_cluster.TELEMETRY.log_summary()
         if memo:
             hits = sum(len(work.memo_hits)

@@ -49,6 +49,7 @@ from svim_tpu_torch.signatures import (
     SignatureTranslocation,
 )
 from svim_tpu_torch.state import packed_to_torch, to_host
+from svim_tpu_torch.utils import timing
 
 _INV_DIRECTIONS = ("left_fwd", "left_rev", "right_fwd", "right_rev")
 MAX_SEGMENTS = 64  # reads with more alignments fall back to the host analyzer
@@ -467,19 +468,23 @@ def _collect_soa_pipelined_stream(compressed: bytes, options, device,
     incremental = None  # mid-scan clustering (cluster/incremental.py)
     try:
         while True:
-            row_start, n, max_ops, _body, done = session.next_rows(batch_reads)
+            with timing.span("input_wait"):
+                row_start, n, max_ops, _body, done = session.next_rows(
+                    batch_reads)
             if header is None:
                 # the walker parsed the header before delivering any rows
                 header, _offset = _parse_header(session.data)
                 if allow_incremental and incremental_enabled(options):
                     incremental = IncrementalClusterer(options, header, device)
             if n:
-                batch = _batch_from_columns(
-                    session.data,
-                    *session.fill(row_start, n, bucket_size(max(1, max_ops))),
-                    row_offset=row_start)
+                with timing.span("read"):
+                    batch = _batch_from_columns(
+                        session.data, *session.fill(
+                            row_start, n, bucket_size(max(1, max_ops))),
+                        row_offset=row_start)
                 stage = stage_signatures_soa(batch.packed, batch.sa_tags,
                                              header, options, device)
+                timing.count("collect.batches")
                 if stage is not None:
                     staged.append((stage, row_start, n))
             # consume every stage but the newest while the walker threads
@@ -511,14 +516,14 @@ def _collect_soa_pipelined_stream(compressed: bytes, options, device,
     for stage, row_start, _n in staged[consumed:]:
         consume_signatures_soa(stage, to_host(stage.device_tree()), header,
                                options, state, row_tag_offset=row_start)
-    soa, twins = state.finalize()
+    with timing.span("finalize"):
+        soa, twins = state.finalize()
+        columns = GenotypeColumns()
+        for stage, _row_start, n_real in staged:
+            columns.add(stage.packed, n_real)
+        table = columns.table()
     if incremental is not None:
         soa.cluster_memo = incremental.finish()
-
-    columns = GenotypeColumns()
-    for stage, _row_start, n_real in staged:
-        columns.add(stage.packed, n_real)
-    table = columns.table()
     session.close()
     return header, table, soa, twins
 
@@ -658,6 +663,7 @@ def _signatures_from_grouped_packed(packed, group_sizes, name_table, options,
     return _in_row_order(per_row_sigs, per_row_twins)
 
 
+@timing.spanned("upload")
 def dispatch_collect_scan(packed, options, device):
     """Enqueue the fused geometry+events pass on `device` (row-sharded under
     --num_shards when the rows divide) without waiting for it, as
@@ -702,6 +708,7 @@ def _consume_collect(packed, rerun, max_events, fetched):
             break
         bound = round_up_pow2(int(count))
         RERUNS.append((int(count), max_events, bound))
+        timing.count("collect.reruns")
         max_events = bound
         fetched = to_host(rerun(max_events))
     packed.ref_end = np.asarray(ref_end)
@@ -738,6 +745,7 @@ class StagedCollectSoA:
         return (result, self.classify_outputs)
 
 
+@timing.spanned("split_reads")
 def stage_signatures_soa(packed, sa_tags, name_table, options, device,
                          dispatched=None):
     """Enqueue the COLLECT + classify passes for one packed batch on
@@ -823,6 +831,7 @@ def _split_read_signatures(staged, fetched_classify, name_table, options):
     return split_sigs, split_twins
 
 
+@timing.spanned("emit")
 def consume_signatures_soa(staged, fetched, name_table, options, state,
                            row_tag_offset=0):
     """Consume one staged batch's fetched outputs into a SoAState.

@@ -25,6 +25,7 @@ from svim_tpu_torch.combine.merging import (
     merge_translocations_at_insertions,
 )
 from svim_tpu_torch.io.fasta import FastaFile
+from svim_tpu_torch.utils import timing
 
 
 def prepare_insertion_candidates(insertion_signature_clusters, options):
@@ -59,7 +60,7 @@ def prepare_insertion_candidates(insertion_signature_clusters, options):
     # POA + realignment compute runs on a thread pool (native calls release
     # the GIL)
     plan = []  # (ins_cluster, inputs or None)
-    with FastaFile(options.genome) as reference:
+    with timing.span("prepare"), FastaFile(options.genome) as reference:
         for ins_cluster in insertion_signature_clusters:
             if ins_cluster.score <= 0:
                 continue
@@ -90,12 +91,20 @@ def prepare_insertion_candidates(insertion_signature_clusters, options):
         local_outcomes = {}
         if owned:
             workers = min(8, available_cores(), len(owned))
-            with concurrent.futures.ThreadPoolExecutor(workers) as pool:
-                for (index, _), outcome in zip(owned, pool.map(
-                        lambda item: consensus_from_inputs(
-                            item[1],
-                            maximum_haplotype_length=options.max_consensus_length),
-                        owned)):
+            timing.count("consensus.clusters", len(owned))
+            timing.count("consensus.workers", workers)
+
+            def consensus(item):
+                with timing.span("consensus_cluster",
+                                 mark="consensus:cluster"):
+                    return consensus_from_inputs(
+                        item[1],
+                        maximum_haplotype_length=options.max_consensus_length)
+
+            with timing.span("consensus"), \
+                    concurrent.futures.ThreadPoolExecutor(workers) as pool:
+                for (index, _), outcome in zip(owned, pool.map(consensus,
+                                                               owned)):
                     local_outcomes[index] = outcome
         if world > 1:
             from svim_tpu_torch.parallel.multihost import exchange_consensus_outcomes
@@ -242,9 +251,10 @@ def combine_clusters(signature_clusters, options, device):
         insertion_signature_clusters, options)
 
     logging.info("Cluster interspersed duplication candidates one more time..")
-    final_int_duplication_candidates = partition_and_cluster_candidates(
-        int_duplication_candidates, options,
-        "interspersed duplication candidates", device)
+    with timing.span("candidate_round"):
+        final_int_duplication_candidates = partition_and_cluster_candidates(
+            int_duplication_candidates, options,
+            "interspersed duplication candidates", device)
 
     return (deletion_candidates, inversion_candidates,
             final_int_duplication_candidates, tan_dup_candidates,

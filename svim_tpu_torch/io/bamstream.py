@@ -26,6 +26,7 @@ import numpy as np
 from svim_tpu_torch.io.bamscan import LazySequences, LazyStrings, build_packed
 from svim_tpu_torch.io.packing import bucket_size
 from svim_tpu_torch.io.sam import AlignmentHeader
+from svim_tpu_torch.utils import timing
 
 # target decompressed window size; read at call time, so tests
 # can shrink it
@@ -208,7 +209,9 @@ def _prefetch(iterator, depth: int = 2):
     """Run `iterator` on a background thread with a bounded queue: the BGZF
     decompress + record carve of batch N+1/N+2 overlaps the device pass and
     host materialization of batch N (window buffers are immutable bytes, so
-    already-yielded batches stay valid).  Exceptions propagate."""
+    already-yielded batches stay valid).  Exceptions propagate.  The
+    thread's making of each item is the span `read`, the consumer's wait
+    for it `input_wait`."""
     import queue
     import threading
 
@@ -217,16 +220,20 @@ def _prefetch(iterator, depth: int = 2):
 
     def worker():
         try:
-            for item in iterator:
+            while True:
+                with timing.span("read"):
+                    item = next(iterator, sentinel)
                 q.put(item)
-            q.put(sentinel)
+                if item is sentinel:
+                    return
         except BaseException as error:  # noqa: BLE001 - re-raised on the consumer
             q.put(error)
 
     thread = threading.Thread(target=worker, daemon=True)
     thread.start()
     while True:
-        item = q.get()
+        with timing.span("input_wait"):
+            item = q.get()
         if item is sentinel:
             return
         if isinstance(item, BaseException):
@@ -599,6 +606,7 @@ def collect_streaming(path: str, options, device):
                                    row_tag_offset=batch.row_offset)
         columns.add(batch.packed, batch.n_real)
         BATCHES += 1
+        timing.count("collect.batches")
 
     # two-deep pipeline: batch N+1's device pass is dispatched before batch
     # N is fetched and its events materialize on the host
@@ -610,6 +618,7 @@ def collect_streaming(path: str, options, device):
         in_flight = (batch, dispatched)
     if in_flight is not None:
         consume(*in_flight)
-    table = columns.table()
-    soa, twins = state.finalize()
+    with timing.span("finalize"):
+        table = columns.table()
+        soa, twins = state.finalize()
     return header, table, soa, twins

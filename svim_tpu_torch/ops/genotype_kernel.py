@@ -34,6 +34,7 @@ import torch
 
 from svim_tpu_torch.ops._build import check_launch, check_tensors, route
 from svim_tpu_torch.parallel.mesh import gather_shards, shard_batch
+from svim_tpu_torch.state import to_host
 
 ALIGNMENT_CAP = 500   # SVIM_genotyping.py:56
 WINDOW = 1000         # SVIM_genotyping.py:49
@@ -325,7 +326,7 @@ def genotype_ref_support_device(jobs, per_tid, device, num_shards: int = 1):
         shard_counts.append((genotype_support_batched(
             *shard_columns.T.contiguous(), shard_support, *tables[target],
             slice_len),))
-    counts = gather_shards(shard_counts, device)[0].cpu().numpy()
+    counts = to_host(gather_shards(shard_counts, device)[0])
     for row_index, row in enumerate(rows):
         results[row[0]] = int(counts[row_index])
     return results

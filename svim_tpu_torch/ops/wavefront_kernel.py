@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from svim_tpu_torch.ops._build import check_launch
+from svim_tpu_torch.state import to_host
 
 INF = 1 << 20
 
@@ -432,8 +433,8 @@ def batched_edit_distance(pairs, device, initial_band: int = 64,
         answers = np.empty(len(subset), dtype=np.int64)
         for chunk_start in range(0, len(subset), chunk_size):
             chunk = subset[chunk_start:chunk_start + chunk_size]
-            answers[chunk_start:chunk_start + len(chunk)] = _run_chunk(
-                chunk, length, band, device).cpu().numpy()
+            answers[chunk_start:chunk_start + len(chunk)] = to_host(
+                _run_chunk(chunk, length, band, device))
         return answers, length
 
     if band_hints is not None and pending:

@@ -32,7 +32,6 @@ import datetime
 import io
 import logging
 import os
-import time
 
 import numpy as np
 import torch
@@ -43,6 +42,7 @@ from svim_tpu_torch.sigtable import (
     SignatureTable,
     StringPool,
 )
+from svim_tpu_torch.utils import timing
 
 # A collective whose peer died fails after this long instead of hanging.  It
 # must outlast the skew between the fastest and the slowest rank's COLLECT.
@@ -446,26 +446,25 @@ def collect_distributed(options, device):
 
     rank = process_index()
     world = process_count()
-    t0 = time.perf_counter()
-    header, table, local_soa, local_twins = collect_soa_pipelined_range(
-        options.bam_file, options, world, rank, device)
-    geno_columns = _table_genotype_columns(table)
-    t_scan = time.perf_counter()
+    with timing.span("scan", measured=True) as scan:
+        header, table, local_soa, local_twins = collect_soa_pipelined_range(
+            options.bam_file, options, world, rank, device)
+        geno_columns = _table_genotype_columns(table)
     logging.info("Process {0}/{1}: collected {2} local signatures from "
                  "{3} records".format(rank, world, local_soa.total(),
                                       len(table.ref_id)))
 
-    arrays = soa_to_arrays(local_soa, local_twins, geno_columns)
-    t_pack = time.perf_counter()
-    gathered = allgather_arrays(arrays)
-    t_gather = time.perf_counter()
-    soa, twins, merged = merge_gathered_soa(gathered)
-    t_merge = time.perf_counter()
+    with timing.span("pack", measured=True) as pack:
+        arrays = soa_to_arrays(local_soa, local_twins, geno_columns)
+    with timing.span("gather", measured=True) as gather:
+        gathered = allgather_arrays(arrays)
+    with timing.span("merge", measured=True) as merge:
+        soa, twins, merged = merge_gathered_soa(gathered)
     logging.info("Exchange: {0} bytes sent, {1} bytes received over {2} "
                  "gather rounds (fixed-dtype columns, no pickle)".format(
                      EXCHANGE.sent, EXCHANGE.received, EXCHANGE.rounds))
     logging.info("Distributed collect phases: scan {0:.2f}s, pack {1:.2f}s, "
                  "gather {2:.2f}s (straggler wait included), merge {3:.2f}s"
-                 .format(t_scan - t0, t_pack - t_scan, t_gather - t_pack,
-                         t_merge - t_gather))
+                 .format(scan.seconds, pack.seconds, gather.seconds,
+                         merge.seconds))
     return MergedAlignmentIndex(merged, header), soa, twins

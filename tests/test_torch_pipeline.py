@@ -154,11 +154,18 @@ def test_profile_trace_writes_traces_and_the_same_vcf(golden_run,
     finally:
         _drop_log_handlers(before)
     assert _normalize(wd / "variants.vcf") == _normalize(GOLDEN)
-    for stage in ("collect", "cluster"):
+    names = {}
+    for stage in ("collect", "cluster", "combine", "genotype"):
         trace = json.loads((wd / "traces" / (stage + ".json")).read_text())
         assert trace["traceEvents"], stage
+        names[stage] = {event.get("name") for event in trace["traceEvents"]}
+        assert "stage:" + stage in names[stage]
+    # the consensus pool's workers are traced too
+    assert "consensus:cluster" in names["combine"]
     assert sorted(os.listdir(wd / "traces")) == ["cluster.json",
-                                                 "collect.json"]
+                                                 "collect.json",
+                                                 "combine.json",
+                                                 "genotype.json"]
     log = "".join(path.read_text() for path in wd.glob("SVIM_*.log"))
     assert "--profile_trace instruments host threads" in log
     assert "Stage timings" in log
