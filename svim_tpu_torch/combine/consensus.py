@@ -19,6 +19,8 @@ import logging
 import re
 from collections import Counter
 
+from svim_tpu_torch.utils import timing
+
 # SPOA algorithm=1 parameters (SVIM_COMBINE.py:208)
 MATCH = 2
 MISMATCH = -4
@@ -448,16 +450,18 @@ def poa_consensus(sequences, refine_rounds=2):
         from svim_tpu_torch.native import poa_consensus_native
 
         # None: the banded DP exceeds its budget (the star MSA takes it)
-        consensus = poa_consensus_native(sequences)
+        with timing.span("poa", part=True):
+            consensus = poa_consensus_native(sequences)
     if consensus is None:
         consensus = _star_consensus(sequences)
-    for _ in range(refine_rounds):
-        if not consensus:
-            break
-        refined = _polish_round(sequences, consensus)
-        if refined == consensus:
-            break
-        consensus = refined
+    with timing.span("polish", part=True):
+        for _ in range(refine_rounds):
+            if not consensus:
+                break
+            refined = _polish_round(sequences, consensus)
+            if refined == consensus:
+                break
+            consensus = refined
     return consensus
 
 
@@ -577,7 +581,9 @@ def consensus_from_inputs(inputs, maximum_haplotype_length=10000,
                           allowed_size_deviation=2.0):
     """Pure-compute half of the consensus: POA + realignment + acceptance.
     Thread-safe (native calls on local buffers), so clusters can run on a
-    thread pool."""
+    thread pool.  Its three parts are the running job's spans `poa` (the
+    graph aligner's seed), `polish` and `realign`, parts of the cluster's
+    own span."""
     haplotypes, ref_sequence, window_start, expected_size, cluster_size = inputs
     largest_haplotype_length = max(len(h) for h in haplotypes)
     if largest_haplotype_length > maximum_haplotype_length:
@@ -595,7 +601,9 @@ def consensus_from_inputs(inputs, maximum_haplotype_length=10000,
         return (2, ())
 
     try:
-        consensus_row, ref_row = align_global(consensus_reads, ref_sequence)
+        with timing.span("realign", part=True):
+            consensus_row, ref_row = align_global(consensus_reads,
+                                                  ref_sequence)
     except MemoryError:
         logging.warning("Error: consensus realignment ran out of memory for a cluster "
                         "of insertion signatures (size = {0}, maximum haplotype "

@@ -1,7 +1,8 @@
 """Native C++ runtime components, built on demand with g++ via ctypes.
 
 Counterpart of svim_tpu/native (the same sources, with the `#include
-<string>` that g++ 13 needs).  Provides:
+<string>` that g++ 13 needs, but for poa.cpp's graph aligner: the same
+results from one traceback byte a DP cell).  Provides:
 - aligner.align_global(a, b): two-piece-affine global alignment (SPOA
   algorithm=1 scoring), used by the insertion consensus;
 - aligner.edit_distance(a, b): exact Myers bit-parallel Levenshtein
@@ -26,6 +27,7 @@ import os
 import subprocess
 import threading
 
+from svim_tpu_torch.utils import timing
 from svim_tpu_torch.utils.cores import available_cores
 
 _SOURCE = os.path.join(os.path.dirname(__file__), "svimnative.cpp")
@@ -134,7 +136,7 @@ def get_library():
         lib.poa_consensus_native.argtypes = [
             ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64)]
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64)]
         lib.star_polish.restype = ctypes.c_int
         lib.star_polish.argtypes = [
             ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
@@ -355,16 +357,38 @@ class aligner:
 
 
 POA_MAX_CELLS = 120_000_000   # per-alignment DP cell budget (banded included)
-# Banded graph alignment (band 64 with doubling whenever the optimal path
-# grazes a band edge) is the DEFAULT for every cluster size since round 4:
-# measured 8.2x faster on bench-shaped 24-member clusters with IDENTICAL
-# consensus output (60/60; the SPOA-oracle differential gates tie-free
-# exactness at this default).  Worst case the doubling walks back to the
-# full DP (~2x), so nothing regresses on dissimilar inputs.
-# Tiny alignments stay on the full DP: they are trivial anyway, and the
-# banded loop's band floor (64) cannot cover sequences shorter than ~62
-# bases (2*(len+2) < 64 would skip every band).
+# Banded graph alignment (band 16 with doubling whenever the optimal path
+# grazes a band edge; the band that accepted a haplotype starts the next)
+# is the DEFAULT for every cluster size since round 4: measured 8.2x faster
+# on bench-shaped 24-member clusters with IDENTICAL consensus output
+# (60/60; the SPOA-oracle differential gates tie-free exactness at this
+# default).  Worst case the doubling walks back to the full DP (~2x), so
+# nothing regresses on dissimilar inputs.  Tiny alignments stay on the
+# full DP: they are trivial anyway.
 POA_FULL_DP_CELLS = 16_384
+
+
+def poa_consensus_cells(sequences, max_cells: int = POA_MAX_CELLS,
+                        full_dp_cells: int = POA_FULL_DP_CELLS):
+    """(consensus or None, DP cells computed) of `poa_consensus_native`:
+    the cells of every band rung and full matrix it ran, those of a call
+    that gave up on its budget included."""
+    lib = get_library()
+    if not sequences:
+        return None, 0
+    blob = "".join(sequences).encode()
+    lens = (ctypes.c_int64 * len(sequences))(*[len(s) for s in sequences])
+    out_cap = 2 * max(len(s) for s in sequences) + 64
+    out = ctypes.create_string_buffer(out_cap)
+    out_len = ctypes.c_int64(0)
+    cells = ctypes.c_int64(0)
+    status = lib.poa_consensus_native(blob, lens, len(sequences), max_cells,
+                                      full_dp_cells, out, out_cap,
+                                      ctypes.byref(out_len),
+                                      ctypes.byref(cells))
+    if status != 0:
+        return None, cells.value
+    return out.raw[:out_len.value].decode(), cells.value
 
 
 def poa_consensus_native(sequences, max_cells: int = POA_MAX_CELLS,
@@ -376,21 +400,12 @@ def poa_consensus_native(sequences, max_cells: int = POA_MAX_CELLS,
     10 kb haplotypes, SVIM_COMBINE.py:202) run a banded graph alignment with
     band doubling, so the former hard cell cap no longer forces the star-MSA
     fallback.  Returns the consensus string, or None when there is no
-    sequence or even the banded DP exceeds `max_cells`."""
-    lib = get_library()
-    if not sequences:
-        return None
-    blob = "".join(sequences).encode()
-    lens = (ctypes.c_int64 * len(sequences))(*[len(s) for s in sequences])
-    out_cap = 2 * max(len(s) for s in sequences) + 64
-    out = ctypes.create_string_buffer(out_cap)
-    out_len = ctypes.c_int64(0)
-    status = lib.poa_consensus_native(blob, lens, len(sequences), max_cells,
-                                      full_dp_cells, out, out_cap,
-                                      ctypes.byref(out_len))
-    if status != 0:
-        return None
-    return out.raw[:out_len.value].decode()
+    sequence or even the banded DP exceeds `max_cells`.  The DP cells it
+    computed go to the running job's count `consensus.poa_cells`."""
+    consensus, cells = poa_consensus_cells(sequences, max_cells,
+                                           full_dp_cells)
+    timing.count("consensus.poa_cells", cells)
+    return consensus
 
 
 def star_polish_native(sequences, center: str):

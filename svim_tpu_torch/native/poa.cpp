@@ -12,6 +12,7 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <string>
 #include <vector>
 
@@ -87,459 +88,416 @@ struct AlignStep {
   int seq_pos;  // seq index, or -1 (deletion: node consumed, no char)
 };
 
-// Global alignment of seq against the graph.  Returns false when the DP
-// would exceed max_cells.  States: M, D1/D2 (consume node), I1/I2 (consume
-// char); gap costs follow the two-piece scheme.
-static bool align_to_graph(const Graph& graph, const char* seq, int64_t len,
-                           std::vector<AlignStep>* steps, int64_t max_cells) {
-  const int n = (int)graph.topo.size();
-  const int64_t width = len + 1;
-  if ((int64_t)(n + 1) * width > max_cells) return false;
+// The traceback byte of a DP cell: bits 0-2 the state that holds the
+// cell's best score (0 M, 1 D1, 2 D2, 3 I1, 4 I2), then whether D1, D2, I1
+// and I2 extended their own gap at the cell instead of opening it.
+static const uint8_t kStateMask = 7;
+static const uint8_t kD1Ext = 8, kD2Ext = 16, kI1Ext = 32, kI2Ext = 64;
 
-  // DP rows indexed by topo rank + a virtual start row at rank 0.
-  const int rows = n + 1;
-  std::vector<float> M(rows * width, kNegInf), D1(rows * width, kNegInf),
-      D2(rows * width, kNegInf), I1(rows * width, kNegInf),
-      I2(rows * width, kNegInf), best(rows * width, kNegInf);
-  // traceback: per cell the winning state; per state its source
-  // state codes: 0 M, 1 D1, 2 D2, 3 I1, 4 I2
-  std::vector<uint8_t> best_state(rows * width, 0);
-  std::vector<int32_t> m_from(rows * width, -1);    // source row of M
-  std::vector<int32_t> d1_from(rows * width, -1);   // source row of D1
-  std::vector<int32_t> d2_from(rows * width, -1);   // source row of D2
-  std::vector<uint8_t> d_ext(rows * width, 0);      // bit0: D1 extended, bit1: D2
-  std::vector<uint8_t> i_ext(rows * width, 0);      // bit0: I1 extended, bit1: I2
-
-  auto at = [width](int row, int64_t j) { return (int64_t)row * width + j; };
-
-  // virtual start row: gaps consuming seq chars only
-  best[at(0, 0)] = 0.0f;
-  M[at(0, 0)] = 0.0f;
-  for (int64_t j = 1; j < width; ++j) {
-    float open1 = best[at(0, j - 1)] + kGapOpen1;
-    float ext1 = I1[at(0, j - 1)] + kGapExt1;
-    I1[at(0, j)] = std::max(open1, ext1);
-    if (ext1 >= open1) i_ext[at(0, j)] |= 1;
-    float open2 = best[at(0, j - 1)] + kGapOpen2;
-    float ext2 = I2[at(0, j - 1)] + kGapExt2;
-    I2[at(0, j)] = std::max(open2, ext2);
-    if (ext2 >= open2) i_ext[at(0, j)] |= 2;
-    best[at(0, j)] = std::max(I1[at(0, j)], I2[at(0, j)]);
-    best_state[at(0, j)] = I1[at(0, j)] >= I2[at(0, j)] ? 3 : 4;
-  }
-
-  for (int r = 1; r < rows; ++r) {
-    const Node& node = graph.nodes[graph.topo[r - 1]];
-    const char base = node.base;
-    // predecessor rows (virtual start when the node has no preds).
-    // Leaked TLS pointer: non-trivial TLS destructors in a dlopen'd
-    // library race with glibc teardown (see svimnative.cpp).
-    static thread_local std::vector<int>* pred_rows_p = nullptr;
-    if (!pred_rows_p) pred_rows_p = new std::vector<int>();
-    std::vector<int>& pred_rows = *pred_rows_p;
-    pred_rows.clear();
-    if (node.preds.empty()) {
-      pred_rows.push_back(0);
-    } else {
-      for (int p : node.preds) pred_rows.push_back(graph.rank_of[p] + 1);
+// The DP of one poa_consensus_native call, grown to its largest alignment
+// and reused by each of its haplotypes and band rungs.  Per cell: the best
+// score and the two deletion states' scores (a later row reads them
+// wherever its node's predecessors lie in topological order) and the
+// traceback byte.  M, I1 and I2 live only while their row is filled.  A
+// predecessor that won a cell is not stored: the traceback works it out
+// again from the stored scores, in the same order and with the same ties.
+struct Workspace {
+  // per cell; grown without keeping their contents: each band rung
+  // writes every cell of its own before it reads it
+  template <typename T>
+  struct Cells {
+    std::unique_ptr<T[]> at;
+    int64_t size = 0;
+    void grow(int64_t n) {
+      if (n <= size) return;
+      at.reset();
+      at.reset(new T[n]);
+      size = n;
     }
-    for (int64_t j = 0; j < width; ++j) {
-      const int64_t cell = at(r, j);
-      // D: consume this node, no char (each gap piece tracks its own
-      // predecessor and extend bit)
-      float d1 = kNegInf, d2 = kNegInf;
-      int d1_src = -1, d2_src = -1;
-      uint8_t dext = 0;
-      for (int pr : pred_rows) {
-        float open1 = best[at(pr, j)] + kGapOpen1;
-        float ext1 = D1[at(pr, j)] + kGapExt1;
-        float cand1 = std::max(open1, ext1);
-        if (cand1 > d1) {
-          d1 = cand1;
-          d1_src = pr;
-          dext = (dext & ~1) | (ext1 >= open1 ? 1 : 0);
-        }
-        float open2 = best[at(pr, j)] + kGapOpen2;
-        float ext2 = D2[at(pr, j)] + kGapExt2;
-        float cand2 = std::max(open2, ext2);
-        if (cand2 > d2) {
-          d2 = cand2;
-          d2_src = pr;
-          dext = (dext & ~2) | (ext2 >= open2 ? 2 : 0);
-        }
-      }
-      D1[cell] = d1;
-      D2[cell] = d2;
-      d1_from[cell] = d1_src;
-      d2_from[cell] = d2_src;
-      d_ext[cell] = dext;
-
-      float m = kNegInf;
-      int m_src = -1;
-      if (j >= 1) {
-        const float sub = (base == seq[j - 1]) ? kMatch : kMismatch;
-        for (int pr : pred_rows) {
-          float cand = best[at(pr, j - 1)] + sub;
-          if (cand > m) { m = cand; m_src = pr; }
-        }
-      }
-      M[cell] = m;
-      m_from[cell] = m_src;
-
-      float i1 = kNegInf, i2 = kNegInf;
-      if (j >= 1) {
-        float open1 = best[at(r, j - 1)] + kGapOpen1;
-        float ext1 = I1[at(r, j - 1)] + kGapExt1;
-        i1 = std::max(open1, ext1);
-        if (ext1 >= open1) i_ext[cell] |= 1;
-        float open2 = best[at(r, j - 1)] + kGapOpen2;
-        float ext2 = I2[at(r, j - 1)] + kGapExt2;
-        i2 = std::max(open2, ext2);
-        if (ext2 >= open2) i_ext[cell] |= 2;
-      }
-      I1[cell] = i1;
-      I2[cell] = i2;
-
-      float b = m;
-      uint8_t state = 0;
-      if (d1 > b) { b = d1; state = 1; }
-      if (d2 > b) { b = d2; state = 2; }
-      if (i1 > b) { b = i1; state = 3; }
-      if (i2 > b) { b = i2; state = 4; }
-      best[cell] = b;
-      best_state[cell] = state;
-    }
-  }
-
-  // global end: best over rows whose node has no successor (or start row if
-  // the graph is empty), at j = len
-  std::vector<bool> has_succ(rows, false);
-  for (int v = 0; v < (int)graph.nodes.size(); ++v)
-    for (int u : graph.nodes[v].preds) has_succ[graph.rank_of[u] + 1] = true;
-  int end_row = 0;
-  float end_best = kNegInf;
-  for (int r = 0; r < rows; ++r) {
-    if (r > 0 && has_succ[r]) continue;
-    if (best[at(r, len)] > end_best) { end_best = best[at(r, len)]; end_row = r; }
-  }
-
-  // traceback
-  steps->clear();
-  int r = end_row;
-  int64_t j = len;
-  int state = best_state[at(r, j)];
-  while (r > 0 || j > 0) {
-    const int64_t cell = at(r, j);
-    if (state == 0) {  // match/mismatch
-      steps->push_back({graph.topo[r - 1], (int)(j - 1)});
-      int src = m_from[cell];
-      j -= 1;
-      r = src;
-      state = best_state[at(r, j)];
-    } else if (state == 1 || state == 2) {  // node consumed, no char
-      steps->push_back({graph.topo[r - 1], -1});
-      int src = state == 1 ? d1_from[cell] : d2_from[cell];
-      bool extended = d_ext[cell] & (state == 1 ? 1 : 2);
-      r = src;
-      if (!extended) state = best_state[at(r, j)];
-    } else {  // char consumed, no node
-      steps->push_back({-1, (int)(j - 1)});
-      bool extended = i_ext[cell] & (state == 3 ? 1 : 2);
-      j -= 1;
-      if (!extended) state = best_state[at(r, j)];
-    }
-  }
-  std::reverse(steps->begin(), steps->end());
-  return true;
-}
-
-// Longest-path depth per DP row (row 0 = virtual start).  A node's depth is
-// its position along the deepest chain from a source — the band center for
-// the banded alignment (similar sequences align near the diagonal
-// j ~ depth).
-static void compute_depths(const Graph& graph, std::vector<int64_t>* depth) {
-  const int rows = (int)graph.topo.size() + 1;
-  depth->assign(rows, 0);
-  for (int r = 1; r < rows; ++r) {
-    const Node& node = graph.nodes[graph.topo[r - 1]];
-    int64_t d = 1;
-    for (int p : node.preds)
-      d = std::max(d, (*depth)[graph.rank_of[p] + 1] + 1);
-    (*depth)[r] = d;
-  }
-}
-
-// Banded variant of align_to_graph: per graph node only the DP columns
-// within `band` of the node's depth are computed (similar sequences stay
-// near that diagonal).  Sets *touched when the optimal traceback grazes a
-// band edge — the caller then doubles the band, so the accepted result never
-// depends on an artificially clipped path.  Returns false only when the
-// banded cell count itself exceeds max_cells.
-static bool align_to_graph_banded(const Graph& graph, const char* seq,
-                                  int64_t len, int64_t band,
-                                  std::vector<AlignStep>* steps,
-                                  int64_t max_cells, bool* touched) {
-  const int n = (int)graph.topo.size();
-  const int rows = n + 1;
-  *touched = false;
-
-  std::vector<int64_t> depth;
-  compute_depths(graph, &depth);
-  std::vector<bool> has_succ(rows, false);
-  for (int v = 0; v < (int)graph.nodes.size(); ++v)
-    for (int u : graph.nodes[v].preds) has_succ[graph.rank_of[u] + 1] = true;
-
-  std::vector<int64_t> lo(rows), hi(rows), row_base(rows + 1, 0);
-  for (int r = 0; r < rows; ++r) {
-    if (r == 0) {
-      lo[r] = 0;  // virtual start row stays full: leading insertions
-      hi[r] = len;
-    } else {
-      lo[r] = std::max<int64_t>(0, std::min(len, depth[r] - band));
-      hi[r] = std::max<int64_t>(0, std::min(len, depth[r] + band));
-      if (!has_succ[r]) hi[r] = len;  // global end lives at (end row, len)
-      if (lo[r] > hi[r]) lo[r] = hi[r];
-    }
-    row_base[r + 1] = row_base[r] + (hi[r] - lo[r] + 1);
-  }
-  const int64_t cells = row_base[rows];
-  if (cells > max_cells) return false;
-
-  std::vector<float> M(cells, kNegInf), D1(cells, kNegInf), D2(cells, kNegInf),
-      I1(cells, kNegInf), I2(cells, kNegInf), best(cells, kNegInf);
-  std::vector<uint8_t> best_state(cells, 0);
-  std::vector<int32_t> m_from(cells, -1), d1_from(cells, -1), d2_from(cells, -1);
-  std::vector<uint8_t> d_ext(cells, 0), i_ext(cells, 0);
-
-  auto at = [&](int r, int64_t j) { return row_base[r] + (j - lo[r]); };
-  auto in_band = [&](int r, int64_t j) { return j >= lo[r] && j <= hi[r]; };
-  auto get = [&](const std::vector<float>& a, int r, int64_t j) {
-    return in_band(r, j) ? a[at(r, j)] : kNegInf;
   };
+  Cells<float> best, d1, d2;
+  Cells<uint8_t> trace;
+  std::vector<float> m_row;                  // M of the row being filled
+  std::vector<int32_t> dbits_row;            // its D1 and D2 extend bits
+  // by column from the row's first: max(M, D1, D2), and the running
+  // maxima that give I1 and I2
+  std::vector<float> plain_row, run1_row, run2_row;
+  std::vector<int64_t> lo, hi, row_base, depth;
+  std::vector<uint8_t> has_succ;
+  std::vector<int> pred_start, pred_rows;    // each row's predecessor rows
+  std::vector<float> subs;                   // per base: score by column
+  int sub_slot[256];
 
-  best[at(0, 0)] = 0.0f;
-  M[at(0, 0)] = 0.0f;
-  for (int64_t j = 1; j <= len; ++j) {
-    float open1 = best[at(0, j - 1)] + kGapOpen1;
-    float ext1 = I1[at(0, j - 1)] + kGapExt1;
-    I1[at(0, j)] = std::max(open1, ext1);
-    if (ext1 >= open1) i_ext[at(0, j)] |= 1;
-    float open2 = best[at(0, j - 1)] + kGapOpen2;
-    float ext2 = I2[at(0, j - 1)] + kGapExt2;
-    I2[at(0, j)] = std::max(open2, ext2);
-    if (ext2 >= open2) i_ext[at(0, j)] |= 2;
-    best[at(0, j)] = std::max(I1[at(0, j)], I2[at(0, j)]);
-    best_state[at(0, j)] = I1[at(0, j)] >= I2[at(0, j)] ? 3 : 4;
+  // Rows of the graph against a sequence of `len` characters: row 0 the
+  // virtual start, row r the node of topological rank r - 1.
+  void prepare(const Graph& graph, int64_t len) {
+    const int rows = (int)graph.topo.size() + 1;
+    pred_start.assign(rows + 1, 0);
+    pred_rows.clear();
+    has_succ.assign(rows, 0);
+    depth.assign(rows, 0);
+    for (int r = 1; r < rows; ++r) {
+      const Node& node = graph.nodes[graph.topo[r - 1]];
+      pred_start[r] = (int)pred_rows.size();
+      // a node without predecessors follows the virtual start
+      if (node.preds.empty()) pred_rows.push_back(0);
+      int64_t d = 1;
+      for (int p : node.preds) {
+        const int pr = graph.rank_of[p] + 1;
+        pred_rows.push_back(pr);
+        has_succ[pr] = 1;
+        d = std::max(d, depth[pr] + 1);
+      }
+      depth[r] = d;  // the band's centre: similar sequences stay near it
+    }
+    pred_start[rows] = (int)pred_rows.size();
+    std::fill(sub_slot, sub_slot + 256, -1);
+    subs.clear();
+    m_row.resize(len + 1);
+    dbits_row.resize(len + 1);
+    plain_row.resize(len + 1);
+    run1_row.resize(len + 2);
+    run2_row.resize(len + 2);
   }
 
-  for (int r = 1; r < rows; ++r) {
-    const Node& node = graph.nodes[graph.topo[r - 1]];
-    const char base = node.base;
-    static thread_local std::vector<int>* pred_rows_p = nullptr;
-    if (!pred_rows_p) pred_rows_p = new std::vector<int>();
-    std::vector<int>& pred_rows = *pred_rows_p;
-    pred_rows.clear();
-    if (node.preds.empty()) {
-      pred_rows.push_back(0);
-    } else {
-      for (int p : node.preds) pred_rows.push_back(graph.rank_of[p] + 1);
+  // The match score of `base` at each column (column j scores seq[j - 1]).
+  const float* sub_row(char base, const char* seq, int64_t len) {
+    int& slot = sub_slot[(uint8_t)base];
+    if (slot < 0) {
+      slot = (int)(subs.size() / (len + 1));
+      subs.resize(subs.size() + len + 1);
+      float* row = subs.data() + slot * (len + 1);
+      row[0] = kNegInf;
+      for (int64_t j = 1; j <= len; ++j)
+        row[j] = seq[j - 1] == base ? kMatch : kMismatch;
     }
-    if (pred_rows.size() == 1) {
-      // single-predecessor fast path (the overwhelming majority of nodes in
-      // a near-linear graph): hoist the predecessor band tests out of the
-      // inner loop by splitting j into segments where the (pr, j) and
-      // (pr, j-1) in-band flags are constant.  Arithmetic per cell is
-      // IDENTICAL to the general loop below — outputs are byte-equal.
-      const int pr = pred_rows[0];
-      const float* best_pr = best.data() + row_base[pr] - lo[pr];
-      const float* D1_pr = D1.data() + row_base[pr] - lo[pr];
-      const float* D2_pr = D2.data() + row_base[pr] - lo[pr];
-      auto run_segment = [&](int64_t j0, int64_t j1, bool pd, bool pm) {
-        for (int64_t j = j0; j <= j1; ++j) {
-          const int64_t cell = at(r, j);
-          const float bprj = pd ? best_pr[j] : kNegInf;
-          float d1 = kNegInf, d2 = kNegInf;
-          int d1_src = -1, d2_src = -1;
-          uint8_t dext = 0;
-          {
-            float open1 = bprj + kGapOpen1;
-            float ext1 = (pd ? D1_pr[j] : kNegInf) + kGapExt1;
-            float cand1 = std::max(open1, ext1);
-            if (cand1 > d1) {
-              d1 = cand1;
-              d1_src = pr;
-              dext = (dext & ~1) | (ext1 >= open1 ? 1 : 0);
-            }
-            float open2 = bprj + kGapOpen2;
-            float ext2 = (pd ? D2_pr[j] : kNegInf) + kGapExt2;
-            float cand2 = std::max(open2, ext2);
-            if (cand2 > d2) {
-              d2 = cand2;
-              d2_src = pr;
-              dext = (dext & ~2) | (ext2 >= open2 ? 2 : 0);
-            }
-          }
-          D1[cell] = d1;
-          D2[cell] = d2;
-          d1_from[cell] = d1_src;
-          d2_from[cell] = d2_src;
-          d_ext[cell] = dext;
+    return subs.data() + slot * (len + 1);
+  }
+};
 
-          float m = kNegInf;
-          int m_src = -1;
-          if (j >= 1) {
-            const float sub = (base == seq[j - 1]) ? kMatch : kMismatch;
-            float cand = (pm ? best_pr[j - 1] : kNegInf) + sub;
-            if (cand > m) { m = cand; m_src = pr; }
-          }
-          M[cell] = m;
-          m_from[cell] = m_src;
+// row[j] = value for the columns of [lo, hi] outside [a, b]
+template <typename T>
+static inline void fill_outside(T* row, int64_t lo, int64_t hi, int64_t a,
+                                int64_t b, T value) {
+  for (int64_t j = lo; j <= std::min(hi, a - 1); ++j) row[j] = value;
+  for (int64_t j = std::max(lo, b + 1); j <= hi; ++j) row[j] = value;
+}
 
-          float i1 = kNegInf, i2 = kNegInf;
-          if (j >= 1 && in_band(r, j - 1)) {
-            float open1 = best[at(r, j - 1)] + kGapOpen1;
-            float ext1 = I1[at(r, j - 1)] + kGapExt1;
-            i1 = std::max(open1, ext1);
-            if (ext1 >= open1) i_ext[cell] |= 1;
-            float open2 = best[at(r, j - 1)] + kGapOpen2;
-            float ext2 = I2[at(r, j - 1)] + kGapExt2;
-            i2 = std::max(open2, ext2);
-            if (ext2 >= open2) i_ext[cell] |= 2;
-          }
-          I1[cell] = i1;
-          I2[cell] = i2;
-
-          float b = m;
-          uint8_t state = 0;
-          if (d1 > b) { b = d1; state = 1; }
-          if (d2 > b) { b = d2; state = 2; }
-          if (i1 > b) { b = i1; state = 3; }
-          if (i2 > b) { b = i2; state = 4; }
-          best[cell] = b;
-          best_state[cell] = state;
-        }
-      };
-      // segment boundaries where (pr, j) / (pr, j-1) in-band flips
-      int64_t cuts[4] = {lo[pr], hi[pr] + 1, lo[pr] + 1, hi[pr] + 2};
-      int64_t j0 = lo[r];
-      const int64_t j_end = hi[r];
-      while (j0 <= j_end) {
-        int64_t j1 = j_end;
-        for (int64_t cut : cuts) {
-          if (cut > j0 && cut - 1 < j1) j1 = cut - 1;
-        }
-        const bool pd = j0 >= lo[pr] && j0 <= hi[pr];
-        const bool pm = j0 - 1 >= lo[pr] && j0 - 1 <= hi[pr];
-        run_segment(j0, j1, pd, pm);
-        j0 = j1 + 1;
+// D1, D2 and M of row r from its predecessor rows, in list order, each
+// taking a cell only with a strictly better score: elementwise over the
+// columns, none depending on another of the row.
+static void fill_from_predecessors(Workspace& ws, int r, const float* sub) {
+  const int64_t lo = ws.lo[r], hi = ws.hi[r];
+  const int64_t at = ws.row_base[r] - lo;  // cell of column j: at + j
+  float* d1 = ws.d1.at.get() + at;
+  float* d2 = ws.d2.at.get() + at;
+  int32_t* dbits = ws.dbits_row.data();
+  float* m = ws.m_row.data();
+  for (int k = ws.pred_start[r]; k < ws.pred_start[r + 1]; ++k) {
+    const int pr = ws.pred_rows[k];
+    const int64_t pat = ws.row_base[pr] - ws.lo[pr];
+    const float* pbest = ws.best.at.get() + pat;
+    const float* pd1 = ws.d1.at.get() + pat;
+    const float* pd2 = ws.d2.at.get() + pat;
+    // columns the predecessor holds: (pr, j) for D, (pr, j - 1) for M;
+    // outside them its scores are -inf and win no cell
+    const int64_t a = std::max(lo, ws.lo[pr]), b = std::min(hi, ws.hi[pr]);
+    const int64_t am = std::max(std::max(lo, ws.lo[pr] + 1), (int64_t)1);
+    const int64_t bm = std::min(hi, ws.hi[pr] + 1);
+    if (k == ws.pred_start[r]) {
+      // the first predecessor: its scores, -inf outside its columns
+      fill_outside(d1, lo, hi, a, b, kNegInf);
+      fill_outside(d2, lo, hi, a, b, kNegInf);
+      fill_outside(dbits, lo, hi, a, b, 0);
+      fill_outside(m, lo, hi, am, bm, kNegInf);
+      for (int64_t j = a; j <= b; ++j) {
+        const float open1 = pbest[j] + kGapOpen1, ext1 = pd1[j] + kGapExt1;
+        const float open2 = pbest[j] + kGapOpen2, ext2 = pd2[j] + kGapExt2;
+        const float c1 = std::max(open1, ext1), c2 = std::max(open2, ext2);
+        d1[j] = c1;
+        d2[j] = c2;
+        // an extend bit only where the piece is reached at all
+        dbits[j] = ((c1 > kNegInf) & (ext1 >= open1)) * kD1Ext
+                   | ((c2 > kNegInf) & (ext2 >= open2)) * kD2Ext;
       }
+      for (int64_t j = am; j <= bm; ++j) m[j] = pbest[j - 1] + sub[j];
       continue;
     }
-    for (int64_t j = lo[r]; j <= hi[r]; ++j) {
-      const int64_t cell = at(r, j);
-      float d1 = kNegInf, d2 = kNegInf;
-      int d1_src = -1, d2_src = -1;
-      uint8_t dext = 0;
-      for (int pr : pred_rows) {
-        float open1 = get(best, pr, j) + kGapOpen1;
-        float ext1 = get(D1, pr, j) + kGapExt1;
-        float cand1 = std::max(open1, ext1);
-        if (cand1 > d1) {
-          d1 = cand1;
-          d1_src = pr;
-          dext = (dext & ~1) | (ext1 >= open1 ? 1 : 0);
-        }
-        float open2 = get(best, pr, j) + kGapOpen2;
-        float ext2 = get(D2, pr, j) + kGapExt2;
-        float cand2 = std::max(open2, ext2);
-        if (cand2 > d2) {
-          d2 = cand2;
-          d2_src = pr;
-          dext = (dext & ~2) | (ext2 >= open2 ? 2 : 0);
-        }
-      }
-      D1[cell] = d1;
-      D2[cell] = d2;
-      d1_from[cell] = d1_src;
-      d2_from[cell] = d2_src;
-      d_ext[cell] = dext;
-
-      float m = kNegInf;
-      int m_src = -1;
-      if (j >= 1) {
-        const float sub = (base == seq[j - 1]) ? kMatch : kMismatch;
-        for (int pr : pred_rows) {
-          float cand = get(best, pr, j - 1) + sub;
-          if (cand > m) { m = cand; m_src = pr; }
-        }
-      }
-      M[cell] = m;
-      m_from[cell] = m_src;
-
-      float i1 = kNegInf, i2 = kNegInf;
-      if (j >= 1 && in_band(r, j - 1)) {
-        float open1 = best[at(r, j - 1)] + kGapOpen1;
-        float ext1 = I1[at(r, j - 1)] + kGapExt1;
-        i1 = std::max(open1, ext1);
-        if (ext1 >= open1) i_ext[cell] |= 1;
-        float open2 = best[at(r, j - 1)] + kGapOpen2;
-        float ext2 = I2[at(r, j - 1)] + kGapExt2;
-        i2 = std::max(open2, ext2);
-        if (ext2 >= open2) i_ext[cell] |= 2;
-      }
-      I1[cell] = i1;
-      I2[cell] = i2;
-
-      float b = m;
-      uint8_t state = 0;
-      if (d1 > b) { b = d1; state = 1; }
-      if (d2 > b) { b = d2; state = 2; }
-      if (i1 > b) { b = i1; state = 3; }
-      if (i2 > b) { b = i2; state = 4; }
-      best[cell] = b;
-      best_state[cell] = state;
+    for (int64_t j = a; j <= b; ++j) {
+      const float open1 = pbest[j] + kGapOpen1, ext1 = pd1[j] + kGapExt1;
+      const float open2 = pbest[j] + kGapOpen2, ext2 = pd2[j] + kGapExt2;
+      const float c1 = std::max(open1, ext1), c2 = std::max(open2, ext2);
+      const bool won1 = c1 > d1[j], won2 = c2 > d2[j];
+      d1[j] = won1 ? c1 : d1[j];
+      d2[j] = won2 ? c2 : d2[j];
+      const int32_t bits = (ext1 >= open1) * kD1Ext | (ext2 >= open2) * kD2Ext;
+      const int32_t keep = won1 * kD1Ext | won2 * kD2Ext;
+      dbits[j] = (dbits[j] & ~keep) | (bits & keep);
     }
+    for (int64_t j = am; j <= bm; ++j)
+      m[j] = std::max(m[j], pbest[j - 1] + sub[j]);
   }
+}
+
+// The best of a cell's five scores (strict > in the order M, D1, D2, I1,
+// I2: a state that beats every earlier one holds the cell until a later
+// one beats it) and that state, in arithmetic the compiler vectorises.
+static inline int32_t cell_best(float m, float d1, float d2, float i1,
+                                float i2, float* best) {
+  const float b1 = std::max(m, d1), b2 = std::max(b1, d2);
+  const float b3 = std::max(b2, i1);
+  const int32_t won1 = -(int32_t)(d1 > m), won2 = -(int32_t)(d2 > b1);
+  const int32_t won3 = -(int32_t)(i1 > b2), won4 = -(int32_t)(i2 > b3);
+  int32_t state = won1 & 1;
+  state = (state & ~won2) | (won2 & 2);
+  state = (state & ~won3) | (won3 & 3);
+  state = (state & ~won4) | (won4 & 4);
+  *best = std::max(b3, i2);
+  return state;
+}
+
+typedef float Floats8 __attribute__((vector_size(32)));
+typedef int32_t Ints8 __attribute__((vector_size(32)));
+
+// x[t] = max(x[0], ..., x[t]) in place: eight columns at a time, each
+// block's maxima by three shifted maxima, then the blocks' carried maximum.
+static void running_max(float* x, int64_t n) {
+  const Floats8 neg = {kNegInf, kNegInf, kNegInf, kNegInf,
+                       kNegInf, kNegInf, kNegInf, kNegInf};
+  Floats8 carry = neg, v, w;
+  int64_t t = 0;
+  for (; t + 8 <= n; t += 8) {
+    std::memcpy(&v, x + t, sizeof v);
+    w = __builtin_shuffle(v, neg, (Ints8){8, 0, 1, 2, 3, 4, 5, 6});
+    v = v > w ? v : w;
+    w = __builtin_shuffle(v, neg, (Ints8){8, 8, 0, 1, 2, 3, 4, 5});
+    v = v > w ? v : w;
+    w = __builtin_shuffle(v, neg, (Ints8){8, 8, 8, 8, 0, 1, 2, 3});
+    v = v > w ? v : w;
+    v = v > carry ? v : carry;
+    std::memcpy(x + t, &v, sizeof v);
+    carry = __builtin_shuffle(v, (Ints8){7, 7, 7, 7, 7, 7, 7, 7});
+  }
+  for (float c = carry[0]; t < n; ++t) c = x[t] = std::max(c, x[t]);
+}
+
+// I1, I2, the best score and its state along row r, column by column:
+// I[j] = max(best[j-1] + open, I[j-1] + ext).
+static void fill_insertions_in_order(Workspace& ws, int r) {
+  const int64_t lo = ws.lo[r], width = ws.hi[r] - lo + 1;
+  const int64_t at = ws.row_base[r];  // cell of column lo + t: at + t
+  float* best = ws.best.at.get() + at;
+  const float* d1 = ws.d1.at.get() + at;
+  const float* d2 = ws.d2.at.get() + at;
+  uint8_t* trace = ws.trace.at.get() + at;
+  const float* m = ws.m_row.data() + lo;
+  const int32_t* dbits = ws.dbits_row.data() + lo;
+  float i1 = kNegInf, i2 = kNegInf;
+  for (int64_t t = 0; t < width; ++t) {
+    int32_t bits = dbits[t];
+    if (t > 0) {
+      const float open1 = best[t - 1] + kGapOpen1, ext1 = i1 + kGapExt1;
+      const float open2 = best[t - 1] + kGapOpen2, ext2 = i2 + kGapExt2;
+      i1 = std::max(open1, ext1);
+      i2 = std::max(open2, ext2);
+      bits |= (ext1 >= open1) * kI1Ext | (ext2 >= open2) * kI2Ext;
+    }
+    bits |= cell_best(m[t], d1[t], d2[t], i1, i2, &best[t]);
+    trace[t] = (uint8_t)bits;
+  }
+}
+
+// Every score of an alignment of `rows` rows against `len` characters is a
+// whole number within 4 (rows + len) + 24 of 0 (a path pays at most 4 a
+// step, a state's opening 24), and the closed form below adds at most two
+// extensions a column to one: where 4 rows + 6 len + 64 stays under this
+// span, every sum is a whole number under 2^24, exact in a float, and the
+// closed form gives the recurrence's values.
+#ifndef POA_CLOSED_FORM_SPAN
+#define POA_CLOSED_FORM_SPAN (1 << 24)
+#endif
+
+// fill_insertions_in_order in closed form.  Opening an insertion piece
+// from a cell held by an insertion scores below extending that insertion,
+// so I2 opens from the best of M, D1 and D2 (`plain`) alone and I1 from
+// the larger of plain and I2: each piece is then a running maximum of its
+// sources, shifted by one extension a column.  The scores are whole
+// numbers (or the absorbing -inf), so within POA_CLOSED_FORM_SPAN this
+// gives the recurrence's values and extend bits exactly; only the running
+// maxima go column by column, eight at a time.
+static void fill_insertions(Workspace& ws, int r) {
+  const int64_t lo = ws.lo[r];
+  const int32_t width = (int32_t)(ws.hi[r] - lo + 1);
+  const int64_t at = ws.row_base[r];  // cell of column lo + t: at + t
+  float* __restrict best = ws.best.at.get() + at;
+  const float* __restrict d1 = ws.d1.at.get() + at;
+  const float* __restrict d2 = ws.d2.at.get() + at;
+  uint8_t* __restrict trace = ws.trace.at.get() + at;
+  const float* __restrict m = ws.m_row.data() + lo;
+  int32_t* __restrict bits = ws.dbits_row.data() + lo;  // D's, then all
+  float* __restrict plain = ws.plain_row.data();
+  // from their index -1, which holds -inf: no I left of the row's first
+  float* __restrict run1 = ws.run1_row.data() + 1;
+  float* __restrict run2 = ws.run2_row.data() + 1;
+  run1[-1] = run2[-1] = kNegInf;
+  // I at column t: the running maximum up to t - 1 of source[t'] - t'·ext,
+  // plus open + (t - 1)·ext
+  auto i1_at = [&](int32_t t) {
+    return run1[t - 1] + kGapOpen1 + (float)(t - 1) * kGapExt1;
+  };
+  auto i2_at = [&](int32_t t) {
+    return run2[t - 1] + kGapOpen2 + (float)(t - 1) * kGapExt2;
+  };
+  for (int32_t t = 0; t < width; ++t) {
+    plain[t] = std::max(std::max(m[t], d1[t]), d2[t]);
+    run2[t] = plain[t] - (float)t * kGapExt2;
+  }
+  running_max(run2, width);
+  for (int32_t t = 0; t < width; ++t)
+    run1[t] = std::max(plain[t], i2_at(t)) - (float)t * kGapExt1;
+  running_max(run1, width);
+  bits[0] |= cell_best(m[0], d1[0], d2[0], kNegInf, kNegInf, &best[0]);
+  for (int32_t t = 1; t < width; ++t) {
+    const float p = plain[t - 1], y1 = i1_at(t - 1), y2 = i2_at(t - 1);
+    bits[t] |= cell_best(m[t], d1[t], d2[t], i1_at(t), i2_at(t), &best[t])
+               | (y1 + kGapExt1 >= std::max(p, y2) + kGapOpen1) * kI1Ext
+               | (y2 + kGapExt2 >= p + kGapOpen2) * kI2Ext;
+  }
+  for (int32_t t = 0; t < width; ++t) trace[t] = (uint8_t)bits[t];
+}
+
+// Global alignment of seq against the graph (ws prepared for it), over the
+// columns within `band` of each node's depth, or over every column when
+// band < 0.  States: M, D1/D2 (consume a node), I1/I2 (consume a char);
+// gap costs follow the two-piece scheme.  Returns false, computing
+// nothing, when the cells exceed max_cells; else adds them to *cells.
+// Sets *touched when the best path meets a band edge, or the band cut it
+// off: the caller then doubles the band, so an accepted result never
+// depends on a clipped path (the full matrix never touches).
+static bool align_to_graph(const Graph& graph, Workspace& ws, const char* seq,
+                           int64_t len, int64_t band,
+                           std::vector<AlignStep>* steps, int64_t max_cells,
+                           bool* touched, int64_t* cells) {
+  const int rows = (int)graph.topo.size() + 1;
+  *touched = false;
+  ws.lo.resize(rows);
+  ws.hi.resize(rows);
+  ws.row_base.resize(rows + 1);
+  ws.row_base[0] = 0;
+  for (int r = 0; r < rows; ++r) {
+    if (r == 0 || band < 0) {
+      ws.lo[r] = 0;  // the virtual start row stays full: leading insertions
+      ws.hi[r] = len;
+    } else {
+      ws.lo[r] = std::max<int64_t>(0, std::min(len, ws.depth[r] - band));
+      ws.hi[r] = std::max<int64_t>(0, std::min(len, ws.depth[r] + band));
+      if (!ws.has_succ[r]) ws.hi[r] = len;  // global end: (end row, len)
+      if (ws.lo[r] > ws.hi[r]) ws.lo[r] = ws.hi[r];
+    }
+    ws.row_base[r + 1] = ws.row_base[r] + (ws.hi[r] - ws.lo[r] + 1);
+  }
+  const int64_t total = ws.row_base[rows];
+  if (total > max_cells) return false;
+  *cells += total;
+  ws.best.grow(total);
+  ws.d1.grow(total);
+  ws.d2.grow(total);
+  ws.trace.grow(total);
+
+  // the virtual start row: characters of seq only
+  ws.m_row[0] = 0.0f;
+  for (int64_t j = 1; j <= len; ++j) ws.m_row[j] = kNegInf;
+  std::fill(ws.d1.at.get(), ws.d1.at.get() + len + 1, kNegInf);
+  std::fill(ws.d2.at.get(), ws.d2.at.get() + len + 1, kNegInf);
+  std::fill(ws.dbits_row.begin(), ws.dbits_row.end(), 0);
+  const bool closed_form = 4 * (int64_t)rows + 6 * len + 64
+                           < POA_CLOSED_FORM_SPAN;
+  const auto insertions =
+      closed_form ? fill_insertions : fill_insertions_in_order;
+  insertions(ws, 0);
+  for (int r = 1; r < rows; ++r) {
+    fill_from_predecessors(
+        ws, r, ws.sub_row(graph.nodes[graph.topo[r - 1]].base, seq, len));
+    insertions(ws, r);
+  }
+
+  auto value = [&](const float* a, int r, int64_t j) {
+    return j >= ws.lo[r] && j <= ws.hi[r] ? a[ws.row_base[r] + j - ws.lo[r]]
+                                          : kNegInf;
+  };
+  auto state_at = [&](int r, int64_t j) {
+    return ws.trace.at[ws.row_base[r] + j - ws.lo[r]] & kStateMask;
+  };
+  // the predecessor row that gave M at (r, j), or -1 where none reached it
+  auto m_source = [&](int r, int64_t j) {
+    int src = -1;
+    if (j < 1) return src;
+    const float sub =
+        graph.nodes[graph.topo[r - 1]].base == seq[j - 1] ? kMatch : kMismatch;
+    float m = kNegInf;
+    for (int k = ws.pred_start[r]; k < ws.pred_start[r + 1]; ++k) {
+      const int pr = ws.pred_rows[k];
+      const float cand = value(ws.best.at.get(), pr, j - 1) + sub;
+      if (cand > m) { m = cand; src = pr; }
+    }
+    return src;
+  };
+  // the predecessor row that gave D1 (piece 1) or D2 at (r, j), or -1
+  auto d_source = [&](int r, int64_t j, int piece) {
+    const float* d = (piece == 1 ? ws.d1 : ws.d2).at.get();
+    const float open = piece == 1 ? kGapOpen1 : kGapOpen2;
+    const float ext = piece == 1 ? kGapExt1 : kGapExt2;
+    int src = -1;
+    float v = kNegInf;
+    for (int k = ws.pred_start[r]; k < ws.pred_start[r + 1]; ++k) {
+      const int pr = ws.pred_rows[k];
+      const float cand = std::max(value(ws.best.at.get(), pr, j) + open,
+                                  value(d, pr, j) + ext);
+      if (cand > v) { v = cand; src = pr; }
+    }
+    return src;
+  };
 
   int end_row = 0;
   float end_best = kNegInf;
   for (int r = 0; r < rows; ++r) {
-    if (r > 0 && has_succ[r]) continue;
-    if (best[at(r, len)] > end_best) { end_best = best[at(r, len)]; end_row = r; }
+    if (r > 0 && ws.has_succ[r]) continue;
+    const float b = value(ws.best.at.get(), r, len);
+    if (b > end_best) { end_best = b; end_row = r; }
   }
+  steps->clear();
   if (end_best <= kNegInf / 2) {  // band disconnected the problem entirely
     *touched = true;
-    steps->clear();
     return true;
   }
 
-  steps->clear();
   int r = end_row;
   int64_t j = len;
-  int state = best_state[at(r, j)];
+  int state = state_at(r, j);
   while (r > 0 || j > 0) {
-    if (r > 0 && ((j == lo[r] && lo[r] > 0) || (j == hi[r] && hi[r] < len)))
+    if (r > 0 && ((j == ws.lo[r] && ws.lo[r] > 0)
+                  || (j == ws.hi[r] && ws.hi[r] < len)))
       *touched = true;  // optimal path grazes the band: widen and retry
-    const int64_t cell = at(r, j);
+    const uint8_t cell = ws.trace.at[ws.row_base[r] + j - ws.lo[r]];
     if (state == 0) {
       steps->push_back({graph.topo[r - 1], (int)(j - 1)});
-      int src = m_from[cell];
+      const int src = m_source(r, j);
       if (src < 0) { *touched = true; steps->clear(); return true; }
       j -= 1;
       r = src;
-      state = best_state[at(r, j)];
+      state = state_at(r, j);
     } else if (state == 1 || state == 2) {
       steps->push_back({graph.topo[r - 1], -1});
-      int src = state == 1 ? d1_from[cell] : d2_from[cell];
+      const int src = d_source(r, j, state);
       if (src < 0) { *touched = true; steps->clear(); return true; }
-      bool extended = d_ext[cell] & (state == 1 ? 1 : 2);
+      const bool extended = cell & (state == 1 ? kD1Ext : kD2Ext);
       r = src;
-      if (!extended) state = best_state[at(r, j)];
+      if (!extended) state = state_at(r, j);
     } else {
       steps->push_back({-1, (int)(j - 1)});
-      bool extended = i_ext[cell] & (state == 3 ? 1 : 2);
+      const bool extended = cell & (state == 3 ? kI1Ext : kI2Ext);
       j -= 1;
-      if (!extended) state = best_state[at(r, j)];
+      if (!extended) state = state_at(r, j);
     }
   }
   std::reverse(steps->begin(), steps->end());
@@ -627,17 +585,20 @@ extern "C" {
 
 // Consensus of n_seqs sequences (concatenated, lengths in seq_lens).
 // Alignments whose full DP fits in full_dp_cells run unbanded; larger ones
-// run the banded aligner with band doubling (start 64, double whenever the
-// optimal path grazes a band edge) — this is what lifts the former hard cell
-// cap for long insertion clusters (reference capability: 10 kb haplotypes,
-// SVIM_COMBINE.py:202).  Returns 0 on success, -1 when even the banded DP
-// exceeds max_cells (caller falls back to the star MSA), -2 when out_cap is
-// too small.
+// run banded with band doubling (start 16, double whenever the optimal
+// path grazes a band edge) — this is what lifts the former hard cell cap
+// for long insertion clusters (reference capability: 10 kb haplotypes,
+// SVIM_COMBINE.py:202).  *out_cells receives the DP cells computed, every
+// rung and full matrix included.  Returns 0 on success, -1 when even the
+// banded DP exceeds max_cells (caller falls back to the star MSA), -2 when
+// out_cap is too small.
 int poa_consensus_native(const char* seqs, const int64_t* seq_lens,
                          int n_seqs, int64_t max_cells, int64_t full_dp_cells,
-                         char* out, int64_t out_cap, int64_t* out_len) {
+                         char* out, int64_t out_cap, int64_t* out_len,
+                         int64_t* out_cells) {
   poa::Graph graph;
   int64_t offset = 0;
+  *out_cells = 0;
   // seed the graph with the first sequence as a chain
   if (n_seqs <= 0) return -1;
   {
@@ -651,6 +612,7 @@ int poa_consensus_native(const char* seqs, const int64_t* seq_lens,
     offset = seq_lens[0];
   }
   std::vector<poa::AlignStep> steps;
+  poa::Workspace workspace;
   // Adaptive band start: sequences of one cluster share noise statistics,
   // so the band that ACCEPTED the previous alignment is the best guess for
   // the next (sticky, up only).  Near-identical haplotypes stay at 16
@@ -662,17 +624,17 @@ int poa_consensus_native(const char* seqs, const int64_t* seq_lens,
   for (int s = 1; s < n_seqs; ++s) {
     graph.toposort();
     const int64_t len = seq_lens[s];
+    workspace.prepare(graph, len);
     const int64_t full_cells = (int64_t)(graph.topo.size() + 1) * (len + 1);
-    bool aligned = false;
+    bool aligned = false, touched = false;
     if (full_cells <= full_dp_cells) {
-      aligned = poa::align_to_graph(graph, seqs + offset, len, &steps,
-                                    max_cells);
+      aligned = poa::align_to_graph(graph, workspace, seqs + offset, len, -1,
+                                    &steps, max_cells, &touched, out_cells);
     }
     if (!aligned) {
       for (int64_t band = start_band; band <= 2 * (len + 2); band *= 2) {
-        bool touched = false;
-        if (!poa::align_to_graph_banded(graph, seqs + offset, len, band,
-                                        &steps, max_cells, &touched))
+        if (!poa::align_to_graph(graph, workspace, seqs + offset, len, band,
+                                 &steps, max_cells, &touched, out_cells))
           return -1;  // banded cells exceed the budget: give up
         if (!touched) {
           aligned = true;

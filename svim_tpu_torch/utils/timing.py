@@ -10,7 +10,10 @@ While `run_pipeline` runs, its StageTimer is the process's current job
 (`StageTimer.job`).  `span(name)` times a piece of work inside the running
 stage as `<stage>.<name>`, on the job's thread or on a worker thread (the
 streaming reader, the consensus pool); `count(name, n)` adds to a per-job
-count.  Whenever a torch profiler records, stages and spans also enter
+count.  A span opened with `part=True` is a part of the span around it on
+its thread (a cluster's POA seed inside the cluster's consensus) and stays
+in that span's self time too.  Whenever a torch profiler records, stages
+and spans also enter
 `torch.profiler.record_function`: `stage:<stage>` and `stage:<stage>.<name>`
 on the job's thread, `worker:<stage>.<name>` on other threads, so a gap in
 the device trace is put down to what the job's thread was doing there.
@@ -61,15 +64,16 @@ class _Span:
     """One timed piece of work; `seconds` is its wall once it ends.  The
     job records its self time: the spans opened inside it on the same
     thread are taken off, so the job-thread spans of a stage never sum past
-    the stage."""
+    the stage; a `part` is not taken off the span around it."""
 
-    __slots__ = ("job", "key", "label", "range", "start", "nested",
+    __slots__ = ("job", "key", "label", "part", "range", "start", "nested",
                  "seconds")
 
-    def __init__(self, job, key, label):
+    def __init__(self, job, key, label, part=False):
         self.job = job
         self.key = key
         self.label = label
+        self.part = part
         self.range = None
         self.nested = 0.0
         self.seconds = 0.0
@@ -89,7 +93,7 @@ class _Span:
         self.seconds = time.perf_counter() - self.start
         stack = _LOCAL.stack
         stack.pop()
-        if stack:
+        if stack and not self.part:
             stack[-1].nested += self.seconds
         if self.job is not None and self.job.enabled:
             self.job._add_span(self.key, self.seconds - self.nested)
@@ -98,13 +102,16 @@ class _Span:
         return False
 
 
-def span(name: str, mark: Optional[str] = None, measured: bool = False):
+def span(name: str, mark: Optional[str] = None, measured: bool = False,
+         part: bool = False):
     """A context that times `name` inside the current job's running stage
     (recorded as `<stage>.<name>`, summed over the job) and, while a torch
     profiler records, marks it as a range (`mark` replaces the range's
     name).  `measured=True` reads the clock even when nothing records, for
     a caller that logs the span's `seconds` itself; otherwise, with the
-    job's timer disabled and no profiler recording, the shared no-op."""
+    job's timer disabled and no profiler recording, the shared no-op.
+    `part=True`: the span's time stays in the self time of the span around
+    it on this thread as well."""
     job = _JOB
     recording = _recording()
     if not (recording or measured or (job is not None and job.enabled)):
@@ -116,7 +123,7 @@ def span(name: str, mark: Optional[str] = None, measured: bool = False):
         owner = job.thread if job is not None else threading.main_thread().ident
         label = mark or ("stage:" if threading.get_ident() == owner
                          else "worker:") + key
-    return _Span(job, key, label)
+    return _Span(job, key, label, part)
 
 
 def spanned(name: str):

@@ -25,7 +25,8 @@ CPU = torch.device("cpu")
 torch.set_num_threads(1)
 STAGES = ("collect", "cluster", "combine", "genotype", "output", "plots")
 # spans made on threads other than the job's on the golden job's path
-WORKER_SPANS = ("collect.read", "combine.consensus_cluster")
+WORKER_SPANS = ("collect.read", "combine.consensus_cluster", "combine.poa",
+                "combine.polish", "combine.realign")
 
 
 class _StageSeconds(logging.Handler):
@@ -127,6 +128,27 @@ def test_worker_spans_sum_under_their_own_names_without_a_lost_update():
     assert timer.counts == {"consensus.clusters": 64 * 200}
     assert set(timer.spans) == {"combine.consensus",
                                 "combine.consensus_cluster"}
+
+
+def test_a_part_stays_in_the_self_time_of_the_span_around_it():
+    timer = timing.StageTimer()
+    with timer.job(), timer.stage("combine"):
+        with timing.span("consensus_cluster") as whole:
+            with timing.span("poa", part=True) as part:
+                with timing.span("inner"):
+                    pass
+            with timing.span("other") as other:
+                pass
+    spans = timer.spans
+    assert set(spans) == {"combine.consensus_cluster", "combine.poa",
+                          "combine.inner", "combine.other"}
+    # the part is not taken off the cluster's span; a plain span is, and
+    # a span inside the part is taken off the part
+    assert spans["combine.consensus_cluster"] == pytest.approx(
+        whole.seconds - other.seconds)
+    assert spans["combine.poa"] == pytest.approx(
+        part.seconds - spans["combine.inner"])
+    assert spans["combine.consensus_cluster"] >= part.seconds
 
 
 def test_off_returns_the_shared_no_op_and_records_nothing():
