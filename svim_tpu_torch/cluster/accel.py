@@ -311,6 +311,58 @@ def ins_haplotype_pairs(sample, starts, pairs_i, pairs_j, reference):
     return pairs
 
 
+def ins_haplotype_segments(partitions, reference):
+    """The haplotype pairs of ins_haplotype_pairs for many partitions at
+    once, as byte segments (wavefront_kernel.HaplotypePairs) instead of
+    strings: one blob holds each partition's reference window (fetched once,
+    as PartitionWindow) and its members' upper-cased inserted sequences, and
+    each side of a pair is the window's slice before the member's start,
+    its sequence, and the slice after, with PartitionWindow.slice's
+    clipping.  `partitions`: (sample, starts, pairs_i, pairs_j) each, their
+    pairs in that order."""
+    from svim_tpu_torch.ops.wavefront_kernel import HaplotypePairs
+
+    pieces = []
+    parts = []
+    base = 0
+    for sample, starts, pairs_i, pairs_j in partitions:
+        if not len(pairs_i):
+            continue
+        window = PartitionWindow(reference, _element_contig(sample),
+                                 int(starts.min()), int(starts.max()))
+        window_bytes = window.sequence.encode()
+        sequences, sequence_lengths = _ins_sequence_bytes(sample)
+        pieces += [window_bytes, sequences]
+        size = len(window_bytes)
+        sequence_starts = base + size + np.concatenate(
+            [[0], np.cumsum(sequence_lengths[:-1])]).astype(np.int64)
+
+        def at(position):
+            # PartitionWindow.slice's bounds as places in the blob
+            return base + np.clip(np.maximum(0, position) - window.offset,
+                                  0, size)
+
+        first = starts[pairs_i].astype(np.int64)
+        second = starts[pairs_j].astype(np.int64)
+        low = at(np.minimum(first, second) - WINDOW_PADDING)
+        high = at(np.maximum(first, second) + WINDOW_PADDING)
+        pair_parts = np.empty((len(pairs_i), 2, 6), dtype=np.int64)
+        for side, (member, start) in enumerate(((pairs_i, first),
+                                                (pairs_j, second))):
+            cut = at(start)
+            pair_parts[:, side, 0] = low
+            pair_parts[:, side, 1] = np.maximum(0, cut - low)
+            pair_parts[:, side, 2] = sequence_starts[member]
+            pair_parts[:, side, 3] = sequence_lengths[member]
+            pair_parts[:, side, 4] = cut
+            pair_parts[:, side, 5] = np.maximum(0, high - cut)
+        parts.append(pair_parts)
+        base += size + len(sequences)
+    return HaplotypePairs(
+        np.frombuffer(b"".join(pieces), dtype=np.uint8),
+        np.concatenate(parts) if parts else np.zeros((0, 2, 6), np.int64))
+
+
 def ins_pair_distance(first, second, reference, options, ed_cache=None):
     """Scalar INS distance with optional cached edit distance (same float op
     order as the reference, SVIM_clustering.py:64-77)."""

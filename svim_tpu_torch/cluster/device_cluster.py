@@ -52,6 +52,7 @@ from svim_tpu_torch.ops.linkage_kernel import (
 )
 from svim_tpu_torch.parallel.mesh import gather_shards, shard_batch
 from svim_tpu_torch.state import to_host
+from svim_tpu_torch.utils import timing
 
 _FUSED_KIND = {"DEL": KIND_SPAN_POSITION, "INV": KIND_SPAN_POSITION,
                "DUP_TAN": KIND_SPAN_POSITION, "DUP_INT": KIND_DUP_INT,
@@ -604,19 +605,19 @@ def dispatch_ins_resident(samples, reference, options, batcher):
     if not resident:
         return pending
 
-    # one flat haplotype-pair list across every resident partition
-    all_pairs = []
-    all_hints = []
-    pair_offsets = []
-    for index, sample, starts, _spans, pairs_i, pairs_j, hints in resident:
-        pair_offsets.append(len(all_pairs))
-        if len(pairs_i):
-            all_pairs.extend(accel.ins_haplotype_pairs(
-                sample, starts, pairs_i, pairs_j, reference))
-            all_hints.extend(hints.tolist())
-    ed_all = (batched_edit_distance_resident(all_pairs, all_hints, device)
-              if all_pairs else torch.zeros(1, dtype=torch.int32,
-                                            device=device))
+    # one flat haplotype-pair list across every resident partition, as
+    # segments of one blob that the card assembles into strings
+    pair_offsets = np.cumsum([0] + [len(entry[4]) for entry in resident])
+    with timing.span("ins_pairs"):
+        all_pairs = accel.ins_haplotype_segments(
+            [(sample, starts, pairs_i, pairs_j)
+             for _, sample, starts, _, pairs_i, pairs_j, _ in resident],
+            reference)
+        all_hints = np.concatenate([entry[6] for entry in resident])
+    with timing.span("ins_distances"):
+        ed_all = (batched_edit_distance_resident(all_pairs, all_hints, device)
+                  if len(all_pairs) else torch.zeros(1, dtype=torch.int32,
+                                                     device=device))
     batcher.extra_outputs[("ins_ed",)] = ed_all
 
     buckets = {}
@@ -635,7 +636,7 @@ def dispatch_ins_resident(samples, reference, options, batcher):
             col_starts[row, :n] = starts
             col_spans[row, :n] = spans
             valid[row, :n] = True
-            offset = pair_offsets[slot]
+            offset = int(pair_offsets[slot])
             for k in range(len(pairs_i)):
                 bucket_pairs.append((row, int(pairs_i[k]), int(pairs_j[k]),
                                      offset + k))

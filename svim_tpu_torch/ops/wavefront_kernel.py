@@ -29,6 +29,7 @@ import torch
 
 from svim_tpu_torch.ops._build import check_launch
 from svim_tpu_torch.state import to_host
+from svim_tpu_torch.utils import timing
 
 INF = 1 << 20
 
@@ -367,40 +368,122 @@ def _pack_chunk(chunk, length, device):
             device_lens[count:])
 
 
+def covered_cells(length: int, band: int) -> int:
+    """DP cells 1 <= i, j <= length with |i - j| <= band: what one pair of
+    a launch at this padded length and band covers."""
+    if band >= length - 1:
+        return length * length
+    return length * (2 * band + 1) - band * (band + 1)
+
+
 def _run_chunk(chunk, length, band, device):
-    """One banded_distance call over string pairs -> device int32 tensor."""
+    """One banded_distance call over string pairs -> device int32 tensor;
+    the running job counts its pairs (`wavefront.pairs`) and the cells
+    their band and padded length cover (`wavefront.cells`)."""
+    timing.count("wavefront.pairs", len(chunk))
+    timing.count("wavefront.cells", len(chunk) * covered_cells(length, band))
     return banded_distance(*_pack_chunk(chunk, length, device), band)
+
+
+class HaplotypePairs:
+    """String pairs held as byte segments of one shared blob: each side of
+    pair k is three pieces, blob[start:start + length] for the (start,
+    length) columns 0-1, 2-3 and 4-5 of parts[k, side], one after the
+    other (an insertion's haplotype: the reference before it, the inserted
+    sequence, the reference after it).  The card assembles a launch's code
+    matrices from the blob itself, so no string of a pair is built on the
+    host.  Iterating gives the pairs as strings, for what reads them so."""
+
+    __slots__ = ("blob", "parts")
+
+    def __init__(self, blob, parts):
+        self.blob = np.array(blob, dtype=np.uint8)   # writable, for torch
+        self.parts = np.asarray(parts, dtype=np.int64).reshape(-1, 2, 6)
+
+    @classmethod
+    def from_strings(cls, pairs):
+        """Each string of `pairs` as one segment (its UTF-8 bytes)."""
+        pieces = [text.encode() for pair in pairs for text in pair]
+        lengths = np.fromiter(map(len, pieces), dtype=np.int64,
+                              count=len(pieces))
+        parts = np.zeros((len(pieces), 6), dtype=np.int64)
+        parts[1:, 0] = np.cumsum(lengths[:-1])
+        parts[:, 1] = lengths
+        return cls(np.frombuffer(b"".join(pieces), dtype=np.uint8), parts)
+
+    def __len__(self):
+        return len(self.parts)
+
+    def lengths(self):
+        """(pairs, 2) bytes of each side."""
+        return self.parts[:, :, 1::2].sum(axis=2)
+
+    def __iter__(self):
+        blob = self.blob
+        for pair in self.parts.tolist():
+            yield tuple(b"".join(blob[start:start + length].tobytes()
+                                 for start, length in zip(side[0::2],
+                                                          side[1::2])).decode()
+                        for side in pair)
+
+
+def _segment_codes(blob, parts, length):
+    """The (B, length) uint8 code matrix and (B,) int32 lengths of one side
+    of B pairs, gathered from `blob` (a tensor on the launch's device) by
+    the (B, 6) segment columns, zero past each string's end."""
+    parts = torch.from_numpy(np.ascontiguousarray(parts)).to(blob.device)
+    column = torch.arange(length, device=blob.device)[None, :]
+    first = parts[:, 1:2]
+    second = first + parts[:, 3:4]
+    total = second + parts[:, 5:6]
+    index = torch.where(column < first, parts[:, 0:1] + column,
+                        torch.where(column < second,
+                                    parts[:, 2:3] + column - first,
+                                    parts[:, 4:5] + column - second))
+    codes = blob[index.clamp_(0, max(blob.numel() - 1, 0))]
+    codes.masked_fill_(column >= total, 0)
+    return codes, total[:, 0].to(torch.int32)
+
+
+def _run_segments(blob, parts, length, band):
+    """One banded_distance call over the pairs of `parts` ((B, 2, 6)
+    segment columns into the device tensor `blob`), counted as _run_chunk
+    counts."""
+    timing.count("wavefront.pairs", len(parts))
+    timing.count("wavefront.cells", len(parts) * covered_cells(length, band))
+    a_codes, a_lens = _segment_codes(blob, parts[:, 0], length)
+    b_codes, b_lens = _segment_codes(blob, parts[:, 1], length)
+    return banded_distance(a_codes, a_lens, b_codes, b_lens, band)
 
 
 def batched_edit_distance_resident(pairs, band_hints, device):
     """Exact edit distances that STAY ON `device` (device-resident INS
-    route).  Requires PROVEN per-pair upper bounds (`band_hints`): each pow4
-    band bucket then resolves in one pass, with no host band-doubling loop,
-    so the per-bucket outputs scatter into one int32 tensor (input order)
-    without visiting the host."""
-    count = len(pairs)
-    host_fill = np.zeros(count, dtype=np.int32)
-    groups = {}
-    for idx, (a, b) in enumerate(pairs):
-        if len(a) == 0 or len(b) == 0:
-            host_fill[idx] = max(len(a), len(b))
-            continue
-        band = _pow4_at_least(int(band_hints[idx]) + 1, 64)
-        groups.setdefault(band, []).append(idx)
+    route) of the HaplotypePairs `pairs`.  Requires PROVEN
+    per-pair upper bounds (`band_hints`): each pow4 band bucket then
+    resolves in one pass, with no host band-doubling loop, so the
+    per-bucket outputs scatter into one int32 tensor (input order) without
+    visiting the host.  The blob goes up once; each launch's codes are
+    gathered from it on the device."""
+    lengths = pairs.lengths()
+    empty = (lengths == 0).any(axis=1)
+    host_fill = np.where(empty, lengths.max(axis=1), 0).astype(np.int32)
     out = torch.from_numpy(host_fill).to(device)
-    for band, indices in sorted(groups.items()):
-        subset = [pairs[i] for i in indices]
-        length = _pow2_at_least(max(max(len(a), len(b)) for a, b in subset),
-                                512)
+    if empty.all():
+        return out
+    hints = np.asarray(band_hints, dtype=np.int64) + 1
+    bands = np.full(len(pairs), 64, dtype=np.int64)
+    while (short := bands < hints).any():
+        bands[short] *= 4
+    blob = torch.from_numpy(pairs.blob).to(device)
+    for band in np.unique(bands[~empty]).tolist():
+        indices = np.flatnonzero((bands == band) & ~empty)
+        length = _pow2_at_least(int(lengths[indices].max()), 512)
         band_eff = min(band, length)
         chunk_size = _chunk_size(band_eff, device)
-        for chunk_start in range(0, len(subset), chunk_size):
-            chunk = subset[chunk_start:chunk_start + chunk_size]
-            values = _run_chunk(chunk, length, band_eff, device)
-            chunk_idx = torch.as_tensor(
-                indices[chunk_start:chunk_start + len(chunk)],
-                dtype=torch.int64).to(device)
-            out[chunk_idx] = values
+        for chunk_start in range(0, len(indices), chunk_size):
+            chunk = indices[chunk_start:chunk_start + chunk_size]
+            values = _run_segments(blob, pairs.parts[chunk], length, band_eff)
+            out[torch.from_numpy(chunk).to(device)] = values
     return out
 
 

@@ -27,6 +27,7 @@ import contextlib
 import functools
 import logging
 import os
+import resource
 import threading
 import time
 from typing import Dict, Optional
@@ -165,15 +166,19 @@ class StageTimer:
         self.current: Optional[str] = None
         self.thread = threading.get_ident()
         self.lock = threading.Lock()
+        self.usage = None
 
     @contextlib.contextmanager
     def job(self):
         """This timer as the process's current job while the block runs,
-        on the calling thread."""
+        on the calling thread; the process's resource usage at its start,
+        for the record's `host.cpu_ms`."""
         global _JOB
         previous = _JOB
         _JOB = self
         self.thread = threading.get_ident()
+        if self.enabled:
+            self.usage = resource.getrusage(resource.RUSAGE_SELF)
         try:
             yield self
         finally:
@@ -223,9 +228,17 @@ class StageTimer:
 
     def record(self):
         """The job's record as --profile logs it: the stage seconds, then
-        `spans` ({"<stage>.<name>": seconds}) and `counts`."""
-        return dict(self.durations, spans=dict(self.spans),
-                    counts=dict(self.counts))
+        `spans` ({"<stage>.<name>": seconds}) and `counts`, with the CPU
+        milliseconds the process's threads spent since the job began
+        (`host.cpu_ms`): the same work in more wall time and more CPU is
+        a slower host, not more work."""
+        counts = dict(self.counts)
+        if self.usage is not None:
+            now = resource.getrusage(resource.RUSAGE_SELF)
+            counts["host.cpu_ms"] = round(1e3 * (
+                now.ru_utime + now.ru_stime
+                - self.usage.ru_utime - self.usage.ru_stime))
+        return dict(self.durations, spans=dict(self.spans), counts=counts)
 
     def report(self):
         if not self.enabled or not self.durations:

@@ -142,7 +142,8 @@ def test_resident_driver_equals_jax_driver():
     hints = [max(len(a), len(b)) for a, b in pairs]
     want = np.asarray(jax_wavefront.batched_edit_distance_resident(
         pairs, hints, use_pallas=False))
-    got = torch_wavefront.batched_edit_distance_resident(pairs, hints, CPU)
+    got = torch_wavefront.batched_edit_distance_resident(
+        torch_wavefront.HaplotypePairs.from_strings(pairs), hints, CPU)
     assert got.device == CPU and got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
 
