@@ -6,9 +6,10 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. environment: a CUDA device is required; prints the card's name and
      power limit (nvidia-smi) and the torch / CUDA versions;
-  2. build: compiles the seven kernel sources, csrc/wavefront.cu,
+  2. build: compiles the eight kernel sources, csrc/wavefront.cu,
      span_distance.cu, agglomerate.cu, collect_scan.cu,
-     classify_segments.cu, genotype_support.cu and ins_matrices.cu, with
+     classify_segments.cu, genotype_support.cu, ins_matrices.cu and
+     gotoh.cu, with
      nvcc (all at once) and, beside them, the port's native host library
      (svim_tpu_torch/native: scan session, POA) with g++, all into
      svim_tpu_torch/_build;
@@ -212,8 +213,10 @@ Phases, each of which raises (non-zero exit) on failure:
      stress_wavefront.  Every device call is recorded: the linkage ops go
      to phase 6, COLLECT and GENOTYPE to phases 15 and 16, and every
      wavefront call runs again through the kernel and the plain version
-     on the card, equal to each other and to the run's output.  Logs what
-     the calls held (scans and their overflows, CIGAR widths, the
+     on the card, equal to each other and to the run's output; every rung
+     of the consensus pool's Gotoh ladder (csrc/gotoh.cu) is held pair
+     for pair to the host aligner at the rung's band (GotohRungs,
+     gotoh_rungs_against_host).  Logs what the calls held (scans and their overflows, CIGAR widths, the
      reference ids classified, the GENOTYPE table's contigs, fused-entry
      partitions by type, the DUP_INT candidate round, the wavefront calls'
      shapes and variants), each run's stage seconds and, from a traced run
@@ -299,6 +302,16 @@ Phases, each of which raises (non-zero exit) on failure:
      the strip launches' device ms a pair beside the bound of the launch
      and beside the first design's in turns and, from a traced run of
      longtail_wavefront in a process of its own, device busy time.
+ 22. (run after 16) COMBINE's consensus aligner, csrc/gotoh.cu, at the
+     pool's shapes (gotoh_cases: a polish round of 20 members of 1-3 kb at
+     band 64, one of 300 bp, one 10 kb pair) and on the ladder's other
+     rungs (pairs of the full matrix, pairs that graze band 64 and 128
+     and end on the full matrix): every pair's band ladder on the card
+     against the host aligner, every rung it ran against the plain
+     version on the card and against the host aligner at the rung's band,
+     and the first rung's device ms beside its bound by operations
+     (GOTOH_OPS_PER_CELL a band cell), the plain version's and the host
+     aligner's ms.
 The script imports torch and the port, never jax or the JAX package: the
 inputs come from svim_tpu_torch.workloads.
 Then one JSON line describing the kernels, the card line, and the last
@@ -485,6 +498,7 @@ def phase_build():
         cigar_kernel,
         distance_kernel,
         genotype_kernel,
+        gotoh_kernel,
         linkage_kernel,
         segments_kernel,
         wavefront_kernel,
@@ -513,6 +527,7 @@ def phase_build():
             ).classify_max_slots()
         genotype_kernel._kernel_library()
         linkage_kernel._ins_kernel_library()
+        gotoh_kernel._kernel_library()
         log("build", "{0} built (in parallel) and loaded in {1:.2f}s (nvcc "
             "{2}); DPX add-min: {3}; agglomeration up to P = {4}; classify "
             "up to S = {5}".format(
@@ -2652,10 +2667,13 @@ def phase_flags(golden_bam, golden_genome):
             != _normalized_vcf(GOLDEN):
         raise AssertionError("--device_backend host: variants.vcf differs "
                              "from tests/golden/variants.golden.vcf")
-    if any(PATH_LAUNCHES["host"].values()):
+    # COMBINE's consensus aligns on the card under every backend but cpu
+    if any(count for name, count in PATH_LAUNCHES["host"].items()
+           if name != "gotoh_align"):
         raise AssertionError("--device_backend host launched a kernel: {0}"
                              .format(PATH_LAUNCHES["host"]))
-    log("flags", "--device_backend host: golden VCF, no kernel launch")
+    log("flags", "--device_backend host: golden VCF, no kernel launch but "
+        "the consensus aligner's")
 
     working_dir = os.path.join(directory, "wd_trace")
     launches = _drive("profile_trace",
@@ -4665,9 +4683,9 @@ WAVEFRONT_CHECK = {"calls": 0, "max_abs_err": 0}
 # the kernels of the port's CUDA sources (csrc/*.cu), as a trace names them
 PORT_KERNEL_NAMES = ("agglomerate_fused_kernel", "agglomerate_matrix_kernel",
                      "classify_groups", "genotype_support_kernel",
-                     "ins_matrices_kernel", "scan_and_compact",
-                     "span_distance_kernel", "wavefront_strip_kernel",
-                     "wavefront_warp_kernel")
+                     "gotoh_kernel", "ins_matrices_kernel",
+                     "scan_and_compact", "span_distance_kernel",
+                     "wavefront_strip_kernel", "wavefront_warp_kernel")
 
 
 class ClusterTally:
@@ -4926,6 +4944,7 @@ def phase_stress(card, makers, recorder, device_ops):
 
     started = time.perf_counter()
     traced = []
+    gotoh = GotohRungs()
     for path, (workload, flags) in STRESS_PATHS.items():
         directory, bam, genome = _workload(makers, workload)
         truth = workloads.load_truth(directory)
@@ -4933,7 +4952,7 @@ def phase_stress(card, makers, recorder, device_ops):
         recorder.label = path
         with recorder, device_ops.recording(path,
                                             RECORDED_OPS + WAVEFRONT_OP), \
-                RouteCounter() as routes, ClusterTally() as tally:
+                RouteCounter() as routes, ClusterTally() as tally, gotoh:
             _drive(path, ["alignment", working_dir, bam, genome,
                           "--profile"] + flags)
         launches = PATH_LAUNCHES[path]
@@ -4992,6 +5011,12 @@ def phase_stress(card, makers, recorder, device_ops):
                                      + label)
     if not WAVEFRONT_CHECK["calls"]:
         raise AssertionError("phase 17 recorded no wavefront call")
+    rungs = gotoh_rungs_against_host(gotoh.rungs)
+    if not rungs["rungs"] or rungs["differing"]:
+        raise AssertionError("phase 17's Gotoh rungs against the host "
+                             "aligner: {0}".format(json.dumps(rungs)))
+    log("stress", "every Gotoh rung of the consensus pools equal to the host "
+        "aligner at its band: {0}".format(json.dumps(rungs)))
     log("stress", "{0} recorded wavefront calls: kernel equal to the plain "
         "version on the card and to the run's output (max_abs_err {1}); "
         "the linkage, COLLECT and GENOTYPE calls go to phases 6, 15 and "
@@ -5659,6 +5684,282 @@ def _repo_script(path, environment):
     return result.stdout.strip().splitlines()
 
 
+# csrc/gotoh.cu's bound: about 25 float and integer operations a band cell
+# (the five states' adds and maxes, the flags' compares, the selects) at the
+# card's 3.35e13 a second (132 SMs, 128 lanes, 1.98 GHz)
+GOTOH_OPS_PER_CELL = 25
+GOTOH_OPS_PER_S = 3.35e13
+
+
+def gotoh_bound_ms(cells):
+    """The least time the card could align `cells` band cells in."""
+    return cells * GOTOH_OPS_PER_CELL / GOTOH_OPS_PER_S * 1e3
+
+
+class GotohRungs:
+    """While active, keeps (blob, plan, ops, result) of every rung that
+    ops/gotoh_kernel.py runs through the kernel (gotoh_align_batch looks
+    gotoh_align_batch_cuda up at each rung), as copies: the outputs are
+    views of a buffer that the caller's next rung reuses."""
+
+    def __init__(self):
+        self.rungs = []
+
+    def __enter__(self):
+        import numpy as np
+
+        from svim_tpu_torch.ops import gotoh_kernel
+
+        self._original = original = gotoh_kernel.gotoh_align_batch_cuda
+
+        def recorded(blob, plan, *args, **kwargs):
+            ops, result = original(blob, plan, *args, **kwargs)
+            self.rungs.append((
+                np.array(blob, dtype=np.uint8),
+                np.array(plan, dtype=np.int64).reshape(-1, 5),
+                ops.copy(), result.copy()))
+            return ops, result
+        gotoh_kernel.gotoh_align_batch_cuda = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from svim_tpu_torch.ops import gotoh_kernel
+
+        gotoh_kernel.gotoh_align_batch_cuda = self._original
+        return False
+
+
+def _gotoh_host_library():
+    """The port's native library with gotoh_align_banded's signature."""
+    import ctypes
+
+    from svim_tpu_torch import native
+
+    lib = native.get_library()
+    lib.gotoh_align_banded.restype = ctypes.c_int
+    lib.gotoh_align_banded.argtypes = (
+        [ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
+        + [ctypes.c_float] * 6
+        + [ctypes.c_int64, ctypes.c_char_p, ctypes.c_char_p,
+           ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int)])
+    return lib
+
+
+def _host_gotoh_rung(lib, a, b, band):
+    """One rung of the host aligner (`lib`, _gotoh_host_library) for byte
+    strings a and b: the op states (0 diagonal, 1 gap in b, 2 gap in a)
+    of gotoh_align_banded at `band`, or of gotoh_align for band < 0 (the
+    full matrix), and whether the path touched the corridor's edge (then
+    no states)."""
+    import ctypes
+
+    import numpy as np
+
+    from svim_tpu_torch.ops import gotoh_kernel
+
+    out_a = ctypes.create_string_buffer(len(a) + len(b) + 1)
+    out_b = ctypes.create_string_buffer(len(a) + len(b) + 1)
+    length, touched = ctypes.c_int64(0), ctypes.c_int(0)
+    if band < 0:
+        status = lib.gotoh_align(a, len(a), b, len(b), *gotoh_kernel.SCORES,
+                                 out_a, out_b, ctypes.byref(length))
+    else:
+        status = lib.gotoh_align_banded(
+            a, len(a), b, len(b), *gotoh_kernel.SCORES, int(band), out_a,
+            out_b, ctypes.byref(length), ctypes.byref(touched))
+    if status != 0:
+        raise RuntimeError("the host aligner refused a {0}x{1} pair at band "
+                           "{2}".format(len(a), len(b), band))
+    if touched.value:
+        return None, 1
+    n = length.value
+    row_a = np.frombuffer(out_a.raw[:n], dtype=np.uint8)
+    row_b = np.frombuffer(out_b.raw[:n], dtype=np.uint8)
+    gap = ord("-")
+    return np.where(row_a == gap, 2, np.where(row_b == gap, 1, 0)).astype(
+        np.uint8), 0
+
+
+def gotoh_rungs_against_host(rungs, workers=8):
+    """Every pair of every recorded rung ((blob, plan, ops, result), as
+    GotohRungs keeps them) held to the host aligner at the rung's band:
+    the same touched flag and, where untouched, the same op states.
+    Returns {"rungs", "pairs", "touched", "bands": {band: pairs},
+    "differing"}; the host calls run on `workers` threads (ctypes lets go
+    of the interpreter's lock)."""
+    import concurrent.futures
+
+    import numpy as np
+
+    lib = _gotoh_host_library()
+
+    def check(rung):
+        blob, plan, ops, result = rung
+        ends = np.cumsum(plan[:, 1] + plan[:, 3])
+        differing = touched = 0
+        for k, (a_off, la, b_off, lb, band) in enumerate(plan):
+            states, host_touched = _host_gotoh_rung(
+                lib, blob[a_off:a_off + la].tobytes(),
+                blob[b_off:b_off + lb].tobytes(), band)
+            touched += host_touched
+            n = int(result[k, 0])
+            if int(result[k, 1]) != host_touched or (
+                    not host_touched and not np.array_equal(
+                        ops[ends[k] - n:ends[k]], states)):
+                differing += 1
+        return differing, touched
+
+    report = {"rungs": len(rungs), "pairs": 0, "touched": 0, "bands": {},
+              "differing": 0}
+    for _, plan, _, _ in rungs:
+        report["pairs"] += len(plan)
+        for band in plan[:, 4]:
+            key = "full" if band < 0 else str(int(band))
+            report["bands"][key] = report["bands"].get(key, 0) + 1
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        for differing, touched in pool.map(check, rungs):
+            report["differing"] += differing
+            report["touched"] += touched
+    return report
+
+
+def gotoh_cases(rng):
+    """{name: (a, b) pairs} at the consensus pool's shapes: a polish round
+    (a center against 20 members of 1-3 kb, ~10% noise, band 64), a short
+    round (20 members of 300 bp), and one 10 kb pair; then the ladder's
+    other rungs: a round on the full matrix (members of 100-120 bp, at
+    most FULL_DP_CELLS cells, and of 180-220 bp against a 100 bp center,
+    which band 64 would cover), and pairs whose path drifts off the
+    diagonal and back (single-base insertions in one half, deletions in
+    the other), so that band 64 or 128 grazes and the ladder doubles,
+    some of them up to the full matrix."""
+    def text(length):
+        return "".join(rng.choice("ACGT") for _ in range(length))
+
+    def noisy(sequence, rate):
+        out = []
+        for char in sequence:
+            roll = rng.random()
+            if roll < rate / 3:
+                continue
+            if roll < 2 * rate / 3:
+                out.append(rng.choice("ACGT"))
+            elif roll < rate:
+                out.append(char + rng.choice("ACGT"))
+            else:
+                out.append(char)
+        return "".join(out)
+
+    cases = {}
+    core = text(2000)
+    center = noisy(core, 0.02)
+    cases["round 20 x 1-3 kb"] = [
+        (center, noisy(core[:rng.randint(1000, 2000)], 0.1)
+         + noisy(text(1000), 0.1)[:rng.randint(0, 1000)])
+        for _ in range(20)]
+    core = text(300)
+    center = noisy(core, 0.02)
+    cases["round 20 x 300 bp"] = [(center, noisy(core, 0.1))
+                                  for _ in range(20)]
+    core = text(10000)
+    cases["pair 10 kb"] = [(noisy(core, 0.02), noisy(core, 0.1))]
+    core = text(110)
+    center = noisy(core, 0.02)[:110]
+    cases["full matrix 20 x 100-200 bp"] = [
+        (center, noisy(core, 0.1)[:rng.randint(100, 120)]) for _ in range(10)
+    ] + [(center[:100], noisy(core[:100] + text(100), 0.1)[:rng.randint(
+        180, 220)]) for _ in range(10)]
+
+    def drift(length, edits):
+        first, second = list(text(length)), list(text(length))
+        a = "".join(first + second)
+        for _ in range(edits):
+            first.insert(rng.randrange(len(first)), rng.choice("ACGT"))
+            del second[rng.randrange(len(second))]
+        return a, "".join(first + second)
+
+    cases["graze 12 x 400-800 bp"] = [
+        drift(rng.randint(210, 230), rng.randint(125, 140)) for _ in range(4)
+    ] + [drift(rng.randint(250, 400), rng.randint(60, 120)) for _ in range(8)]
+    return cases
+
+
+def phase_gotoh():
+    """Phase 22: csrc/gotoh.cu at the consensus pool's shapes and on the
+    ladder's other rungs (`gotoh_cases`): every pair's ladder on the card
+    against the host aligner (`aligner.align_global`), every rung the
+    ladder ran (GotohRungs) against the plain version on the card (results
+    and op strings equal) and against the host aligner at the rung's band,
+    then the first rung's device ms beside its bound by operations, the
+    plain version's ms and the host aligner's ms for the same pairs on one
+    core.  Returns {case: {...}}."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from svim_tpu_torch.native import aligner
+    from svim_tpu_torch.ops import gotoh_kernel
+
+    device = torch.device("cuda")
+    report = {}
+    for name, pairs in gotoh_cases(random.Random(22)).items():
+        encoded = [(a.encode(), b.encode()) for a, b in pairs]
+        with GotohRungs() as recorded:
+            aligned = gotoh_kernel.gotoh_align_batch(encoded, device)
+        started = time.perf_counter()
+        want = [aligner.align_global(a, b) for a, b in pairs]
+        host_ms = (time.perf_counter() - started) * 1e3
+        differing = sum(aligned.rows(k, a, b) != want[k]
+                        for k, (a, b) in enumerate(pairs))
+        plain_ms = []
+        for blob, plan, ops, result in recorded.rungs:
+            started = time.perf_counter()
+            plain_ops, plain_result = gotoh_kernel.gotoh_align_batch_torch(
+                torch.from_numpy(blob).to(device), plan)
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - started) * 1e3)
+            plain_result = plain_result.cpu().numpy()
+            plain_ops = plain_ops.cpu().numpy()
+            ends = np.cumsum(plan[:, 1] + plan[:, 3])
+            differing += int((result != plain_result).any(axis=1).sum())
+            differing += sum(not np.array_equal(ops[end - n:end],
+                                                plain_ops[end - n:end])
+                             for end, n in zip(ends, plain_result[:, 0]))
+        rungs = gotoh_rungs_against_host(recorded.rungs)
+        differing += rungs["differing"]
+        if differing:
+            raise AssertionError("gotoh {0}: {1} pairs differ from the host "
+                                 "aligner or the plain version".format(
+                                     name, differing))
+        # the first rung again, timed: device ms of a rung (its upload,
+        # kernel and download, which the call waits for) between events
+        # on the workspace's stream
+        blob, plan, _, result = recorded.rungs[0]
+        cells = int(gotoh_kernel.band_cells(plan[:, 1], plan[:, 3],
+                                            plan[:, 4]).sum())
+        workspace = gotoh_kernel.Workspace(device)
+        gotoh_kernel.gotoh_align_batch_cuda(blob, plan, workspace)
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record(workspace.stream)
+            gotoh_kernel.gotoh_align_batch_cuda(blob, plan, workspace)
+            stop.record(workspace.stream)
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        kernel_ms = sum(times) / len(times)
+        report[name] = {"pairs": len(pairs), "cells": cells,
+                        "touched": int(result[:, 1].sum()),
+                        "rungs": rungs["rungs"], "bands": rungs["bands"],
+                        "ms": kernel_ms, "bound_ms": gotoh_bound_ms(cells),
+                        "bound_by": "operations", "plain_ms": plain_ms[0],
+                        "host_ms": host_ms, "max_abs_err": 0}
+        log("gotoh", "{0}: {1}".format(name, json.dumps(report[name])))
+    return report
+
+
 def phase_measuring_scripts(card, makers):
     """Phase 20: bench_torch.py at BENCH_READS with its defaults must exit
     0 behind its gate (svim_tpu's VCF), print bench.py's four keys with a
@@ -5783,6 +6084,7 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
     genotype_timings = phase_genotype_kernel(
         collect_calls, slice_designs["genotype_support"])
     finish_kernels_a_call(kernels_a_call_process)
+    gotoh_timings = phase_gotoh()
     phase_measuring_scripts(card, makers)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -5807,12 +6109,13 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
     by_shape = {"{0} B={1} P={2}".format(*key): value
                 for key, value in agglomerate_timings.items()}
     by_shape.update(launch_timings)
-    # library_ms is null for all seven: PyTorch has no call that computes a
+    # library_ms is null for all eight: PyTorch has no call that computes a
     # banded Levenshtein distance, none for this pairwise distance with its
     # same-read wall (torch.cdist has neither the two quotients nor the
     # wall), no hierarchical clustering, none for a CIGAR scan or the
-    # split-read decision chain, none for the capped interval join and none
-    # for the INS distance with its pair overwrites
+    # split-read decision chain, none for the capped interval join, none
+    # for the INS distance with its pair overwrites and none for a
+    # two-piece affine alignment
     print(json.dumps({"kernels": [{
         "name": "wavefront_banded_distance", "route": "cuda",
         "source": "svim_tpu_torch/csrc/wavefront.cu",
@@ -5859,6 +6162,10 @@ def run_later_phases(card, makers, started, kernels_a_call_process,
         + [collect_kernel_entry(kernel, collect_timings, collect_floor,
                                 by_path(kernel))
            for kernel in COLLECT_FUNCTIONS]
+        + [{"name": "gotoh_align", "route": "cuda",
+            "source": "svim_tpu_torch/csrc/gotoh.cu", "replaces": None,
+            "launches_by_path": by_path("gotoh_align"),
+            "max_abs_err": 0, "by_shape": gotoh_timings, "library_ms": None}]
         + [slice_kernel_entry("genotype_support", GENOTYPE_SOURCE,
                               GENOTYPE_REPLACES, GENOTYPE_CHECK,
                               genotype_timings, by_path("genotype_support"),

@@ -28,11 +28,13 @@ from svim_tpu_torch.io.fasta import FastaFile
 from svim_tpu_torch.utils import timing
 
 
-def prepare_insertion_candidates(insertion_signature_clusters, options):
+def prepare_insertion_candidates(insertion_signature_clusters, options,
+                                 device=None):
     """Insertion candidates with consensus sequences
     (reference: SVIM_COMBINE.py:257-329).  Clusters with fewer than 3 members
     use the first member's sequence verbatim; consensus failures fall back to
-    an empty sequence."""
+    an empty sequence.  On a CUDA `device` the consensus pool's alignments
+    run on the card."""
     novel_insertion_candidates = []
 
     def candidate_from(cluster, start, end, sequence):
@@ -99,7 +101,8 @@ def prepare_insertion_candidates(insertion_signature_clusters, options):
                                  mark="consensus:cluster"):
                     return consensus_from_inputs(
                         item[1],
-                        maximum_haplotype_length=options.max_consensus_length)
+                        maximum_haplotype_length=options.max_consensus_length,
+                        device=device)
 
             with timing.span("consensus"), \
                     concurrent.futures.ThreadPoolExecutor(workers) as pool:
@@ -248,7 +251,7 @@ def combine_clusters(signature_clusters, options, device):
         for cluster in deletion_signature_clusters if cluster.score > 0]
 
     novel_insertion_candidates = prepare_insertion_candidates(
-        insertion_signature_clusters, options)
+        insertion_signature_clusters, options, device)
 
     logging.info("Cluster interspersed duplication candidates one more time..")
     with timing.span("candidate_round"):

@@ -10,7 +10,11 @@ Status codes: 0 success, 1 skipped (too long), 2 failed, 3 no match,
 The consensus itself is a star MSA over a two-piece-affine global aligner
 (SPOA's algorithm=1 scoring: m=2, n=-4, g=-4, e=-2, q=-24, c=-1).  The
 aligner is the native C++ kernel (svim_tpu_torch/native); the pure-Python
-Gotoh DP takes only an input the native call refuses.
+Gotoh DP takes only an input the native call refuses.  On a CUDA device the
+pool's alignments (the polish rounds' members against the center, the
+realignment, the star MSA's) run on the card instead, as batched launches
+of csrc/gotoh.cu (ops/gotoh_kernel.py) with the host aligner's results; the
+seed, the row walk and the votes stay on the host.
 """
 
 from __future__ import annotations
@@ -67,6 +71,42 @@ def align_global(a: str, b: str, full_dp_cells: int = FULL_DP_CELLS_AUTO):
         if error.args != (aligner.REFUSED,):
             raise
     return _align_global_py_auto(a, b, full_dp_cells)
+
+
+def _on_card(device) -> bool:
+    return device is not None and device.type == "cuda"
+
+
+def _card_alignments(center: str, others, device):
+    """gotoh_align_auto of `center` against each of `others` on the card,
+    in one batch in a workspace (a CUDA stream and buffers) that no other
+    thread uses meanwhile, so that the clusters' launches do not queue
+    behind each other on one stream; the pairs and DP cells go to the
+    job's counts `consensus.card_alignments` and `consensus.gotoh_cells`."""
+    from svim_tpu_torch.ops import gotoh_kernel
+
+    encoded = center.encode()
+    with gotoh_kernel.WORKSPACES.borrow(device) as workspace:
+        aligned = gotoh_kernel.gotoh_align_batch(
+            [(encoded, other.encode()) for other in others], device,
+            workspace)
+    timing.count("consensus.card_alignments", aligned.aligned)
+    timing.count("consensus.gotoh_cells", aligned.cells)
+    return aligned
+
+
+def _align_all(center: str, others, device=None):
+    """[align_global(center, other) for other in others]: on the card on a
+    CUDA device, else the host aligner; the pairs with two non-empty sides
+    count as `consensus.card_alignments` or `consensus.host_alignments`."""
+    if _on_card(device):
+        aligned = _card_alignments(center, others, device)
+        return [aligned.rows(k, center, other)
+                for k, other in enumerate(others)]
+    if center:
+        timing.count("consensus.host_alignments",
+                     sum(1 for other in others if other))
+    return [align_global(center, other) for other in others]
 
 
 def _align_global_py_auto(a: str, b: str,
@@ -415,7 +455,7 @@ def _common_affixes(sequences):
     return prefix, suffix
 
 
-def poa_consensus(sequences, refine_rounds=2):
+def poa_consensus(sequences, refine_rounds=2, device=None):
     """Consensus of several similar sequences.
 
     Seed: true partial-order alignment over the native graph aligner
@@ -429,7 +469,8 @@ def poa_consensus(sequences, refine_rounds=2):
     Bytes shared by EVERY sequence at the ends (insertion haplotypes carry
     long identical reference pads) are trimmed before the DP and reattached
     after — they align trivially and vote unanimously, so the consensus is
-    unchanged while every alignment shrinks by the shared flank length."""
+    unchanged while every alignment shrinks by the shared flank length.
+    On a CUDA `device` the polish rounds' alignments run on the card."""
     if len(sequences) > 1:
         prefix, suffix = _common_affixes(sequences)
         if prefix or suffix:
@@ -440,7 +481,7 @@ def poa_consensus(sequences, refine_rounds=2):
             if all(not middle for middle in middles):
                 return head + tail
             if all(middle for middle in middles):
-                core = poa_consensus(middles, refine_rounds)
+                core = poa_consensus(middles, refine_rounds, device)
                 return head + core + tail
             # a sequence reduced to nothing while others did not: fall
             # through to the untrimmed path (rare; empty rows would distort
@@ -453,22 +494,24 @@ def poa_consensus(sequences, refine_rounds=2):
         with timing.span("poa", part=True):
             consensus = poa_consensus_native(sequences)
     if consensus is None:
-        consensus = _star_consensus(sequences)
+        consensus = _star_consensus(sequences, device=device)
     with timing.span("polish", part=True):
         for _ in range(refine_rounds):
             if not consensus:
                 break
-            refined = _polish_round(sequences, consensus)
+            refined = _polish_round(sequences, consensus, device)
             if refined == consensus:
                 break
             consensus = refined
     return consensus
 
 
-def _polish_round(sequences, center):
+def _polish_round(sequences, center, device=None):
     """One vote-polish round: native C++ (alignments + column voting in one
     call), the Python oracle where it returns None — byte-identical results
-    (tests/test_consensus.py pins the differential).
+    (tests/test_consensus.py pins the differential).  On a CUDA `device` the
+    alignments run on the card as one batch and the same C++ votes on them
+    (`star_vote_native`).
 
     Pairs over the align_global DP budget keep the pre-existing contract
     (MemoryError -> consensus status 2) instead of running an unbounded
@@ -477,15 +520,25 @@ def _polish_round(sequences, center):
     if (len(center) + 1) * (largest + 1) > MAX_DP_CELLS_NATIVE:
         raise MemoryError("alignment DP too large: {0}x{1}".format(
             len(center), largest))
+    if _on_card(device) and sequences and center:
+        from svim_tpu_torch.native import star_vote_native
+
+        aligned = _card_alignments(center, sequences, device)
+        return star_vote_native(sequences, center, aligned.ops,
+                                aligned.starts, aligned.lengths)
     from svim_tpu_torch.native import star_polish_native
 
     refined = star_polish_native(sequences, center)
     if refined is not None:
+        if center:
+            timing.count("consensus.host_alignments",
+                         sum(1 for sequence in sequences if sequence))
         return refined
-    return _star_consensus(sequences, center=center)
+    # the oracle aligns (and counts) the pairs itself
+    return _star_consensus(sequences, center=center, device=device)
 
 
-def _star_consensus(sequences, center=None):
+def _star_consensus(sequences, center=None, device=None):
     if len(sequences) == 1 and center is None:
         return sequences[0]
     if center is None:
@@ -507,8 +560,7 @@ def _star_consensus(sequences, center=None):
     else:
         column_chars = [[] for _ in range(center_len)]
 
-    for seq in others:
-        row_center, row_seq = align_global(center, seq)
+    for row_center, row_seq in _align_all(center, others, device):
         pos = 0  # center position
         pending_insert = []
         inserts = {}
@@ -578,12 +630,13 @@ def prepare_consensus_inputs(ins_cluster, reference, window_padding=100):
 
 
 def consensus_from_inputs(inputs, maximum_haplotype_length=10000,
-                          allowed_size_deviation=2.0):
+                          allowed_size_deviation=2.0, device=None):
     """Pure-compute half of the consensus: POA + realignment + acceptance.
-    Thread-safe (native calls on local buffers), so clusters can run on a
-    thread pool.  Its three parts are the running job's spans `poa` (the
-    graph aligner's seed), `polish` and `realign`, parts of the cluster's
-    own span."""
+    Thread-safe (native calls on local buffers, card launches on the
+    thread's own stream), so clusters can run on a thread pool.  Its three
+    parts are the running job's spans `poa` (the graph aligner's seed),
+    `polish` and `realign`, parts of the cluster's own span.  On a CUDA
+    `device` the polish rounds and the realignment align on the card."""
     haplotypes, ref_sequence, window_start, expected_size, cluster_size = inputs
     largest_haplotype_length = max(len(h) for h in haplotypes)
     if largest_haplotype_length > maximum_haplotype_length:
@@ -593,7 +646,7 @@ def consensus_from_inputs(inputs, maximum_haplotype_length=10000,
         return (1, ())
 
     try:
-        consensus_reads = poa_consensus(haplotypes)
+        consensus_reads = poa_consensus(haplotypes, device=device)
     except MemoryError:
         logging.warning("Error: consensus computation ran out of memory for a cluster "
                         "of insertion signatures (size = {0}, maximum haplotype "
@@ -602,8 +655,8 @@ def consensus_from_inputs(inputs, maximum_haplotype_length=10000,
 
     try:
         with timing.span("realign", part=True):
-            consensus_row, ref_row = align_global(consensus_reads,
-                                                  ref_sequence)
+            (consensus_row, ref_row), = _align_all(
+                consensus_reads, [ref_sequence], device)
     except MemoryError:
         logging.warning("Error: consensus realignment ran out of memory for a cluster "
                         "of insertion signatures (size = {0}, maximum haplotype "

@@ -181,7 +181,9 @@ def _add_common_options(parser: argparse.ArgumentParser) -> None:
                            help="Where the array path runs: 'auto' on the CUDA "
                                 "card (an error without one), 'cpu' on the CPU; "
                                 "'host' parses records and runs COLLECT and "
-                                "GENOTYPE in host code with no device pass; 'tpu' "
+                                "GENOTYPE in host code with no device pass (on a "
+                                "card CLUSTER and COMBINE still use it: the "
+                                "consensus aligns there); 'tpu' "
                                 "is refused, this package has no TPU backend "
                                 "(default: %(default)s).")
     execution.add_argument("--edit_backend", type=str, default=d.edit_backend,

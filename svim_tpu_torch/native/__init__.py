@@ -144,6 +144,12 @@ def get_library():
             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
             ctypes.c_float, ctypes.c_float,
             ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+        lib.star_vote.restype = ctypes.c_int
+        lib.star_vote.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
         lib.bam_count.restype = ctypes.c_int
         lib.bam_count.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
@@ -431,6 +437,40 @@ def star_polish_native(sequences, center: str):
                              out, out_cap, ctypes.byref(out_len))
     if status != 0:
         return None
+    return out.raw[:out_len.value].decode()
+
+
+def star_vote_native(sequences, center: str, ops, op_starts, op_lens):
+    """The votes of a polish round (star_polish_native's second half) on
+    alignments made elsewhere: sequence s against `center` is the op string
+    ops[op_starts[s]:op_starts[s] + op_lens[s]] (uint8 states: 0 diagonal,
+    1 gap in the sequence, 2 gap in the center; a sequence of length 0 has
+    none).  Returns the refined consensus, or None when there is nothing to
+    polish; raises when an op string does not spell its two sequences."""
+    import numpy as np
+
+    lib = get_library()
+    if not sequences or not center:
+        return None
+    ops = np.ascontiguousarray(ops, dtype=np.uint8)
+    op_starts = np.ascontiguousarray(op_starts, dtype=np.int64)
+    op_lens = np.ascontiguousarray(op_lens, dtype=np.int64)
+    if len(op_starts) != len(sequences) or len(op_lens) != len(sequences) \
+            or (op_starts < 0).any() or (op_lens < 0).any() \
+            or (op_starts + op_lens > len(ops)).any():
+        raise ValueError("op strings outside their buffer")
+    blob = "".join(sequences).encode()
+    lens = np.array([len(s) for s in sequences], dtype=np.int64)
+    center_bytes = center.encode()
+    out_cap = len(center_bytes) + len(blob) + 64
+    out = ctypes.create_string_buffer(out_cap)
+    out_len = ctypes.c_int64(0)
+    status = lib.star_vote(ops.ctypes.data, op_starts.ctypes.data,
+                           op_lens.ctypes.data, blob, lens.ctypes.data,
+                           len(sequences), center_bytes, len(center_bytes),
+                           out, out_cap, ctypes.byref(out_len))
+    if status != 0:
+        raise RuntimeError("star_vote failed with status {0}".format(status))
     return out.raw[:out_len.value].decode()
 
 

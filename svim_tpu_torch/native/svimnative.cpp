@@ -1650,6 +1650,81 @@ static char vote_column(const unsigned char* chars, int n_chars, int n_rows) {
   return 0;
 }
 
+// Phase 2 of a polish round: walk each member's alignment rows against the
+// center (row_a the center's, row_b the member's) in member order and vote
+// the columns and insertion blocks.  Alignments are independent of each
+// other, so this is the serial formulation's result whatever aligned them
+// (star_polish's host aligner, or the card through star_vote).  A member of
+// length 0 has no rows: it votes '-' in every column.
+static int vote_rows(const char* const* rows_a, const char* const* rows_b,
+                     const int64_t* row_lens, const int64_t* lens, int n_seq,
+                     int64_t center_len, char* out, int64_t out_cap,
+                     int64_t* out_len) {
+  std::vector<std::string> column_chars(center_len);
+  std::vector<std::vector<std::string>> insert_blocks(center_len + 1);
+  for (int64_t p = 0; p < center_len; ++p) column_chars[p].reserve(n_seq);
+
+  for (int s = 0; s < n_seq; ++s) {
+    if (lens[s] == 0) {
+      // align_global("x...", "") = (center, all dashes)
+      for (int64_t p = 0; p < center_len; ++p) column_chars[p].push_back('-');
+      continue;
+    }
+    const char* row_a = rows_a[s];
+    const char* row_b = rows_b[s];
+    int64_t pos = 0;
+    std::string pending;
+    for (int64_t k = 0; k < row_lens[s]; ++k) {
+      const char cc = row_a[k];
+      const char cs = row_b[k];
+      if (cc == '-') {
+        pending.push_back(cs);
+      } else {
+        if (!pending.empty()) {
+          insert_blocks[pos].push_back(pending);
+          pending.clear();
+        }
+        column_chars[pos].push_back(cs);
+        pos++;
+      }
+    }
+    if (!pending.empty()) insert_blocks[pos].push_back(pending);
+  }
+
+  int64_t out_pos = 0;
+  std::vector<unsigned char> col;
+  for (int64_t pos = 0; pos <= center_len; ++pos) {
+    const std::vector<std::string>& blocks = insert_blocks[pos];
+    if (!blocks.empty()) {
+      size_t width = 0;
+      for (const std::string& block : blocks) width = std::max(width, block.size());
+      for (size_t c = 0; c < width; ++c) {
+        col.clear();
+        for (const std::string& block : blocks) {
+          if (c < block.size()) col.push_back((unsigned char)block[c]);
+        }
+        char base = vote_column(col.data(), (int)col.size(), n_seq);
+        if (base) {
+          if (out_pos >= out_cap) return -3;
+          out[out_pos++] = base;
+        }
+      }
+    }
+    if (pos < center_len) {
+      const std::string& chars = column_chars[pos];
+      char base = vote_column((const unsigned char*)chars.data(),
+                              (int)chars.size(), n_seq);
+      if (base) {
+        if (out_pos >= out_cap) return -3;
+        out[out_pos++] = base;
+      }
+    }
+  }
+  *out_len = out_pos;
+  return 0;
+}
+
+
 int star_polish(const char* blob, const int64_t* lens, int n_seq,
                 const char* center, int64_t center_len,
                 float match, float mismatch,
@@ -1716,70 +1791,62 @@ int star_polish(const char* blob, const int64_t* lens, int n_seq,
   }
   if (align_error.load()) return -2;
 
-  // Phase 2: sequential row walk + voting in member order (identical to the
-  // serial formulation — alignments are independent of each other).
-  std::vector<std::string> column_chars(center_len);
-  std::vector<std::vector<std::string>> insert_blocks(center_len + 1);
-  for (int64_t p = 0; p < center_len; ++p) column_chars[p].reserve(n_seq);
-
+  // Phase 2: the row walk and the votes
+  std::vector<const char*> row_a_ptrs(n_seq), row_b_ptrs(n_seq);
+  std::vector<int64_t> row_lens(n_seq);
   for (int s = 0; s < n_seq; ++s) {
-    if (lens[s] == 0) {
-      // align_global("x...", "") = (center, all dashes)
-      for (int64_t p = 0; p < center_len; ++p) column_chars[p].push_back('-');
-      continue;
-    }
-    const std::string& row_a = rows_a[s];
-    const std::string& row_b = rows_b[s];
-    int64_t pos = 0;
-    std::string pending;
-    for (size_t k = 0; k < row_a.size(); ++k) {
-      const char cc = row_a[k];
-      const char cs = row_b[k];
-      if (cc == '-') {
-        pending.push_back(cs);
-      } else {
-        if (!pending.empty()) {
-          insert_blocks[pos].push_back(pending);
-          pending.clear();
-        }
-        column_chars[pos].push_back(cs);
-        pos++;
-      }
-    }
-    if (!pending.empty()) insert_blocks[pos].push_back(pending);
+    row_a_ptrs[s] = rows_a[s].data();
+    row_b_ptrs[s] = rows_b[s].data();
+    row_lens[s] = (int64_t)rows_a[s].size();
   }
+  return vote_rows(row_a_ptrs.data(), row_b_ptrs.data(), row_lens.data(),
+                   lens, n_seq, center_len, out, out_cap, out_len);
+}
 
-  int64_t out_pos = 0;
-  std::vector<unsigned char> col;
-  for (int64_t pos = 0; pos <= center_len; ++pos) {
-    const std::vector<std::string>& blocks = insert_blocks[pos];
-    if (!blocks.empty()) {
-      size_t width = 0;
-      for (const std::string& block : blocks) width = std::max(width, block.size());
-      for (size_t c = 0; c < width; ++c) {
-        col.clear();
-        for (const std::string& block : blocks) {
-          if (c < block.size()) col.push_back((unsigned char)block[c]);
+// star_polish's votes on alignments made elsewhere (the card route): member
+// s's alignment against `center` is the op string ops[op_starts[s] ..
+// op_starts[s] + op_lens[s]) of the traceback's states, 0 a diagonal step
+// (center base against member base), 1 a member gap (center base against
+// '-'), 2 a center gap ('-' against member base), first op first.  Expands
+// each into the two rows and votes as star_polish does.  Returns 0, -1 for
+// nothing to vote on, -3 when `out_cap` is too small, -4 when an op string
+// does not spell its two sequences.
+int star_vote(const uint8_t* ops, const int64_t* op_starts,
+              const int64_t* op_lens, const char* blob, const int64_t* lens,
+              int n_seq, const char* center, int64_t center_len, char* out,
+              int64_t out_cap, int64_t* out_len) {
+  if (center_len <= 0 || n_seq <= 0) return -1;
+  std::vector<std::string> rows_a(n_seq), rows_b(n_seq);
+  std::vector<const char*> row_a_ptrs(n_seq), row_b_ptrs(n_seq);
+  std::vector<int64_t> row_lens(n_seq);
+  int64_t offset = 0;
+  for (int s = 0; s < n_seq; ++s) {
+    const char* member = blob + offset;
+    offset += lens[s];
+    if (lens[s] > 0) {
+      const uint8_t* op = ops + op_starts[s];
+      std::string& row_a = rows_a[s];
+      std::string& row_b = rows_b[s];
+      row_a.resize(op_lens[s]);
+      row_b.resize(op_lens[s]);
+      int64_t i = 0, j = 0;
+      for (int64_t k = 0; k < op_lens[s]; ++k) {
+        const uint8_t state = op[k];
+        if (state > 2 || (state != 2 && i >= center_len)
+            || (state != 1 && j >= lens[s])) {
+          return -4;
         }
-        char base = vote_column(col.data(), (int)col.size(), n_seq);
-        if (base) {
-          if (out_pos >= out_cap) return -3;
-          out[out_pos++] = base;
-        }
+        row_a[k] = state == 2 ? '-' : center[i++];
+        row_b[k] = state == 1 ? '-' : member[j++];
       }
+      if (i != center_len || j != lens[s]) return -4;
     }
-    if (pos < center_len) {
-      const std::string& chars = column_chars[pos];
-      char base = vote_column((const unsigned char*)chars.data(),
-                              (int)chars.size(), n_seq);
-      if (base) {
-        if (out_pos >= out_cap) return -3;
-        out[out_pos++] = base;
-      }
-    }
+    row_a_ptrs[s] = rows_a[s].data();
+    row_b_ptrs[s] = rows_b[s].data();
+    row_lens[s] = (int64_t)rows_a[s].size();
   }
-  *out_len = out_pos;
-  return 0;
+  return vote_rows(row_a_ptrs.data(), row_b_ptrs.data(), row_lens.data(),
+                   lens, n_seq, center_len, out, out_cap, out_len);
 }
 
 // ---------------------------------------------------------------------------

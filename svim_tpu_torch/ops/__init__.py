@@ -15,7 +15,8 @@ KERNEL_COUNTERS = {
     "collect_scan": ("cigar_kernel", "LAUNCHES"),
     "classify_segments": ("segments_kernel", "LAUNCHES"),
     "genotype_support": ("genotype_kernel", "LAUNCHES"),
-    "ins_matrices": ("linkage_kernel", "INS_LAUNCHES")}
+    "ins_matrices": ("linkage_kernel", "INS_LAUNCHES"),
+    "gotoh_align": ("gotoh_kernel", "LAUNCHES")}
 
 
 def _counters():

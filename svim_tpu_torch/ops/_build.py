@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # every kernel source of the port: build(KERNEL_SOURCES) compiles them side
 # by side (chip_smoke.py does, so that its build costs one nvcc's time)
 KERNEL_SOURCES = ("wavefront", "span_distance", "agglomerate", "collect_scan",
-                  "classify_segments", "genotype_support", "ins_matrices")
+                  "classify_segments", "genotype_support", "ins_matrices",
+                  "gotoh")
 
 _lock = threading.Lock()
 _libraries = {}

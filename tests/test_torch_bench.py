@@ -224,6 +224,6 @@ def test_launch_counts_read_and_reset_every_kernel_counter(monkeypatch):
     assert set(ops.KERNEL_COUNTERS) == {
         "wavefront_banded_distance", "span_distance_matrix", "agglomerate",
         "collect_scan", "classify_segments", "genotype_support",
-        "ins_matrices"}
+        "ins_matrices", "gotoh_align"}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
